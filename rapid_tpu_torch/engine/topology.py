@@ -1,0 +1,105 @@
+"""Topology: the K-ring observer/subject graph as index tensors.
+
+Each ring ``k`` orders the slot universe by ``hash64(uid, seed=k)`` with
+the uid as tiebreak. The order is static (identities are fixed at boot),
+so ``ring_permutations`` sorts once on the host and a view change is
+sort-free: gather the member mask into ring order, scan for each
+position's nearest member before and after it (``cummax``/``cummin``),
+and gather back. ``build_topology`` takes any number of leading
+(receiver) axes on ``member``: the per-receiver engine rebuilds every
+receiver's view in one batched call.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rapid_tpu_torch import hashing
+
+
+def ring_permutations(uid_hi, uid_lo, k: int):
+    """The static per-ring sort on the host: ``(ring_order, ring_rank)``,
+    each int32 numpy ``[C, K]``. ``ring_order[p, j]`` is the slot at
+    position ``p`` of ring ``j``; ``ring_rank`` is its inverse. Key:
+    ``hash64(uid, seed=ring)`` primary, uid tiebreak."""
+    uid_hi = uid_hi.cpu()
+    uid_lo = uid_lo.cpu()
+    c = uid_hi.shape[0]
+    hi_np, lo_np = uid_hi.numpy(), uid_lo.numpy()
+    pos = np.arange(c, dtype=np.int32)
+    orders, ranks = [], []
+    for ring in range(k):
+        khi, klo = hashing.hash64_limbs(uid_hi, uid_lo, seed=ring)
+        order = np.lexsort((lo_np, hi_np, klo.numpy(),
+                            khi.numpy())).astype(np.int32)
+        rank = np.empty_like(order)
+        rank[order] = pos
+        orders.append(order)
+        ranks.append(rank)
+    return np.stack(orders, axis=1), np.stack(ranks, axis=1)
+
+
+def _pred_succ_pos(member_s, n):
+    """Nearest-member ring positions from the mask in ring order
+    (``[..., C]``): ``pgpos[p]`` is the last member strictly before ``p``
+    (members) or at-or-before ``p`` (non-members), ``succpos[p]`` the first
+    member strictly after ``p``; both wrap, and an empty view gives 0."""
+    c = member_s.shape[-1]
+    pos = torch.arange(c, dtype=torch.int64, device=member_s.device)
+    lead = member_s.shape[:-1]
+    prev_incl = torch.cummax(
+        torch.where(member_s, pos, -1), dim=-1).values
+    prev_excl = torch.cat(
+        [torch.full(lead + (1,), -1, dtype=torch.int64,
+                    device=member_s.device), prev_incl[..., :-1]], dim=-1)
+    pgpos = torch.where(member_s, prev_excl, prev_incl)
+    lastf = torch.where(n > 0, prev_incl[..., -1], 0)
+    pgpos = torch.where(pgpos < 0, lastf[..., None], pgpos)
+    next_incl = torch.cummin(
+        torch.where(member_s, pos, c).flip(-1), dim=-1).values.flip(-1)
+    next_excl = torch.cat(
+        [next_incl[..., 1:], torch.full(lead + (1,), c, dtype=torch.int64,
+                                        device=member_s.device)], dim=-1)
+    firstf = torch.where(n > 0, next_incl[..., 0], 0)
+    succpos = torch.where(next_excl >= c, firstf[..., None], next_excl)
+    return pgpos, succpos
+
+
+def build_topology(member, ring_order, ring_rank):
+    """``(subj_idx, obs_idx, gk_idx, fd_active, fd_first)``, each
+    ``[..., C, K]`` for ``member`` of shape ``[..., C]``:
+
+    - ``subj_idx[n, j]`` / ``obs_idx[n, j]``: node n's ring-j predecessor /
+      successor among the members (non-member rows point at themselves);
+    - ``gk_idx[n, j]``: a non-member's ring-j join gatekeeper;
+    - ``fd_active[n, j]``: True on the first ring slot of each unique
+      subject; ``fd_first[n, j]`` the first ring slot sharing slot j's
+      subject.
+    """
+    c, k = ring_order.shape
+    member = member.to(torch.bool)
+    n = member.sum(dim=-1)
+    slots = torch.arange(c, dtype=torch.int64, device=member.device)
+    order_all = ring_order.to(torch.int64)
+    rank_all = ring_rank.to(torch.int64)
+    subj_cols, obs_cols, gk_cols = [], [], []
+    for ring in range(k):
+        order = order_all[:, ring]
+        rank = rank_all[:, ring]
+        pgpos, succpos = _pred_succ_pos(member[..., order], n)
+        pg = order[pgpos[..., rank]]
+        succ = order[succpos[..., rank]]
+        subj_cols.append(torch.where(member, pg, slots).to(torch.int32))
+        obs_cols.append(torch.where(member, succ, slots).to(torch.int32))
+        gk_cols.append(torch.where(member, slots, pg).to(torch.int32))
+    usable = member & (n >= 2)[..., None]
+    fd_first_cols, fd_active_cols = [], []
+    for j in range(k):
+        first = torch.full_like(subj_cols[j], j)
+        for i in range(j - 1, -1, -1):
+            first = torch.where(subj_cols[i] == subj_cols[j], i, first)
+        fd_first_cols.append(first)
+        fd_active_cols.append((first == j) & usable)
+    stack = lambda cols: torch.stack(cols, dim=-1)
+    return (stack(subj_cols), stack(obs_cols), stack(gk_cols),
+            stack(fd_active_cols), stack(fd_first_cols))

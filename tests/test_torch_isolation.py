@@ -1,0 +1,76 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points run on the card unless asked otherwise."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import rapid_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rapid_tpu_torch.__path__,
+                                               "rapid_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "rapid_tpu" or m.startswith("rapid_tpu."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    assert "rapid_tpu_torch.engine.receiver" in result["modules"]
+    assert "rapid_tpu_torch.engine.rx_account" in result["modules"]
+
+
+def _entry_points():
+    from rapid_tpu_torch.convert import from_reference
+    from rapid_tpu_torch.engine import receiver, state
+    from rapid_tpu_torch.faults import crash_window_delay_schedule
+    from rapid_tpu_torch.identity import default_identities
+    from rapid_tpu_torch.settings import Settings
+
+    settings = Settings(rx_kernel="pallas")
+    uids, id_fp_sum = default_identities(8)
+    return {
+        "lower_receiver_schedule": lambda: receiver.lower_receiver_schedule(
+            crash_window_delay_schedule(16), settings),
+        "init_receiver_state": lambda: receiver.init_receiver_state(
+            uids, id_fp_sum, settings, seed=1),
+        "link_faults": lambda: state.link_faults([5] * 8, (), 8),
+        "crash_faults": lambda: state.crash_faults([5] * 8),
+        "from_reference": lambda: from_reference(state.EngineFaults(
+            crash_tick=[1, 2])),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_default_device_is_cuda_and_raises_without_one(name, monkeypatch):
+    from rapid_tpu_torch.device import NoCudaDeviceError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaDeviceError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_chip_smoke_alone_fails_without_result(tmp_path):
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
