@@ -18,7 +18,18 @@ Phases, in order; any failure exits non-zero before the result lines:
    launched 7 times per tick, and the whole run equal to the same run
    with the plain version swapped in;
 5. N=4096, 8 ticks with one partition window: peak memory and time per
-   tick.
+   tick;
+6. the shared-state engine (``init_state`` then ``simulate``) at N=1,000,
+   160 ticks of a 1 % crash burst, equal to its golden file
+   (``rapid_tpu_torch/testdata/shared_n1000_crash.json``);
+7. the shared engine's main path at N=100,000: 160 ticks of a 1 % crash
+   burst at tick 5, equal to its golden file (events, every per-tick
+   ``StepLog`` scalar, the expanded counters, the final config id and a
+   SHA-256 of every final-state field), deciding at tick 113 with 99,000
+   members; prints ms per tick (CUDA events), host reads per tick and
+   peak allocated memory;
+8. the same at N=100,000 with probe drop p = 0.3 and a one-way flip-flop
+   window, equal to its golden file.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
@@ -272,6 +283,44 @@ def kernel_times(rx_account, device) -> dict:
     return out
 
 
+def phase_shared(name: str, phase: int, device) -> dict:
+    """One golden scenario through the shared engine's entry points."""
+    import torch
+    from rapid_tpu_torch import device as device_mod
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import simulate
+    from rapid_tpu_torch.settings import Settings
+
+    sc = golden.SHARED[name]
+    state, faults = sc.boot(device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reads = device_mod.host_reads
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    final, logs = simulate(state, faults, golden.SHARED_TICKS, Settings())
+    end.record()
+    end.synchronize()
+    ms_tick = start.elapsed_time(end) / golden.SHARED_TICKS
+    reads = (device_mod.host_reads - reads) / golden.SHARED_TICKS
+    peak = torch.cuda.max_memory_allocated()
+    rec = golden.shared_run_record(name, final, logs)
+    diff = golden.differences(rec, golden.load(sc.path))
+    if diff:
+        raise AssertionError(f"{name} differs from its golden file in "
+                             f"{diff[:8]}")
+    decides = [(e["tick"], len(e["slots"])) for e in rec["events"]
+               if e["kind"] == "view_change"]
+    log(f"phase {phase}: {name} x {golden.SHARED_TICKS} ticks equals its "
+        f"golden file: {ms_tick:.3f} ms/tick, {reads:.3f} host reads/tick, "
+        f"peak {peak / 2**20:.1f} MiB, decides {decides}, "
+        f"{rec['log']['n_member'][-1]} members at the end")
+    return {"n": sc.n, "ticks": golden.SHARED_TICKS, "ms_per_tick": ms_tick,
+            "host_reads_per_tick": reads, "peak_bytes": peak,
+            "decides": decides, "n_member": rec["log"]["n_member"][-1]}
+
+
 def main() -> int:
     try:
         import torch
@@ -310,6 +359,18 @@ def main() -> int:
     main_run = phase_main(rx_account, settings, device)
     wide = phase_wide(settings, device)
     times = kernel_times(rx_account, device)
+    shared = {"n1000": phase_shared("shared_n1000_crash", 6, device)}
+    # The shared engine's main path runs no hand-written kernel: the
+    # count is zeroed before it and read after it all the same.
+    rx_account.launches = 0
+    shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device)
+    shared["n100k_crash"]["rx_account_launches"] = rx_account.launches
+    if shared["n100k_crash"]["decides"] != [(113, 1000)] or \
+            shared["n100k_crash"]["n_member"] != 99_000:
+        raise AssertionError("the N=100,000 burst did not decide at tick "
+                             "113 leaving 99,000 members")
+    shared["n100k_drop_flipflop"] = phase_shared(
+        "shared_n100k_drop_flipflop", 8, device)
 
     kernel = {
         "name": "rx_account",
@@ -329,7 +390,7 @@ def main() -> int:
     }
     log(json.dumps({"main_path": {"n": MAIN_N, "ticks": TICKS, **main_run},
                     "wide": {"n": WIDE_N, "ticks": WIDE_TICKS, **wide},
-                    "card": card}))
+                    "shared": shared, "card": card}))
     print(card)
     print(json.dumps({"kernels": [kernel]}))
     print(json.dumps({"ok": True, "device": {

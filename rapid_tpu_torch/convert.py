@@ -1,10 +1,12 @@
 """Carrying state across between the reference and the port.
 
-``from_reference`` maps a reference NamedTuple (``ReceiverState``,
-``PackedReceiverState``, ``ReceiverStepLog``, ``PackedReceiverBundle``)
-or ``EngineFaults`` of arrays to the port's type on ``device``: 32-bit
+``from_reference`` maps a reference NamedTuple (``EngineState``,
+``StepLog``, ``ReceiverState``, ``PackedReceiverState``,
+``ReceiverStepLog``, ``PackedReceiverBundle``) or ``EngineFaults`` of
+arrays to the port's type on ``device``: 32-bit
 limbs (fields named ``*_hi``/``*_lo``) become masked int64, bool, int8,
-int16, int32 and uint8 keep their dtype. ``to_numpy`` maps the port's
+int16, int32 and uint8 keep their dtype; the faults' drop configuration
+is copied as host values. ``to_numpy`` maps the port's
 NamedTuples back to numpy in the reference's dtypes (uint32 limbs), so
 the two sides compare with ``np.array_equal``. Only duck typing by class
 name is used: this module imports nothing of the reference.
@@ -18,11 +20,12 @@ from rapid_tpu_torch.device import resolve_device
 from rapid_tpu_torch.engine.rx_packed import (
     PackedReceiverBundle, PackedReceiverState)
 from rapid_tpu_torch.engine.state import (
-    EngineFaults, ReceiverState, ReceiverStepLog, is_limb_field)
+    EngineFaults, EngineState, ReceiverState, ReceiverStepLog, StepLog,
+    is_limb_field)
 
 _TYPES = {cls.__name__: cls for cls in
-          (ReceiverState, ReceiverStepLog, PackedReceiverState,
-           PackedReceiverBundle)}
+          (EngineState, StepLog, ReceiverState, ReceiverStepLog,
+           PackedReceiverState, PackedReceiverBundle)}
 
 
 def _leaf_from(name: str, leaf, dev):
@@ -37,7 +40,9 @@ def from_reference(nt, device="cuda"):
     dev = resolve_device(device)
     name = type(nt).__name__
     if name == "EngineFaults":
-        return EngineFaults(**{f: _leaf_from(f, getattr(nt, f, None), dev)
+        config = {f: getattr(nt, f) for f in EngineFaults.DROP_CONFIG}
+        return EngineFaults(**config,
+                            **{f: _leaf_from(f, getattr(nt, f, None), dev)
                                for f in EngineFaults.FIELDS})
     if name == "PackedReceiverBundle":
         return PackedReceiverBundle(
@@ -62,9 +67,12 @@ def _leaf_to(name: str, leaf):
 
 def to_numpy(nt):
     """The port's NamedTuple (same type, numpy leaves) or ``EngineFaults``
-    (a dict of numpy arrays) in the reference's dtypes."""
+    (a dict of numpy arrays and the drop configuration) in the
+    reference's dtypes."""
     if isinstance(nt, EngineFaults):
-        return {f: _leaf_to(f, getattr(nt, f)) for f in EngineFaults.FIELDS}
+        out = {f: _leaf_to(f, getattr(nt, f)) for f in EngineFaults.FIELDS}
+        out.update({f: getattr(nt, f) for f in EngineFaults.DROP_CONFIG})
+        return out
     if isinstance(nt, PackedReceiverBundle):
         return PackedReceiverBundle(packed=to_numpy(nt.packed),
                                     delay_table=_leaf_to("delay_table",

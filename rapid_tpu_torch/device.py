@@ -21,3 +21,17 @@ def resolve_device(device="cuda") -> torch.device:
             "and torch.cuda.is_available() is False; pass device='cpu' to "
             "run the plain-PyTorch path on the CPU")
     return dev
+
+
+#: Device-to-host reads made by ``read_host`` since the last reset. A
+#: read waits for the queued device work, so it is the cost of a host
+#: branch; ``chip_smoke.py`` and ``profile`` report it per tick.
+host_reads = 0
+
+
+def read_host(*scalars):
+    """The values of 0-d integer or bool tensors as Python ints, copied to
+    the host in one transfer (and counted in ``host_reads``)."""
+    global host_reads
+    host_reads += 1
+    return torch.stack([s.to(torch.int64) for s in scalars]).tolist()

@@ -1,8 +1,24 @@
-"""The per-receiver tick engine in PyTorch, with its CUDA delivery kernel.
+"""The tick engines in PyTorch, with the CUDA delivery kernel.
 
-Modules mirror the reference's layout: ``state`` (the carry and the
-faults), ``topology``, ``paxos``, ``monitor``, ``cut``, ``rx_account``
-(the kernel and its plain version), ``receiver`` (the step, boot,
-lowering and host extractors) and ``rx_packed`` (the packed carry and
-the tick loop).
+Modules mirror the reference's layout: ``state`` (the carries, logs and
+faults), ``topology``, ``paxos``, ``monitor``, ``cut``, ``votes``,
+``step`` (the shared-state engine), ``diff`` (host-side events and
+counters of the shared engine), ``rx_account`` (the kernel and its plain
+version), ``receiver`` (the per-receiver step, boot, lowering and host
+extractors) and ``rx_packed`` (the packed carry and its tick loop).
+
+The shared engine's entry points are exported here::
+
+    state = init_state(uids, id_fp_sum, Settings())
+    final, logs = simulate(state, crash_faults(ticks), n_ticks, Settings())
 """
+from rapid_tpu_torch.engine.diff import (
+    ViewEvent, engine_events, expand_counters)
+from rapid_tpu_torch.engine.state import (
+    EngineFaults, EngineState, StepLog, crash_faults, init_state,
+    link_faults, state_config_id)
+from rapid_tpu_torch.engine.step import simulate
+
+__all__ = ["EngineFaults", "EngineState", "StepLog", "ViewEvent",
+           "crash_faults", "engine_events", "expand_counters", "init_state",
+           "link_faults", "simulate", "state_config_id"]

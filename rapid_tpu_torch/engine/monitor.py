@@ -1,8 +1,9 @@
-"""Fault evaluation at a tick: crashes, link windows, link delays.
+"""Fault evaluation at a tick (crashes, link windows, link delays, probe
+drop) and the shared engine's failure-detector interval.
 
-``tick`` is a host int throughout: the per-receiver engine keeps the
-tick on the host (it drives the loop), so ring-slot selection and window
-phases need no device sync.
+``tick`` is a host int throughout: both engines keep the tick on the host
+(it drives the loop), so ring-slot selection, window phases and the drop
+hash's seed need no device sync.
 """
 from __future__ import annotations
 
@@ -100,6 +101,67 @@ def delay_matrix(faults: EngineFaults, tick: int):
         total = torch.maximum(total, torch.where(active, d, 0).to(
             torch.int32))
     return total
+
+
+def edge_drop(faults: EngineFaults, src_idx, dst_idx, uid_hi, uid_lo,
+              tick: int):
+    """bool with the broadcast shape of ``src_idx``/``dst_idx``: the fault
+    model drops the ``src -> dst`` probe at ``tick``.
+
+    Drop iff the high limb of ``hash64(src_uid ^ hash64(dst_uid,
+    seed=tick), seed=drop_seed ^ 0xD809F)`` is below ``drop_p * 2**32``.
+    The reference seeds the inner hash with the tick as a uint32 limb
+    pair on the device; here the tick is a host int, so the seed's
+    splitmix64 is taken on the host (``hash64_limbs``), which is the
+    same hash. ``drop_p == 0`` builds nothing.
+    """
+    shape = torch.broadcast_shapes(src_idx.shape, dst_idx.shape)
+    if faults.drop_p <= 0.0:
+        return torch.zeros(shape, dtype=torch.bool, device=uid_hi.device)
+    src_idx = src_idx.long()
+    dst_idx = dst_idx.long()
+    thi, tlo = hashing.hash64_limbs(uid_hi[dst_idx], uid_lo[dst_idx],
+                                    seed=tick & hashing.MASK32)
+    rhi, _ = hashing.hash64_limbs(uid_hi[src_idx] ^ thi,
+                                  uid_lo[src_idx] ^ tlo,
+                                  seed=faults.drop_seed ^ 0xD809F)
+    drop = rhi < (int(faults.drop_p * float(1 << 32)) & hashing.MASK32)
+    if faults.drop_targets is not None:
+        applies = torch.zeros(shape, dtype=torch.bool, device=uid_hi.device)
+        if faults.drop_ingress:
+            applies = applies | faults.drop_targets[dst_idx]
+        if faults.drop_egress:
+            applies = applies | faults.drop_targets[src_idx]
+        drop = drop & applies
+    return drop
+
+
+def monitor_tick(state, faults: EngineFaults, settings, tick: int):
+    """One failure-detector interval of every node of the shared state at
+    ``tick`` (``state.tick`` as a host int).
+
+    Returns ``(fc, notified, notify_expanded, probes_sent,
+    probes_failed)``: a saturated counter notifies once and stops
+    probing; every other active edge probes its subject and counts a
+    failure when either end is crashed, a link window blocks it, or the
+    drop model drops it; ``notify_expanded`` fans each notification out
+    to every ring of that subject (``fd_first``).
+    """
+    crashed = crashed_at(faults, tick)
+    subj = state.subj_idx.long()
+    obs = torch.arange(subj.shape[0], device=subj.device)[:, None]
+    probe_fail = (crashed[subj] | crashed[:, None]
+                  | link_blocked(faults, obs, subj, tick)
+                  | edge_drop(faults, obs, subj, state.uid_hi, state.uid_lo,
+                              tick))
+    at_threshold = state.fc >= settings.fd_failure_threshold
+    probing = state.fd_active & ~at_threshold
+    notify_now = state.fd_active & at_threshold & ~state.notified
+    failed = probing & probe_fail
+    fc = torch.where(failed, state.fc + 1, state.fc)
+    notify_expanded = torch.gather(notify_now, 1, state.fd_first.long())
+    return (fc, state.notified | notify_now, notify_expanded,
+            probing.sum().to(torch.int32), failed.sum().to(torch.int32))
 
 
 def partitioned_edge_count(faults: EngineFaults, member, tick: int):

@@ -18,8 +18,9 @@ sticky ``flags`` bits instead of diverging silently (``check_flags``).
 
 Where the reference lowers to one XLA program, the port runs eagerly:
 the tick loop is a host loop (``rx_packed.simulate``), the tick is a host
-int, and the two data-dependent branches (the cut fixpoint and the
-topology rebuild after decides) read a 0-d tensor on the host. Work that
+int, and the data-dependent branch (the topology rebuild after decides)
+reads a 0-d tensor on the host; the cut fixpoint takes one masked pass
+(``cut._invalidate``). Work that
 the reference does on rows that cannot change (decide waves that decide
 nothing, fingerprint matches of empty rows) is skipped after such a
 check; what it skips is provably the identity. The reference's two

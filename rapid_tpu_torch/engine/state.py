@@ -1,8 +1,11 @@
-"""Per-receiver engine state: the slot universe, the carry, the faults.
+"""Engine state: the slot universe, the carries, the logs, the faults.
 
-Field for field the reference's ``ReceiverState`` and ``ReceiverStepLog``
-(see ``rapid_tpu.engine.state`` for the meaning of every field), as
-NamedTuples of tensors. Dtypes follow the reference with one change:
+Field for field the reference's ``EngineState`` and ``StepLog`` (the
+shared-state engine) and ``ReceiverState`` and ``ReceiverStepLog`` (the
+per-receiver engine); see ``rapid_tpu.engine.state`` for the meaning of
+every field. They are NamedTuples of tensors, and a field that is a
+scalar in the reference is a 0-d tensor here. Dtypes follow the reference
+with one change:
 every 64-bit value is a ``(hi, lo)`` pair of 32-bit limbs, and the port
 carries each limb as ``int64`` holding ``[0, 2**32)`` (see ``hashing``).
 Those fields are exactly the ones whose names end in ``_hi`` or ``_lo``.
@@ -33,7 +36,7 @@ def flag_bit(cond, bit: int):
 
 
 class EngineFaults:
-    """Crash ticks plus link-window and delay-rule tensors.
+    """Crash ticks, probe drop, link-window and delay-rule tensors.
 
     ``crash_tick[n]`` is the tick at/after which slot ``n`` is crashed
     (``I32_MAX`` = never). Window ``w`` blocks ``src -> dst`` at tick ``t``
@@ -44,15 +47,30 @@ class EngineFaults:
     ``src -> dst`` sends by ``delay_base`` (``delay_rev`` on the reverse,
     -1 = none) plus a hashed jitter in ``[0, delay_jit]``. ``None`` leaves
     mean no windows (W = 0) or no rules (R = 0).
+
+    The probe-drop configuration (``monitor.edge_drop``) is host data, as
+    in the reference, where it is static: ``drop_p`` is the drop
+    probability (0 = no drop), ``drop_seed`` keys the per-(edge, tick)
+    hash, and ``drop_targets`` (bool [C] tensor, None = every slot)
+    limits drops to probes into (``drop_ingress``) or out of
+    (``drop_egress``) the target slots.
     """
 
-    FIELDS = ("crash_tick", "link_src", "link_dst", "link_start",
-              "link_end", "link_period", "link_two_way", "delay_src",
-              "delay_dst", "delay_base", "delay_rev", "delay_jit",
-              "delay_start", "delay_end", "delay_seed_hi", "delay_seed_lo")
+    FIELDS = ("crash_tick", "drop_targets", "link_src", "link_dst",
+              "link_start", "link_end", "link_period", "link_two_way",
+              "delay_src", "delay_dst", "delay_base", "delay_rev",
+              "delay_jit", "delay_start", "delay_end", "delay_seed_hi",
+              "delay_seed_lo")
+    DROP_CONFIG = ("drop_p", "drop_seed", "drop_ingress", "drop_egress")
 
-    def __init__(self, crash_tick, **kw) -> None:
+    def __init__(self, crash_tick, drop_p: float = 0.0, drop_seed: int = 0,
+                 drop_ingress: bool = True, drop_egress: bool = True,
+                 **kw) -> None:
         self.crash_tick = crash_tick
+        self.drop_p = float(drop_p)
+        self.drop_seed = int(drop_seed)
+        self.drop_ingress = bool(drop_ingress)
+        self.drop_egress = bool(drop_egress)
         for name in self.FIELDS[1:]:
             setattr(self, name, kw.pop(name, None))
         if kw:
@@ -65,6 +83,120 @@ class EngineFaults:
     @property
     def n_delay_rules(self) -> int:
         return 0 if self.delay_src is None else int(self.delay_src.shape[0])
+
+
+class EngineState(NamedTuple):
+    """The shared-state engine's carry: one view, one cut detector and one
+    fast round stand in for every alive receiver's copy."""
+
+    tick: object                      # i32
+    member: object                    # bool [C]
+    uid_hi: object                    # limb [C]
+    uid_lo: object
+    mfp_hi: object                    # limb [C] member fingerprints
+    mfp_lo: object
+    idfp_hi: object                   # limb [C] identifier fingerprints
+    idfp_lo: object
+    idsum_hi: object                  # limb: identifier-fingerprint sum
+    idsum_lo: object
+    memsum_hi: object                 # limb: member-fingerprint sum
+    memsum_lo: object
+    ring_order: object                # i32 [C, K]
+    ring_rank: object                 # i32 [C, K]
+    subj_idx: object                  # i32 [C, K]
+    obs_idx: object                   # i32 [C, K]
+    gk_idx: object                    # i32 [C, K]
+    fd_active: object                 # bool [C, K]
+    fd_first: object                  # i32 [C, K]
+    fc: object                        # i32 [C, K] failure counters
+    notified: object                  # bool [C, K]
+    fd_gate: object                   # i32: probes only at t > fd_gate
+    pending_flush: object             # bool [C, K]
+    pending_deliver: object           # bool [C, K]
+    churn_flush: object               # bool [C]
+    churn_deliver: object             # bool [C]
+    reports: object                   # bool [C, K] per (dst, ring)
+    seen_down: object                 # bool
+    announced: object                 # bool
+    proposal: object                  # bool [C]
+    announce_tick: object             # i32
+    vote_pending: object              # bool
+    voters: object                    # bool [C]
+    phash_hi: object                  # limb: proposal fingerprint
+    phash_lo: object
+    epoch: object                     # i32
+    px_rnd_r: object                  # i32 [C] classic-Paxos fields, inert
+    px_rnd_i: object                  # without a fallback schedule
+    px_vrnd_r: object
+    px_vrnd_i: object
+    px_vval: object
+    px_crnd_r: object
+    px_crnd_i: object
+    px_cval: object
+    px_timer: object
+    px_pos: object                    # i32 [C] ring-0 position
+    c1a_tick: object                  # i32
+    c1a_coord: object
+    c1a_rank_r: object
+    c1a_rank_i: object
+    c1a_epoch: object
+    c1b_tick: object
+    c1b_epoch: object
+    c1b_mask: object                  # bool [C]
+    c2a_tick: object                  # i32
+    c2a_rank_r: object
+    c2a_rank_i: object
+    c2a_pid: object
+    c2a_epoch: object
+    c2b_tick: object
+    c2b_cnt: object
+    c2b_pid: object
+    c2b_epoch: object
+
+
+class StepLog(NamedTuple):
+    """Per-tick outputs of the shared step: counter *factors* (the host
+    multiplies them, ``diff.expand_counters``) and end-of-tick gauges."""
+
+    tick: object                      # i32
+    announce_now: object              # bool
+    proposal: object                  # bool [C]
+    decide_now: object                # bool
+    decision: object                  # bool [C]
+    config_hi: object                 # limb: config id after this tick
+    config_lo: object
+    n_member: object                  # i32, and i32 below
+    probes_sent: object
+    probes_failed: object
+    flushers: object
+    flush_recipients: object
+    flushers_alive: object
+    deliver_alive: object
+    vote_senders: object
+    vote_recipients: object
+    vote_senders_alive: object
+    vote_deliver_alive: object
+    alerts_in_flight: object
+    cut_reports: object
+    implicit_reports: object
+    vote_tally: object
+    quorum: object
+    epoch: object
+    churn_injected: object
+    partitioned_edges: object
+    link_dropped: object
+    pxvote_senders: object
+    pxvote_recipients: object
+    px1a_senders: object
+    px1a_recipients: object
+    px1b_senders: object
+    px2a_senders: object
+    px2a_recipients: object
+    px2b_senders: object
+    px2b_recipients: object
+    px_timers_armed: object
+    px_coord_round: object
+    inv_bits: object
 
 
 class ReceiverState(NamedTuple):
@@ -266,6 +398,84 @@ def boot_identity(uids: Sequence[int], id_fp_sum: int, settings: Settings,
         memsum_hi=scalar(msh), memsum_lo=scalar(msl),
         ring_order=torch.from_numpy(ring_order).to(dev),
         ring_rank=torch.from_numpy(ring_rank).to(dev))
+
+
+def state_config_id(state: EngineState) -> int:
+    """Current configuration id of the shared state as a Python int."""
+    hi, lo = config_id_limbs(state.idsum_hi, state.idsum_lo,
+                             state.memsum_hi, state.memsum_lo)
+    return hashing.from_limbs(int(hi), int(lo))
+
+
+def init_state(uids: Sequence[int], id_fp_sum: int, settings: Settings,
+               start_tick: int = 0, member: Optional[Sequence[bool]] = None,
+               id_fps: Optional[Sequence[int]] = None,
+               device="cuda") -> EngineState:
+    """The shared engine's state for a converged membership plus dormant
+    slots, on ``device``.
+
+    ``uids`` are the 64-bit node identities in slot order and
+    ``id_fp_sum`` the identifier-fingerprint sum of the initial members;
+    ``member`` marks the initially active slots (default: all) and
+    ``id_fps`` each slot's identifier fingerprint, added to the sum when
+    its join is decided. ``settings.capacity`` beyond ``len(uids)`` pads
+    the universe with inert dormant slots, as the reference does.
+    """
+    from rapid_tpu_torch.engine.paxos import ring0_positions
+    from rapid_tpu_torch.engine.topology import build_topology
+
+    boot = boot_identity(uids, id_fp_sum, settings, member=member,
+                         device=device)
+    dev = boot.member.device
+    c = boot.member.shape[0]
+    k = settings.K
+    ifp = np.zeros(c, np.uint64)
+    if id_fps is not None:
+        ifp[:len(id_fps)] = np.asarray(id_fps, dtype=np.uint64)
+    ifp_hi, ifp_lo = hashing.np_to_limbs(ifp)
+    subj_idx, obs_idx, gk_idx, fd_active, fd_first = build_topology(
+        boot.member, boot.ring_order, boot.ring_rank)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    i32 = lambda v: full((), v, torch.int32)
+    i32c = lambda v: full((c,), v, torch.int32)
+    limb0 = lambda: full((), 0, torch.int64)
+    false = lambda shape=(): full(shape, False, torch.bool)
+    return EngineState(
+        tick=i32(start_tick), member=boot.member,
+        uid_hi=boot.uid_hi, uid_lo=boot.uid_lo,
+        mfp_hi=boot.mfp_hi, mfp_lo=boot.mfp_lo,
+        idfp_hi=torch.from_numpy(ifp_hi.astype(np.int64)).to(dev),
+        idfp_lo=torch.from_numpy(ifp_lo.astype(np.int64)).to(dev),
+        idsum_hi=boot.idsum_hi, idsum_lo=boot.idsum_lo,
+        memsum_hi=boot.memsum_hi, memsum_lo=boot.memsum_lo,
+        ring_order=boot.ring_order, ring_rank=boot.ring_rank,
+        subj_idx=subj_idx, obs_idx=obs_idx, gk_idx=gk_idx,
+        fd_active=fd_active, fd_first=fd_first,
+        fc=full((c, k), 0, torch.int32), notified=false((c, k)),
+        fd_gate=i32(start_tick),
+        pending_flush=false((c, k)), pending_deliver=false((c, k)),
+        churn_flush=false((c,)), churn_deliver=false((c,)),
+        reports=false((c, k)), seen_down=false(), announced=false(),
+        proposal=false((c,)), announce_tick=i32(-1),
+        vote_pending=false(), voters=false((c,)),
+        phash_hi=limb0(), phash_lo=limb0(), epoch=i32(0),
+        px_rnd_r=i32c(0), px_rnd_i=i32c(0),
+        px_vrnd_r=i32c(0), px_vrnd_i=i32c(0), px_vval=i32c(-1),
+        px_crnd_r=i32c(0), px_crnd_i=i32c(0), px_cval=i32c(-1),
+        px_timer=i32c(I32_MAX),
+        px_pos=ring0_positions(boot.member, boot.ring_order,
+                               boot.ring_rank),
+        c1a_tick=i32(I32_MAX), c1a_coord=i32(0), c1a_rank_r=i32(0),
+        c1a_rank_i=i32(0), c1a_epoch=i32(-1),
+        c1b_tick=i32(I32_MAX), c1b_epoch=i32(-1), c1b_mask=false((c,)),
+        c2a_tick=i32(I32_MAX), c2a_rank_r=i32(0), c2a_rank_i=i32(0),
+        c2a_pid=i32(-1), c2a_epoch=i32(-1),
+        c2b_tick=i32(I32_MAX), c2b_cnt=i32(0), c2b_pid=i32(-1),
+        c2b_epoch=i32(-1),
+    )
 
 
 def crash_faults(crash_ticks: Sequence[int], device="cuda") -> EngineFaults:

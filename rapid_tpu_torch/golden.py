@@ -1,21 +1,98 @@
-"""The committed golden run that holds the card to the reference.
+"""The committed golden runs that hold the card to the reference.
 
-``testdata/rx_n64_golden.json`` records the reference engine's per-tick
-counters, per-tick phase counters, per-slot events and final config ids
-on ``faults.crash_window_delay_schedule(64)`` over 160 ticks. A CPU test
-regenerates it from the reference and checks it is unchanged;
-``chip_smoke.py`` compares the port's run on the card against it.
+``testdata/rx_n64_golden.json`` records the reference's per-receiver
+engine on ``faults.crash_window_delay_schedule(64)`` over 160 ticks:
+per-tick counters and phase counters, per-slot events and final config
+ids. ``testdata/shared_*.json`` record the reference's shared engine on
+the ``SHARED`` scenarios over 160 ticks: events, every per-tick scalar of
+``StepLog``, the expanded counters, the final config id and a SHA-256 of
+every final-state field. CPU tests regenerate the files from the
+reference (the N=1,000 one is also held against the port's CPU run);
+``chip_smoke.py`` compares the port's runs on the card against them.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+from dataclasses import dataclass
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Tuple
 
-GOLDEN_PATH = Path(__file__).resolve().parent / "testdata" / \
-    "rx_n64_golden.json"
+import numpy as np
+
+from rapid_tpu_torch.faults import LinkWindow
+
+TESTDATA = Path(__file__).resolve().parent / "testdata"
+GOLDEN_PATH = TESTDATA / "rx_n64_golden.json"
 GOLDEN_N = 64
 GOLDEN_TICKS = 160
+SHARED_TICKS = 160
+I32_MAX = (1 << 31) - 1
+
+
+@dataclass(frozen=True)
+class SharedScenario:
+    """One shared-engine run: ``n`` slots with ``synthetic_uids(n)`` and
+    identifier sum 0, default ``Settings()``. Slots
+    ``range(0, n, crash_every)`` crash at ``crash_tick`` (none when
+    ``crash_every`` is 0); ``drop_p``/``drop_seed`` drop probes;
+    ``flip_flop`` adds one one-way window from the first ``n // 100``
+    slots to the rest, from tick 20, flipping every 20 ticks."""
+
+    name: str
+    n: int
+    crash_every: int = 0
+    crash_tick: int = 5
+    drop_p: float = 0.0
+    drop_seed: int = 0
+    flip_flop: bool = False
+
+    @property
+    def path(self) -> Path:
+        return TESTDATA / f"{self.name}.json"
+
+    def crash_ticks(self) -> List[int]:
+        ticks = [I32_MAX] * self.n
+        if self.crash_every:
+            for slot in range(0, self.n, self.crash_every):
+                ticks[slot] = self.crash_tick
+        return ticks
+
+    def windows(self) -> Tuple[LinkWindow, ...]:
+        if not self.flip_flop:
+            return ()
+        cut = self.n // 100
+        return (LinkWindow(src_slots=frozenset(range(cut)),
+                           dst_slots=frozenset(range(cut, self.n)),
+                           start_tick=20, period_ticks=20),)
+
+    def boot(self, device="cuda"):
+        """The port's boot state and faults of this scenario."""
+        from rapid_tpu_torch.engine.state import (
+            EngineFaults, init_state, link_faults)
+        from rapid_tpu_torch.identity import synthetic_uids
+        from rapid_tpu_torch.settings import Settings
+
+        state = init_state(synthetic_uids(self.n), 0, Settings(),
+                           device=device)
+        base = link_faults(self.crash_ticks(), self.windows(), self.n,
+                           device=device)
+        faults = EngineFaults(
+            drop_p=self.drop_p, drop_seed=self.drop_seed,
+            **{f: getattr(base, f) for f in EngineFaults.FIELDS})
+        return state, faults
+
+
+SHARED = {sc.name: sc for sc in (
+    # BASELINE configuration 2: 1k nodes, a 1 % crash burst.
+    SharedScenario("shared_n1000_crash", 1000, crash_every=100),
+    # The same burst at 100k nodes.
+    SharedScenario("shared_n100k_crash", 100_000, crash_every=100),
+    # BASELINE configuration 4: 100k nodes, flip-flop reachability with
+    # probabilistic probe drop p = 0.3.
+    SharedScenario("shared_n100k_drop_flipflop", 100_000, drop_p=0.3,
+                   drop_seed=7, flip_flop=True),
+)}
 
 
 def record(events, counters, phase_counters, config_ids, n: int) -> dict:
@@ -42,8 +119,50 @@ def run_record(final, logs, n: int) -> dict:
                   receiver.receiver_config_ids(final), n)
 
 
-def load() -> dict:
-    return json.loads(GOLDEN_PATH.read_text())
+def load(path: Path = GOLDEN_PATH) -> dict:
+    return json.loads(path.read_text())
+
+
+def state_digests(state) -> Dict[str, str]:
+    """SHA-256 of each field of a NamedTuple of numpy arrays (reference
+    dtypes), over its dtype, shape and bytes."""
+    out = {}
+    for name in state._fields:
+        arr = np.asarray(getattr(state, name))
+        h = hashlib.sha256(f"{arr.dtype}{arr.shape}".encode())
+        h.update(arr.tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def shared_record(name: str, events, logs, counters, config_id: int,
+                  final) -> dict:
+    """Canonical JSON-ready form of one shared-engine run: ``events`` as
+    dicts, ``logs`` and ``final`` NamedTuples of numpy arrays in the
+    reference's dtypes, ``counters`` the expanded per-tick counts."""
+    scalars = {f: [int(v) for v in np.asarray(getattr(logs, f))]
+               for f in logs._fields if np.ndim(getattr(logs, f)) == 1}
+    return {
+        "name": name,
+        "ticks": len(counters),
+        "events": [dict(e) for e in events],
+        "log": scalars,
+        "counters": [dict(row) for row in counters],
+        "config_id": int(config_id),
+        "state_sha256": state_digests(final),
+    }
+
+
+def shared_run_record(name: str, final, logs) -> dict:
+    """``shared_record`` of a port run (final state and stacked logs)."""
+    from rapid_tpu_torch.convert import to_numpy
+    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.engine.state import state_config_id
+
+    return shared_record(
+        name, [e.as_dict() for e in diff.engine_events(logs)],
+        to_numpy(logs), diff.expand_counters(logs), state_config_id(final),
+        to_numpy(final))
 
 
 def dumps(rec: dict) -> str:
@@ -58,7 +177,9 @@ def differences(got: dict, want: dict) -> List[str]:
         a, b = got.get(key), want.get(key)
         if a == b:
             continue
-        if isinstance(a, list) and isinstance(b, list):
+        if isinstance(a, dict) and isinstance(b, dict):
+            out.extend(f"{key}.{sub}" for sub in differences(a, b))
+        elif isinstance(a, list) and isinstance(b, list):
             first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                          min(len(a), len(b)))
             out.append(f"{key}[{first}]")

@@ -3,13 +3,17 @@
 Own copies of the reference's endpoint and node-id conventions
 (``nX.sim:5000`` endpoints, ``NodeId(i + 1, (i + 1) * 7919)``) and of the
 hashes that turn them into slot uids and the identifier-fingerprint sum
-that configuration ids fold in. Endpoints and node ids are plain tuples
+that configuration ids fold in; and the synthetic uids of large
+benchmark universes. Endpoints and node ids are plain tuples
 here: ``(hostname, port)`` and ``(high, low)``.
 """
 from __future__ import annotations
 
 import functools
 from typing import List, Tuple
+
+import numpy as np
+import torch
 
 from rapid_tpu_torch import hashing
 
@@ -62,3 +66,14 @@ def default_identities(n: int) -> Tuple[List[int], int]:
     """``(uids, id_fp_sum)`` of the default n-slot universe."""
     uids, id_fp_sum = _default_identities(n)
     return list(uids), id_fp_sum
+
+
+def synthetic_uids(n: int, seed: int = 0) -> np.ndarray:
+    """Distinct 64-bit identities without hashing n hostnames: the hash
+    of ``1..n`` under seed ``0xBEEF ^ (seed & 0xFFFF)``, as the reference's
+    engine benchmark boots its clusters (uint64 numpy)."""
+    ids = torch.arange(1, n + 1, dtype=torch.int64)
+    hi, lo = hashing.hash64_limbs(ids >> 32, ids & hashing.MASK32,
+                                  seed=0xBEEF ^ (seed & 0xFFFF))
+    return ((hi.numpy().astype(np.uint64) << np.uint64(32))
+            | lo.numpy().astype(np.uint64))

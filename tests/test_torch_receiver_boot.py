@@ -180,7 +180,13 @@ def test_link_faults_and_from_reference_agree():
     carried = from_reference(ref, device="cpu")
     assert port.n_windows == ref.n_windows == 1
     assert port.n_delay_rules == ref.n_delay_rules == 1
-    for field, want in to_numpy(port).items():
+    arrays = to_numpy(port)
+    for field in port.DROP_CONFIG:
+        assert arrays.pop(field) == getattr(ref, field) == \
+            getattr(carried, field)
+    assert arrays.pop("drop_targets") is None
+    assert ref.drop_targets is None and carried.drop_targets is None
+    for field, want in arrays.items():
         got = np.asarray(getattr(ref, field))
         assert want.dtype == got.dtype and np.array_equal(want, got), field
         assert torch.equal(getattr(carried, field), getattr(port, field))
