@@ -29,7 +29,23 @@ Phases, in order; any failure exits non-zero before the result lines:
    members; prints ms per tick (CUDA events), host reads per tick and
    peak allocated memory;
 8. the same at N=100,000 with probe drop p = 0.3 and a one-way flip-flop
-   window, equal to its golden file.
+   window, equal to its golden file;
+9. churn at N=100,000: 100,096 slots, 24 alternating join and leave
+   bursts of 8 slots (``churn.synthetic_churn_schedule``) through
+   ``init_state(member=, id_fps=)`` and ``simulate(churn=)``, 160 ticks,
+   equal to ``shared_n100k_churn.json``, 24 decides and 100,000 members
+   at the end;
+10. contested consensus at N=100,000: 8 scripted split votes
+    (``paxos.synthetic_contested_schedule``) through
+    ``simulate(fallback=)``, 160 ticks, equal to
+    ``shared_n100k_contested.json``, 8 decides by the classic round (the
+    first at tick 19) and 99,992 members; prints the per-phase message
+    totals.
+
+Phases 6-10 print ms per tick (CUDA events around ``simulate``), host
+reads per tick, peak allocated memory, the decides and the setup seconds
+(the schedule and ``init_state``), and count the hand-written kernel's
+launches in each (none: the shared engine has no kernel).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
@@ -283,42 +299,59 @@ def kernel_times(rx_account, device) -> dict:
     return out
 
 
-def phase_shared(name: str, phase: int, device) -> dict:
-    """One golden scenario through the shared engine's entry points."""
+def phase_shared(name: str, phase: int, device, rx_account) -> dict:
+    """One golden scenario through the shared engine's entry points, with
+    the kernel's launch count zeroed just before the run and read after."""
     import torch
     from rapid_tpu_torch import device as device_mod
     from rapid_tpu_torch import golden
-    from rapid_tpu_torch.engine import simulate
+    from rapid_tpu_torch.engine import diff, simulate
     from rapid_tpu_torch.settings import Settings
 
     sc = golden.SHARED[name]
-    state, faults = sc.boot(device=device)
+    boot = sc.boot(device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reads = device_mod.host_reads
+    rx_account.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    final, logs = simulate(state, faults, golden.SHARED_TICKS, Settings())
+    final, logs = simulate(boot.state, boot.faults, golden.SHARED_TICKS,
+                           Settings(), churn=boot.churn,
+                           fallback=boot.fallback)
     end.record()
     end.synchronize()
+    launches = rx_account.launches
     ms_tick = start.elapsed_time(end) / golden.SHARED_TICKS
     reads = (device_mod.host_reads - reads) / golden.SHARED_TICKS
     peak = torch.cuda.max_memory_allocated()
     rec = golden.shared_run_record(name, final, logs)
-    diff = golden.differences(rec, golden.load(sc.path))
-    if diff:
+    diff_ = golden.differences(rec, golden.load(sc.path))
+    if diff_:
         raise AssertionError(f"{name} differs from its golden file in "
-                             f"{diff[:8]}")
+                             f"{diff_[:8]}")
+    phases = diff.expand_fallback_counters(logs)
     decides = [(e["tick"], len(e["slots"])) for e in rec["events"]
                if e["kind"] == "view_change"]
+    # A classic decide lands with the phase-2b messages.
+    classic = [t for t, _ in decides if phases[t - 1]["phase2b_delivered"]]
+    totals = {key: sum(row[key] for row in phases) for key in phases[0]
+              if key.endswith("_sent")}
     log(f"phase {phase}: {name} x {golden.SHARED_TICKS} ticks equals its "
         f"golden file: {ms_tick:.3f} ms/tick, {reads:.3f} host reads/tick, "
-        f"peak {peak / 2**20:.1f} MiB, decides {decides}, "
-        f"{rec['log']['n_member'][-1]} members at the end")
+        f"peak {peak / 2**20:.1f} MiB, setup {boot.setup_s:.2f} s, "
+        f"decides {decides}, {len(classic)} by the classic round, "
+        f"{rec['log']['n_member'][-1]} members at the end, "
+        f"{launches} kernel launches")
+    if boot.fallback is not None:
+        log(f"phase {phase}: consensus messages sent by phase {totals}")
     return {"n": sc.n, "ticks": golden.SHARED_TICKS, "ms_per_tick": ms_tick,
             "host_reads_per_tick": reads, "peak_bytes": peak,
-            "decides": decides, "n_member": rec["log"]["n_member"][-1]}
+            "setup_s": boot.setup_s, "decides": decides,
+            "classic_decides": classic, "phase_sent": totals,
+            "n_member": rec["log"]["n_member"][-1],
+            "rx_account_launches": launches}
 
 
 def main() -> int:
@@ -359,18 +392,31 @@ def main() -> int:
     main_run = phase_main(rx_account, settings, device)
     wide = phase_wide(settings, device)
     times = kernel_times(rx_account, device)
-    shared = {"n1000": phase_shared("shared_n1000_crash", 6, device)}
-    # The shared engine's main path runs no hand-written kernel: the
-    # count is zeroed before it and read after it all the same.
-    rx_account.launches = 0
-    shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device)
-    shared["n100k_crash"]["rx_account_launches"] = rx_account.launches
+    shared = {"n1000": phase_shared("shared_n1000_crash", 6, device,
+                                    rx_account)}
+    # The shared engine's paths run no hand-written kernel: each phase
+    # zeroes the count before its run and reads it after all the same.
+    shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device,
+                                         rx_account)
     if shared["n100k_crash"]["decides"] != [(113, 1000)] or \
             shared["n100k_crash"]["n_member"] != 99_000:
         raise AssertionError("the N=100,000 burst did not decide at tick "
                              "113 leaving 99,000 members")
     shared["n100k_drop_flipflop"] = phase_shared(
-        "shared_n100k_drop_flipflop", 8, device)
+        "shared_n100k_drop_flipflop", 8, device, rx_account)
+    churn = shared["n100k_churn"] = phase_shared(
+        "shared_n100k_churn", 9, device, rx_account)
+    if len(churn["decides"]) != 24 or churn["n_member"] != 100_000:
+        raise AssertionError("the churn run did not decide 24 bursts "
+                             "leaving 100,000 members")
+    contested = shared["n100k_contested"] = phase_shared(
+        "shared_n100k_contested", 10, device, rx_account)
+    if len(contested["classic_decides"]) != 8 or \
+            len(contested["decides"]) != 8 or \
+            contested["classic_decides"][0] != 19 or \
+            contested["n_member"] != 99_992:
+        raise AssertionError("the contested run did not decide 8 classic "
+                             "rounds from tick 19 leaving 99,992 members")
 
     kernel = {
         "name": "rx_account",

@@ -2,11 +2,14 @@
 
 ``from_reference`` maps a reference NamedTuple (``EngineState``,
 ``StepLog``, ``ReceiverState``, ``PackedReceiverState``,
-``ReceiverStepLog``, ``PackedReceiverBundle``) or ``EngineFaults`` of
-arrays to the port's type on ``device``: 32-bit
+``ReceiverStepLog``, ``PackedReceiverBundle``, and the schedules
+``ChurnSchedule`` and ``FallbackSchedule``, the reference's or the port's
+own host half's) or ``EngineFaults`` of arrays to the port's type on
+``device``: 32-bit
 limbs (fields named ``*_hi``/``*_lo``) become masked int64, bool, int8,
 int16, int32 and uint8 keep their dtype; the faults' drop configuration
-is copied as host values. ``to_numpy`` maps the port's
+is copied as host values, and a schedule's absent (None) fields stay
+None. ``to_numpy`` maps the port's
 NamedTuples back to numpy in the reference's dtypes (uint32 limbs), so
 the two sides compare with ``np.array_equal``. Only duck typing by class
 name is used: this module imports nothing of the reference.
@@ -17,6 +20,8 @@ import numpy as np
 import torch
 
 from rapid_tpu_torch.device import resolve_device
+from rapid_tpu_torch.engine.churn import ChurnSchedule
+from rapid_tpu_torch.engine.paxos import FallbackSchedule
 from rapid_tpu_torch.engine.rx_packed import (
     PackedReceiverBundle, PackedReceiverState)
 from rapid_tpu_torch.engine.state import (
@@ -25,7 +30,8 @@ from rapid_tpu_torch.engine.state import (
 
 _TYPES = {cls.__name__: cls for cls in
           (EngineState, StepLog, ReceiverState, ReceiverStepLog,
-           PackedReceiverState, PackedReceiverBundle)}
+           PackedReceiverState, PackedReceiverBundle, ChurnSchedule,
+           FallbackSchedule)}
 
 
 def _leaf_from(name: str, leaf, dev):

@@ -35,3 +35,17 @@ def read_host(*scalars):
     global host_reads
     host_reads += 1
     return torch.stack([s.to(torch.int64) for s in scalars]).tolist()
+
+
+def read_arrays(*tensors):
+    """Int64 numpy copies of integer or bool tensors of any shapes,
+    copied to the host in one transfer (and counted in ``host_reads``)."""
+    global host_reads
+    host_reads += 1
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])
+    flat = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out

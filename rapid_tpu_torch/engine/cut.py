@@ -27,6 +27,19 @@ def deliver_reports(state, src_alive):
     return torch.gather(state.pending_deliver, 0, obs) & src_alive[obs]
 
 
+def deliver_churn_reports(state, src_alive):
+    """``(down, up)`` bool [C, K]: join and leave alerts landing this tick.
+
+    ``churn_deliver[dst]`` is dst's scheduled alert batch, flushed last
+    tick. A leaver's K observers (``obs_idx``) each report DOWN; a
+    joiner's K gatekeepers (``gk_idx``) each report UP. Rings whose
+    source crashed before delivery are dropped."""
+    member = state.member[:, None]
+    src = torch.where(member, state.obs_idx, state.gk_idx).long()
+    ok = state.churn_deliver[:, None] & src_alive[src]
+    return ok & member, ok & ~member
+
+
 def _invalidate(reports, obs, gate, lo, hi):
     """The invalidation fixpoint over ``[..., D, K]`` report planes;
     returns ``(reports, added)``. ``obs`` (int64, same shape) is each

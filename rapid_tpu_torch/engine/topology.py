@@ -1,8 +1,9 @@
 """Topology: the K-ring observer/subject graph as index tensors.
 
 Each ring ``k`` orders the slot universe by ``hash64(uid, seed=k)`` with
-the uid as tiebreak. The order is static (identities are fixed at boot),
-so ``ring_permutations`` sorts once on the host and a view change is
+the uid as tiebreak. The order is static (identities are fixed at boot;
+an identifier redraw moves one slot with ``rank_and_insert``), so
+``ring_permutations`` sorts once on the host and a view change is
 sort-free: gather the member mask into ring order, scan for each
 position's nearest member before and after it (``cummax``/``cummin``),
 and gather back. ``build_topology`` takes any number of leading
@@ -37,6 +38,35 @@ def ring_permutations(uid_hi, uid_lo, k: int):
         orders.append(order)
         ranks.append(rank)
     return np.stack(orders, axis=1), np.stack(ranks, axis=1)
+
+
+def rank_and_insert(slot: int, uid_hi, uid_lo, ring_order, ring_rank):
+    """``(ring_order, ring_rank)`` after slot ``slot``'s identifier redraw,
+    without a sort. ``uid_hi``/``uid_lo`` already carry the slot's new
+    limbs. Per ring the slot's new position is the count of smaller keys
+    (``hash64(uid, seed=ring)``, then the uid; keys are unique), the
+    positions between its old and new one shift by one, and the order is
+    the inverse permutation, scattered in O(C)."""
+    c, k = ring_order.shape
+    pos = torch.arange(c, dtype=torch.int32, device=ring_rank.device)
+    orders, ranks = [], []
+    for ring in range(k):
+        khi, klo = hashing.hash64_limbs(uid_hi, uid_lo, seed=ring)
+        skhi, sklo = khi[slot], klo[slot]
+        suhi, sulo = uid_hi[slot], uid_lo[slot]
+        less = (khi < skhi) | ((khi == skhi) & (
+            (klo < sklo) | ((klo == sklo) & (
+                (uid_hi < suhi) | ((uid_hi == suhi) & (uid_lo < sulo))))))
+        r_new = less.sum().to(torch.int32)
+        rank = ring_rank[:, ring]
+        r_old = rank[slot]
+        shift_down = ((rank > r_old) & (rank <= r_new)).to(torch.int32)
+        shift_up = ((rank >= r_new) & (rank < r_old)).to(torch.int32)
+        rank = rank - shift_down + shift_up
+        rank = torch.where(pos == slot, r_new, rank)
+        ranks.append(rank)
+        orders.append(torch.zeros_like(rank).scatter_(0, rank.long(), pos))
+    return torch.stack(orders, dim=1), torch.stack(ranks, dim=1)
 
 
 def _pred_succ_pos(member_s, n):

@@ -6,8 +6,10 @@ per-tick counters and phase counters, per-slot events and final config
 ids. ``testdata/shared_*.json`` record the reference's shared engine on
 the ``SHARED`` scenarios over 160 ticks: events, every per-tick scalar of
 ``StepLog``, the expanded counters, the final config id and a SHA-256 of
-every final-state field. CPU tests regenerate the files from the
-reference (the N=1,000 one is also held against the port's CPU run);
+every final-state field. The scenarios are crash bursts, probe drop with
+a flip-flop window, sustained churn and contested consensus, each in the
+shape ``benchmarks/bench_engine.py`` gives it. CPU tests regenerate the
+files from the reference and hold the port's CPU runs to them;
 ``chip_smoke.py`` compares the port's runs on the card against them.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ import hashlib
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -30,14 +32,31 @@ SHARED_TICKS = 160
 I32_MAX = (1 << 31) - 1
 
 
+class SharedBoot(NamedTuple):
+    """A scenario's boot on a device: what ``simulate`` takes, and the
+    host seconds that building the schedule and ``init_state`` took."""
+
+    state: object
+    faults: object
+    churn: object           # a ChurnSchedule of tensors, or None
+    fallback: object        # a FallbackSchedule of tensors, or None
+    setup_s: float
+
+
 @dataclass(frozen=True)
 class SharedScenario:
-    """One shared-engine run: ``n`` slots with ``synthetic_uids(n)`` and
+    """One shared-engine run: ``n`` slots with ``synthetic_uids`` and
     identifier sum 0, default ``Settings()``. Slots
     ``range(0, n, crash_every)`` crash at ``crash_tick`` (none when
     ``crash_every`` is 0); ``drop_p``/``drop_seed`` drop probes;
     ``flip_flop`` adds one one-way window from the first ``n // 100``
-    slots to the rest, from tick 20, flipping every 20 ticks."""
+    slots to the rest, from tick 20, flipping every 20 ticks.
+
+    ``churn_burst`` > 0 is ``bench_engine.run_churn``: ``capacity``
+    slots, members ``[0, n)``, and ``churn.synthetic_churn_schedule``'s
+    alternating join and leave bursts of that many slots from tick 10.
+    ``contested`` is ``bench_engine.run_contested``:
+    ``paxos.synthetic_contested_schedule`` over the run's ticks."""
 
     name: str
     n: int
@@ -46,10 +65,22 @@ class SharedScenario:
     drop_p: float = 0.0
     drop_seed: int = 0
     flip_flop: bool = False
+    churn_burst: int = 0
+    contested: bool = False
 
     @property
     def path(self) -> Path:
         return TESTDATA / f"{self.name}.json"
+
+    def churn_period(self, settings) -> int:
+        return settings.churn_decide_delay_ticks + 3
+
+    def capacity(self, settings) -> int:
+        if not self.churn_burst:
+            return self.n
+        cycles = max(1, (SHARED_TICKS - 10) // (2 * self.churn_period(
+            settings)))
+        return self.n + cycles * self.churn_burst
 
     def crash_ticks(self) -> List[int]:
         ticks = [I32_MAX] * self.n
@@ -66,21 +97,42 @@ class SharedScenario:
                            dst_slots=frozenset(range(cut, self.n)),
                            start_tick=20, period_ticks=20),)
 
-    def boot(self, device="cuda"):
-        """The port's boot state and faults of this scenario."""
+    def boot(self, device="cuda") -> SharedBoot:
+        """The port's boot of this scenario on ``device``."""
+        import time
+
+        from rapid_tpu_torch.convert import from_reference
+        from rapid_tpu_torch.engine import churn, paxos
         from rapid_tpu_torch.engine.state import (
             EngineFaults, init_state, link_faults)
         from rapid_tpu_torch.identity import synthetic_uids
         from rapid_tpu_torch.settings import Settings
 
-        state = init_state(synthetic_uids(self.n), 0, Settings(),
+        settings = Settings()
+        start = time.perf_counter()
+        c = self.capacity(settings)
+        uids = synthetic_uids(c)
+        member = np.arange(c) < self.n
+        churn_sched = fallback = id_fps = None
+        if self.churn_burst:
+            sched, id_fps, _ = churn.synthetic_churn_schedule(
+                c, self.n, settings, start=10, burst=self.churn_burst,
+                period=self.churn_period(settings))
+            churn_sched = from_reference(sched, device=device)
+        if self.contested:
+            sched, _ = paxos.synthetic_contested_schedule(
+                self.n, settings, SHARED_TICKS, uids=uids)
+            fallback = from_reference(sched, device=device)
+        state = init_state(uids, 0, settings, member=member, id_fps=id_fps,
                            device=device)
-        base = link_faults(self.crash_ticks(), self.windows(), self.n,
-                           device=device)
+        base = link_faults(self.crash_ticks() + [I32_MAX] * (c - self.n),
+                           self.windows(), c, device=device)
         faults = EngineFaults(
             drop_p=self.drop_p, drop_seed=self.drop_seed,
             **{f: getattr(base, f) for f in EngineFaults.FIELDS})
-        return state, faults
+        state.member.sum().item()       # the boot has reached the device
+        return SharedBoot(state, faults, churn_sched, fallback,
+                          time.perf_counter() - start)
 
 
 SHARED = {sc.name: sc for sc in (
@@ -92,6 +144,14 @@ SHARED = {sc.name: sc for sc in (
     # probabilistic probe drop p = 0.3.
     SharedScenario("shared_n100k_drop_flipflop", 100_000, drop_p=0.3,
                    drop_seed=7, flip_flop=True),
+    # BASELINE configuration 5's concurrent joins: 24 alternating join and
+    # leave bursts of 8 slots, at 1k and 100k members.
+    SharedScenario("shared_n1000_churn", 1000, churn_burst=8),
+    SharedScenario("shared_n100k_churn", 100_000, churn_burst=8),
+    # ... and its Fast Paxos fallback: 8 split votes, each decided by the
+    # classic round.
+    SharedScenario("shared_n1000_contested", 1000, contested=True),
+    SharedScenario("shared_n100k_contested", 100_000, contested=True),
 )}
 
 

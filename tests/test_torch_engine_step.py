@@ -3,7 +3,7 @@
 and every final-state field, bit for bit (tolerance: exact), on crash
 bursts, probe drop with link windows, and two bursts whose decides follow
 one another; plus the host-side events and counters, the host reads per
-tick, and what the slice refuses."""
+tick, and what the port still refuses."""
 import importlib
 from dataclasses import dataclass
 from typing import Tuple
@@ -150,8 +150,6 @@ def test_step_reads_the_tick_when_not_given():
 @pytest.mark.parametrize("kw,item", [
     (dict(settings=Settings(protocol_variant="ring")), "item 4"),
     (dict(settings=Settings(protocol_variant="hier")), "item 4"),
-    (dict(churn=object()), "item 2"),
-    (dict(fallback=object()), "item 3"),
     (dict(settings=Settings(invariant_checks=True)), "item 5"),
     (dict(settings=Settings(flight_recorder_window=4)), "item 5"),
     (dict(mesh=object()), "item 10"),

@@ -36,11 +36,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "rapid_tpu_torch.engine.receiver" in result["modules"]
     assert "rapid_tpu_torch.engine.rx_account" in result["modules"]
     assert "rapid_tpu_torch.engine.step" in result["modules"]
+    assert "rapid_tpu_torch.engine.churn" in result["modules"]
 
 
 def _entry_points():
+    from rapid_tpu_torch import golden
     from rapid_tpu_torch.convert import from_reference
-    from rapid_tpu_torch.engine import receiver, state, step
+    from rapid_tpu_torch.engine import churn, paxos, receiver, state, step
     from rapid_tpu_torch.faults import crash_window_delay_schedule
     from rapid_tpu_torch.identity import default_identities
     from rapid_tpu_torch.settings import Settings
@@ -57,6 +59,12 @@ def _entry_points():
         "from_reference": lambda: from_reference(state.EngineFaults(
             crash_tick=[1, 2])),
         "init_state": lambda: state.init_state(uids, id_fp_sum, settings),
+        "from_reference(ChurnSchedule)": lambda: from_reference(
+            churn.empty_schedule(8)),
+        "from_reference(FallbackSchedule)": lambda: from_reference(
+            paxos.empty_fallback_schedule(8)),
+        "SharedScenario.boot": lambda: golden.SHARED[
+            "shared_n1000_churn"].boot(),
         "simulate": lambda: step.simulate(
             state.init_state(uids, id_fp_sum, settings, device="cpu"),
             state.crash_faults([5] * 8, device="cpu"), 1, settings),
