@@ -5,7 +5,8 @@ multi-node cut detection, Fast Paxos with the classic fallback) for every
 simulated slot at once, each slot with its own view, exact under link
 partitions and link delays. The port keeps the reference's packed scan
 carry and replaces its TPU delivery kernel with a CUDA kernel for Hopper
-(``engine/csrc/rx_account.cu``).
+(``engine/csrc/rx_deliver.cu``; the packed kernel ``rx_account.cu`` is
+kept as its yardstick).
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU;
 without a card the default raises. The user-facing pair is::

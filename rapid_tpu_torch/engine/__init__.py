@@ -5,7 +5,7 @@ faults), ``topology``, ``paxos`` (the classic-Paxos fallback and its host
 planner), ``churn`` (join/leave schedules and identifier redraws),
 ``monitor``, ``cut``, ``votes``, ``step`` (the shared-state engine),
 ``diff`` (host-side events and counters of the shared engine),
-``rx_account`` (the kernel and its plain version), ``receiver`` (the
+``rx_account`` (the delivery kernels and their plain versions), ``receiver`` (the
 per-receiver step, boot, lowering and host extractors) and ``rx_packed``
 (the packed carry and its tick loop).
 

@@ -73,6 +73,16 @@ _FLAG_NAMES = {
     FLAG_PACK_NARROW_SAT: "packed-narrow-overflow",
 }
 
+#: The consensus phases with per-phase message counters.
+_PHASES = ("fv", "p1a", "p1b", "p2a", "p2b")
+
+#: A tick's int32 counters in their vector: ``rx_account.account_into``
+#: adds delivered, dropped and link_dropped into slots 0-2.
+_COUNTERS = (("delivered", "dropped", "link_dropped", "sent")
+             + tuple(f"{p}_sent" for p in _PHASES)
+             + tuple(f"{p}_delivered" for p in _PHASES))
+_SLOT = {name: i for i, name in enumerate(_COUNTERS)}
+
 #: Elements of one ``[rows, C, C]`` temporary in the row-blocked
 #: fingerprint matches (the dense form is cubic: 283 GiB at C = 4096).
 _BLOCK_ELEMENTS = 1 << 28
@@ -294,12 +304,15 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     emat = monitor.link_blocked_packed(faults, t)
     D = settings.delivery_ring_depth
     am = t % D                  # ring slot arriving this tick
-    zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)
 
-    counts = {"sent": zero(), "delivered": zero(), "dropped": zero(),
-              "link_dropped": zero()}
-    phase_sent = {p: zero() for p in ("fv", "p1a", "p1b", "p2a", "p2b")}
-    phase_del = {p: zero() for p in ("fv", "p1a", "p1b", "p2a", "p2b")}
+    # The tick's counters: 0-d views into one int32 vector, which the
+    # delivery kernel adds into in place (slots 0-2 and a phase's slot).
+    acc = torch.zeros(len(_COUNTERS), dtype=torch.int32, device=dev)
+    views = dict(zip(_COUNTERS, acc.unbind()))
+    counts = {k: views[k] for k in ("delivered", "dropped", "link_dropped",
+                                    "sent")}
+    phase_sent = {p: views[f"{p}_sent"] for p in _PHASES}
+    phase_del = {p: views[f"{p}_delivered"] for p in _PHASES}
 
     dec = {"mask": torch.zeros(c, dtype=torch.bool, device=dev),
            "hosts": torch.zeros((c, c), dtype=torch.bool, device=dev),
@@ -307,13 +320,9 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
            "cfg_lo": torch.zeros(c, dtype=torch.int64, device=dev)}
 
     def deliver(msgs, phase=None):
-        dv, dn, dr, ld = rx_account.account(msgs, crashed, emat)
-        counts["delivered"] += dn
-        counts["dropped"] += dr
-        counts["link_dropped"] += ld
-        if phase is not None:
-            phase_del[phase] += dn
-        return dv
+        slot = None if phase is None else _SLOT[f"{phase}_delivered"]
+        return rx_account.account_into(msgs.contiguous(), crashed, emat,
+                                       acc, slot)
 
     def send(phase, n):
         phase_sent[phase] += n
@@ -334,10 +343,9 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     w2b_rnd_r = rs.w2b_rnd[am]
     w2b_mask_r = rs.w2b_mask[am]
     w2b_cfg = cfg_gate(rs.w2b_cfg_hi[am], rs.w2b_cfg_lo[am])
-    gates = []
-    for slot in (0, 1):
-        dv = deliver(w2b_ring[slot], "p2b")
-        gates.append(dv.T & ~v.stopped[:, None] & w2b_cfg)
+    dv2 = deliver(w2b_ring, "p2b")          # both 2b slots, one launch
+    gates = [dv2[slot].T & ~v.stopped[:, None] & w2b_cfg
+             for slot in (0, 1)]
     g2b_any = (gates[0] | gates[1]).any(dim=1)
     rnd0 = torch.where(gates[0], w2b_rnd_r[0][None, :], -1)
     rnd1 = torch.where(gates[1], w2b_rnd_r[1][None, :], -1)

@@ -1,20 +1,30 @@
-"""Delivery accounting of the per-receiver engine: the hand-written CUDA
-kernel (``csrc/rx_account.cu``), its plain PyTorch version, and the
-wrapper the step calls once per delivery group (7 times per tick).
+"""Delivery accounting of the per-receiver engine: two hand-written CUDA
+kernels, their plain PyTorch versions, and the wrappers.
 
-Over packed operands (little-endian along the receiver axis, as
-``rx_packed.pack_bits``): ``pm`` and ``pe`` uint8 ``[C, ceil(C/8)]`` (the
-message plane and the link-blocked plane), ``src`` uint8 ``[C, 1]``
+``account_into`` is what the step calls, once per delivery group (6
+times per tick): the whole of the reference's ``rx_pallas.account`` for a
+batch of dense bool message planes ``msgs[p, src, dst]``, in one launch
+of ``csrc/rx_deliver.cu``. It returns the delivery mask and adds
+(delivered, dropped, link_dropped) into slots 0-2 of an int32 vector,
+and delivered into a phase's slot when one is given.
+
+The packed kernel (``csrc/rx_account.cu``) computes only the middle of
+that function, over packed operands (little-endian along the receiver
+axis, as ``rx_packed.pack_bits``): ``pm`` and ``pe`` uint8 ``[C, ceil(C/8)]``
+(the message plane and the link-blocked plane), ``src`` uint8 ``[C, 1]``
 (0xFF for a live sender), ``pd`` uint8 ``[1, ceil(C/8)]`` (live-receiver
-bits), it computes ``ok = pm & src & pd``, ``dv = ok & ~pe`` and per-row
+bits); it computes ``ok = pm & src & pd``, ``dv = ok & ~pe`` and per-row
 popcounts of ``pm``, ``dv`` and ``ok & pe`` as int32 ``[C, 4]`` (column 3
 is padding). Pad bits are zero in every operand, so the counts equal the
-dense ``.sum()`` counts.
+dense ``.sum()`` counts. ``account`` wraps it with the packing around it
+(the packed composition); it is off the main path and kept as the
+yardstick the fused kernel is timed against.
 
-``account_packed`` takes the plain version only for tensors on the CPU;
-a CUDA tensor launches the kernel or raises. ``launches`` counts kernel
-launches. The kernel is compiled with ``nvcc`` at first use into
-``build/`` at the repository root, keyed on a hash of the source and
+Each wrapper takes the plain version only for tensors on the CPU; a CUDA
+tensor launches the kernel or raises. ``deliver_launches`` and
+``launches`` count the launches of each kernel. Both kernels are
+compiled with ``nvcc`` into one shared library at first use, in
+``build/`` at the repository root, keyed on a hash of the sources and
 flags, and bound through ``ctypes``.
 """
 from __future__ import annotations
@@ -30,13 +40,16 @@ import torch
 
 from rapid_tpu_torch.engine.rx_packed import pack_bits, unpack_bits
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "rx_account.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "rx_account.cu", CSRC / "rx_deliver.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: Kernel launches so far (the wrapper adds one per launch, nowhere else).
+#: Launches of each kernel so far (its wrapper adds one per launch, and
+#: nowhere else): ``rx_account_kernel`` and ``rx_deliver_kernel``.
 launches = 0
+deliver_launches = 0
 
 _lib = None
 
@@ -50,16 +63,18 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernel's shared library if it is not built yet and
-    return its path. The file name carries a hash of source and flags."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"rx_account-{key[:16]}.so"
+    """Compile both kernels into one shared library if it is not built
+    yet and return its path. The file name carries a hash of the sources
+    and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES:
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"rx_kernels-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
@@ -75,6 +90,10 @@ def _load():
         fn = lib.rx_account_launch
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.rx_deliver_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -136,20 +155,114 @@ def account_packed(pm, pe, src, pd):
     return account_kernel(pm, pe, src, pd)
 
 
+def _compose(msgs, crashed, pemat, packed):
+    """One ``[C, C]`` plane through ``packed`` (``account_plain`` or
+    ``account_packed``) with the packing around it: the delivery mask and
+    the (delivered, dropped, link_dropped) int32 counts."""
+    c = msgs.shape[0]
+    pm = pack_bits(msgs)
+    src = torch.where(crashed, 0, 0xFF).to(torch.uint8)[:, None]
+    pd = pack_bits(~crashed)[None, :]
+    dv, cnt = packed(pm, pemat.contiguous(), src.contiguous(), pd)
+    deliv = unpack_bits(dv, c)
+    total = cnt[:, 0].sum(dtype=torch.int32)
+    delivered = cnt[:, 1].sum(dtype=torch.int32)
+    linkd = cnt[:, 2].sum(dtype=torch.int32)
+    return deliv, delivered, total - delivered, linkd
+
+
 def account(msgs, crashed, pemat):
     """Delivery mask plus (delivered, dropped, link_dropped) int32 counts
     for one message set ``msgs[src, dst]`` (bool ``[C, C]``), with the
     oracle's drop precedence: a crashed sender first, then a crashed
     receiver or a link block (``link_dropped`` counts only blocks whose
     endpoints are both alive). ``pemat`` is the packed blocked plane
-    (``monitor.link_blocked_packed``)."""
-    c = msgs.shape[0]
-    pm = pack_bits(msgs)
-    src = torch.where(crashed, 0, 0xFF).to(torch.uint8)[:, None]
-    pd = pack_bits(~crashed)[None, :]
-    dv, cnt = account_packed(pm, pemat.contiguous(), src.contiguous(), pd)
-    deliv = unpack_bits(dv, c)
-    total = cnt[:, 0].sum(dtype=torch.int32)
-    delivered = cnt[:, 1].sum(dtype=torch.int32)
-    linkd = cnt[:, 2].sum(dtype=torch.int32)
-    return deliv, delivered, total - delivered, linkd
+    (``monitor.link_blocked_packed``). The packed composition around
+    ``account_packed``."""
+    return _compose(msgs, crashed, pemat, account_packed)
+
+
+def _compose_into(msgs, crashed, pemat, acc, phase, packed):
+    out = []
+    for plane in msgs.reshape((-1,) + tuple(msgs.shape[-2:])):
+        deliv, delivered, dropped, linkd = _compose(plane, crashed, pemat,
+                                                    packed)
+        acc[:3] += torch.stack([delivered, dropped, linkd])
+        if phase is not None:
+            acc[phase] += delivered
+        out.append(deliv)
+    return torch.stack(out).reshape(msgs.shape)
+
+
+def account_into_plain(msgs, crashed, pemat, acc, phase=None):
+    """``rx_deliver``'s function in PyTorch ops, on any device: each plane
+    through ``pack_bits``, ``account_plain``, ``unpack_bits`` and the
+    sums, added into ``acc`` (``account_into`` has the contract)."""
+    return _compose_into(msgs, crashed, pemat, acc, phase, account_plain)
+
+
+def account_into_composed(msgs, crashed, pemat, acc, phase=None):
+    """The same through ``account`` (on a CUDA tensor, the packed kernel
+    once per plane plus the packing around it): the yardstick."""
+    return _compose_into(msgs, crashed, pemat, acc, phase, account_packed)
+
+
+def account_into_kernel(msgs, crashed, pemat, acc, phase=None):
+    """Launch ``rx_deliver`` on the current stream (``account_into`` has
+    the contract). Dtypes, shapes and contiguity are checked before the
+    device, so each refusal can be seen on any device."""
+    global deliver_launches
+    if msgs.dim() not in (2, 3) or msgs.shape[-2] != msgs.shape[-1]:
+        raise ValueError(f"msgs must be [C, C] or [B, C, C], got "
+                         f"{tuple(msgs.shape)}")
+    c = msgs.shape[-1]
+    if acc.dim() != 1 or acc.numel() < 3:
+        raise ValueError(f"acc must have shape (n,) with n >= 3, got "
+                         f"{tuple(acc.shape)}")
+    for name, t, dtype, shape in (
+            ("msgs", msgs, torch.bool, tuple(msgs.shape)),
+            ("crashed", crashed, torch.bool, (c,)),
+            ("pemat", pemat, torch.uint8, (c, -(-c // 8))),
+            ("acc", acc, torch.int32, tuple(acc.shape))):
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if phase is not None and not 0 <= phase < acc.numel():
+        raise ValueError(f"phase slot {phase} is outside acc "
+                         f"({acc.numel()} slots)")
+    for name, t in (("msgs", msgs), ("crashed", crashed), ("pemat", pemat),
+                    ("acc", acc)):
+        if t.device.type != "cuda" or t.device != msgs.device:
+            raise ValueError(f"{name} must be on one CUDA device, got "
+                             f"{t.device}")
+    lib = _load()
+    deliv = torch.empty_like(msgs)
+    planes = msgs.numel() // max(1, c * c)
+    stream = torch.cuda.current_stream(msgs.device).cuda_stream
+    err = lib.rx_deliver_launch(msgs.data_ptr(), crashed.data_ptr(),
+                                pemat.data_ptr(), deliv.data_ptr(),
+                                acc.data_ptr(), planes, c,
+                                -1 if phase is None else phase, stream)
+    if err != 0:
+        raise RuntimeError(f"rx_deliver kernel launch failed: CUDA error "
+                           f"{err}")
+    deliver_launches += 1
+    return deliv
+
+
+def account_into(msgs, crashed, pemat, acc, phase=None):
+    """Delivery of ``msgs`` (bool ``[C, C]`` or ``[B, C, C]``, planes of
+    ``msgs[src, dst]``) with ``receiver._account``'s precedences: returns
+    the delivery mask (same shape) and adds, summed over the planes,
+    delivered into ``acc[0]``, dropped into ``acc[1]``, link_dropped into
+    ``acc[2]`` and, when ``phase`` is a slot index, delivered into
+    ``acc[phase]`` (``acc``: int32 ``[n >= 3]``). ``crashed`` is bool
+    ``[C]``, ``pemat`` the packed blocked plane. The plain version for CPU
+    tensors; ``rx_deliver`` for CUDA tensors."""
+    if msgs.device.type == "cpu":
+        return account_into_plain(msgs, crashed, pemat, acc, phase)
+    return account_into_kernel(msgs, crashed, pemat, acc, phase)

@@ -67,9 +67,22 @@ PackedReceiverBundle = collections.namedtuple(
     "PackedReceiverBundle", ("packed", "delay_table"))
 
 
+#: ``_bit_weights`` by device: built once, never written.
+_WEIGHTS = {}
+
+
 def _bit_weights(device):
-    return (1 << torch.arange(8, dtype=torch.int32, device=device)).to(
-        torch.uint8)
+    """uint8 ``[8]``: ``1 << j``. Cached per device, except while a CUDA
+    graph captures (its private pool would own the tensor)."""
+    device = torch.device(device)
+    w = _WEIGHTS.get(device)
+    if w is None:
+        w = (1 << torch.arange(8, dtype=torch.int32, device=device)).to(
+            torch.uint8)
+        if device.type != "cuda" or \
+                not torch.cuda.is_current_stream_capturing():
+            _WEIGHTS[device] = w
+    return w
 
 
 def pack_bits(x):

@@ -22,7 +22,7 @@ tick (the sum of CUDA kernel and memory-operation time, so an upper
 bound when streams overlap; there is one stream here), kernel launches
 and aten ops per tick, host reads per tick (``device.read_host`` and
 ``device.read_arrays``), the decides inside the window, and the aten ops
-(and the hand-written kernel) with the most device time. A window's
+(and the hand-written kernels) with the most device time. A window's
 first tick pays once for what a run computes at its start (the shared
 engine's config id, its reads of the vote-arrival bit, the epoch and the
 schedules).
@@ -134,9 +134,9 @@ def profile_window(run, ticks: int, top_k: int, head: dict) -> dict:
     kernels = sum(e.count for e in on_device)
     cpu_ops = sum(e.count for e in events if e.key.startswith("aten::"))
     # Device time by the aten op that launched it, plus the hand-written
-    # kernel, which no aten op launches.
+    # kernels, which no aten op launches.
     named = [e for e in events if e.key.startswith("aten::")
-             or "rx_account" in e.key]
+             or "rx_account" in e.key or "rx_deliver" in e.key]
     top = sorted(named, key=dev_us, reverse=True)[:top_k]
     return {
         **head,

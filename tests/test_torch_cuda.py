@@ -39,6 +39,25 @@ def test_kernel_matches_plain(card, c):
     assert torch.equal(dv_k, dv_p) and torch.equal(cnt_k, cnt_p)
 
 
+@pytest.mark.parametrize("phase", [None, 3])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("c", [13, 64, 200, 1000, 1024, 4096])
+def test_deliver_kernel_matches_plain(card, c, planes, phase):
+    rng = np.random.default_rng(10 * c + planes)
+    msgs = torch.from_numpy(rng.random((planes, c, c)) < 0.4).to(card)
+    blocked = torch.from_numpy(rng.random((c, c)) < 0.25).to(card)
+    crashed = torch.from_numpy(rng.random(c) < 0.15).to(card)
+    pe = pack_bits(blocked)
+    start = torch.tensor([5, -2, 9, 4, 1], dtype=torch.int32, device=card)
+    acc_k, acc_p = start.clone(), start.clone()
+    before = rx_account.deliver_launches
+    got = rx_account.account_into_kernel(msgs, crashed, pe, acc_k, phase)
+    want = rx_account.account_into_plain(msgs, crashed, pe, acc_p, phase)
+    torch.cuda.synchronize()
+    assert rx_account.deliver_launches == before + 1
+    assert torch.equal(got, want) and torch.equal(acc_k, acc_p)
+
+
 def test_card_run_equals_cpu_run(card):
     settings = Settings(rx_kernel="pallas")
     sched = crash_window_delay_schedule(16)
@@ -46,11 +65,12 @@ def test_card_run_equals_cpu_run(card):
     for device in (card, "cpu"):
         member = receiver.lower_receiver_schedule(sched, settings,
                                                   device=device)
-        before = rx_account.launches
+        before = (rx_account.deliver_launches, rx_account.launches)
         runs.append(receiver.receiver_simulate(member.state, member.faults,
                                                120, settings))
-        launched = rx_account.launches - before
-        assert launched == (7 * 120 if device == card else 0)
+        fused = rx_account.deliver_launches - before[0]
+        assert fused == (6 * 120 if device == card else 0)
+        assert rx_account.launches == before[1]
     for got, want in zip(runs[0], runs[1]):
         got, want = to_numpy(got), to_numpy(want)
         for field in got._fields:
