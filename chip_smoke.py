@@ -53,16 +53,38 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``simulate(fallback=)``, 160 ticks, equal to
     ``shared_n100k_contested.json``, 8 decides by the classic round (the
     first at tick 19) and 99,992 members; prints the per-phase message
-    totals.
+    totals;
+11. phase 7's burst with ``protocol_variant="ring"``, equal to
+    ``shared_n100k_crash_ring.json`` (the same events and config ids as
+    phase 7), printing its message factors beside phase 7's;
+12. the same with ``"hier"``, equal to ``shared_n100k_crash_hier.json``;
+13. the invariant monitor: phases 7 and 10 with ``invariant_checks=True``,
+    every ``inv_bits`` 0 and every field equal to their golden files, each
+    also in turns with the monitor off (off, on, on, off); then a memsum
+    limb corrupted at boot flags bit 5 from tick 1 at N=100,000 and
+    ``check_run`` raises naming tick 1;
+14. the flight recorder, 64 rows: on phase 7's run, equal to
+    ``shared_n100k_crash_rec64.json`` (ring rows and stamps too), and on
+    phase 4's N=1024 receiver run, equal to ``rx_n1024_recorder.json``,
+    with ``rx_deliver`` launched 6 times a tick and ``rx_account`` never;
+    each in turns with the recorder off, every run equal to the first;
+15. churn planned by the port's ``plan_churn`` (in a child process run
+    as ``chip_smoke.py --planned`` under the ``PYTHONHASHSEED`` the golden
+    files were made with): N=100,000 with two 16-slot join and two leave
+    bursts, equal to ``shared_n100k_planned_churn.json``, and N=10,000
+    with a 5 % contiguous crash block and the same bursts, 200 ticks,
+    equal to ``shared_n10k_planned_mixed.json``; each runs twice, from
+    two boots (the child's first run also loads the card's kernels, so
+    the second is the warm one); prints the planner's seconds.
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
 plain version's time and the byte bound, for ``rx_deliver``, for the
 whole ``account`` on the same inputs and for ``rx_account`` alone.
-Phases 6-10 print ms per tick (CUDA events around ``simulate``), host
+Phases 6-15 print ms per tick (CUDA events around ``simulate``), host
 reads per tick, peak allocated memory, the decides and the setup seconds
 (the schedule and ``init_state``), and count both kernels' launches in
-each (none: the shared engine has no kernel).
+each (none on the shared engine, which has no kernel).
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
@@ -471,18 +493,15 @@ def kernel_times(rx_account, device) -> dict:
     return out
 
 
-def phase_shared(name: str, phase: int, device, rx_account) -> dict:
-    """One golden scenario through the shared engine's entry points, with
-    both kernels' launch counts zeroed just before the run and read after
-    (the shared engine has no kernel: any launch fails the phase)."""
+def run_shared(boot, sc, rx_account, settings=None):
+    """``simulate`` of a booted scenario, timed by CUDA events, with the
+    host reads and both kernels' launches counted (zeroed just before):
+    ``(out, ms_per_tick, reads_per_tick, launches, peak_bytes)``."""
     import torch
     from rapid_tpu_torch import device as device_mod
-    from rapid_tpu_torch import golden
-    from rapid_tpu_torch.engine import diff, simulate
-    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.engine import simulate
 
-    sc = golden.SHARED[name]
-    boot = sc.boot(device=device)
+    settings = sc.settings() if settings is None else settings
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reads = device_mod.host_reads
@@ -490,23 +509,42 @@ def phase_shared(name: str, phase: int, device, rx_account) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    final, logs = simulate(boot.state, boot.faults, golden.SHARED_TICKS,
-                           Settings(), churn=boot.churn,
-                           fallback=boot.fallback)
+    out = simulate(boot.state, boot.faults, sc.ticks, settings,
+                   churn=boot.churn, fallback=boot.fallback)
     end.record()
     end.synchronize()
     launches = rx_account.deliver_launches + rx_account.launches
-    ms_tick = start.elapsed_time(end) / golden.SHARED_TICKS
-    reads = (device_mod.host_reads - reads) / golden.SHARED_TICKS
-    peak = torch.cuda.max_memory_allocated()
-    if launches:
-        raise AssertionError(f"{name} launched a delivery kernel "
-                             f"{launches} times")
-    rec = golden.shared_run_record(name, final, logs)
+    return (out, start.elapsed_time(end) / sc.ticks,
+            (device_mod.host_reads - reads) / sc.ticks, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def check_golden(sc, rec: dict, label: str) -> None:
+    from rapid_tpu_torch import golden
+
     diff_ = golden.differences(rec, golden.load(sc.path))
     if diff_:
-        raise AssertionError(f"{name} differs from its golden file in "
+        raise AssertionError(f"{label} differs from its golden file in "
                              f"{diff_[:8]}")
+
+
+def phase_shared(sc, phase: int, device, rx_account) -> dict:
+    """One golden scenario (a name of ``golden.SCENARIOS`` or a
+    ``SharedScenario``) through the shared engine's entry points, with
+    both kernels' launch counts zeroed just before the run and read after
+    (the shared engine has no kernel: any launch fails the phase)."""
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import diff
+
+    sc = golden.SCENARIOS[sc] if isinstance(sc, str) else sc
+    boot = sc.boot(device=device)
+    out, ms_tick, reads, launches, peak = run_shared(boot, sc, rx_account)
+    if launches:
+        raise AssertionError(f"{sc.name} launched a delivery kernel "
+                             f"{launches} times")
+    logs = out[1]
+    rec = golden.shared_run_record(sc.name, *out, plan=boot.plan)
+    check_golden(sc, rec, sc.name)
     phases = diff.expand_fallback_counters(logs)
     decides = [(e["tick"], len(e["slots"])) for e in rec["events"]
                if e["kind"] == "view_change"]
@@ -514,20 +552,268 @@ def phase_shared(name: str, phase: int, device, rx_account) -> dict:
     classic = [t for t, _ in decides if phases[t - 1]["phase2b_delivered"]]
     totals = {key: sum(row[key] for row in phases) for key in phases[0]
               if key.endswith("_sent")}
-    log(f"phase {phase}: {name} x {golden.SHARED_TICKS} ticks equals its "
-        f"golden file: {ms_tick:.3f} ms/tick, {reads:.3f} host reads/tick, "
-        f"peak {peak / 2**20:.1f} MiB, setup {boot.setup_s:.2f} s, "
-        f"decides {decides}, {len(classic)} by the classic round, "
-        f"{rec['log']['n_member'][-1]} members at the end, "
+    flags = [f for f, on in (("variant " + sc.variant, sc.variant != "rapid"),
+                             ("invariant_checks", sc.invariant_checks),
+                             (f"W={sc.recorder_window}", sc.recorder_window))
+             if on]
+    log(f"phase {phase}: {sc.name}{' (' + ', '.join(flags) + ')' if flags else ''}"
+        f" x {sc.ticks} ticks equals its golden file: {ms_tick:.3f} ms/tick, "
+        f"{reads:.3f} host reads/tick, peak {peak / 2**20:.1f} MiB, setup "
+        f"{boot.setup_s:.2f} s, decides {decides}, {len(classic)} by the "
+        f"classic round, {rec['log']['n_member'][-1]} members at the end, "
         f"{launches} launches of rx_deliver and rx_account")
     if boot.fallback is not None:
         log(f"phase {phase}: consensus messages sent by phase {totals}")
-    return {"n": sc.n, "ticks": golden.SHARED_TICKS, "ms_per_tick": ms_tick,
+    return {"n": sc.n, "ticks": sc.ticks, "ms_per_tick": ms_tick,
             "host_reads_per_tick": reads, "peak_bytes": peak,
-            "setup_s": boot.setup_s, "decides": decides,
-            "classic_decides": classic, "phase_sent": totals,
-            "n_member": rec["log"]["n_member"][-1],
-            "kernel_launches": launches}
+            "setup_s": boot.setup_s, "plan_s": boot.plan_s,
+            "decides": decides, "classic_decides": classic,
+            "phase_sent": totals, "n_member": rec["log"]["n_member"][-1],
+            "kernel_launches": launches, "log": rec["log"],
+            "stamps": rec.get("recorder", {}).get("stamps")}
+
+
+#: StepLog message factors the variants change.
+FACTORS = ("vote_senders", "vote_recipients", "vote_senders_alive",
+           "vote_deliver_alive", "flushers", "flushers_alive")
+
+
+def print_factors(phase: int, name: str, run: dict, plain: dict) -> None:
+    """The variant's message factors beside phase 7's: their sums over the
+    run and their values on the announce and decide ticks."""
+    lg, pl = run.pop("log"), plain["log"]
+    announce = lg["announce_now"].index(1)
+    decide = lg["decide_now"].index(1)
+    rows = {f: {"sum": sum(lg[f]), "announce": lg[f][announce],
+                "decide": lg[f][decide], "rapid_sum": sum(pl[f]),
+                "rapid_announce": pl[f][announce],
+                "rapid_decide": pl[f][decide]} for f in FACTORS}
+    if all(r["sum"] == r["rapid_sum"] for r in rows.values()):
+        raise AssertionError(f"{name} logs rapid's message factors")
+    log(f"phase {phase}: {name} message factors (ticks {announce + 1} "
+        f"announce, {decide + 1} decide) beside phase 7's: "
+        f"{json.dumps(rows)}")
+    run["factors"] = rows
+
+
+def option_in_turns(on_sc, off_sc, boot, rounds: int, rx_account) -> dict:
+    """ms/tick of one boot run as ``on_sc`` (an option on) and ``off_sc``
+    (off), in turns (off, on, on, off per round); every run equals its
+    scenario's golden file."""
+    from rapid_tpu_torch import golden
+
+    times = {"off": [], "on": []}
+    for _ in range(rounds):
+        for which in ("off", "on", "on", "off"):
+            sc = on_sc if which == "on" else off_sc
+            out, ms_tick, _, launches, _ = run_shared(boot, sc, rx_account)
+            if launches:
+                raise AssertionError(f"{sc.name} launched a kernel")
+            check_golden(sc, golden.shared_run_record(sc.name, *out),
+                         f"{sc.name} (option {which}, in turns)")
+            times[which].append(ms_tick)
+    return times
+
+
+def print_turns(phase: int, label: str, times: dict) -> None:
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"phase {phase}: {label} in turns, ms/tick off {times['off']} "
+        f"(mean {mean['off']:.3f}), on {times['on']} (mean "
+        f"{mean['on']:.3f}): the option costs "
+        f"{mean['on'] - mean['off']:+.3f} ms/tick "
+        f"({100 * (mean['on'] / mean['off'] - 1):+.1f} %)")
+
+
+def phase_monitor(device, rx_account) -> dict:
+    """Phase 13: phases 7 and 10 with ``invariant_checks=True``, equal to
+    their golden files (every ``inv_bits`` 0), each in turns with the
+    monitor off; then a memsum limb corrupted at boot flags bit 5 from
+    tick 1 and ``check_run`` names tick 1."""
+    import dataclasses
+
+    import torch
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import invariants, simulate
+    from rapid_tpu_torch.hashing import MASK32
+
+    out = {}
+    for name in ("shared_n100k_crash", "shared_n100k_contested"):
+        sc = dataclasses.replace(golden.SHARED[name], invariant_checks=True)
+        run = phase_shared(sc, 13, device, rx_account)
+        if set(run.pop("log")["inv_bits"]) != {0}:
+            raise AssertionError(f"{name}: the monitor flagged a clean run")
+        boot = sc.boot(device=device)
+        run["in_turns"] = option_in_turns(sc, golden.SHARED[name], boot,
+                                          TURN_ROUNDS, rx_account)
+        print_turns(13, f"{name} with the monitor", run["in_turns"])
+        out[name] = run
+    sc = dataclasses.replace(golden.SHARED["shared_n100k_crash"],
+                             invariant_checks=True)
+    boot = sc.boot(device=device)
+    state = boot.state._replace(memsum_lo=(boot.state.memsum_lo + 1)
+                                & MASK32)
+    zero_counts(rx_account)
+    _, logs = simulate(state, boot.faults, 4, sc.settings())
+    memsum = 1 << invariants.BIT_OF["memsum"]
+    rows = invariants.expand_violations(logs)
+    if rows != [(t, memsum, ["memsum"]) for t in range(1, 5)]:
+        raise AssertionError(f"memsum corruption flagged {rows}")
+    try:
+        invariants.check_run(logs)
+    except invariants.InvariantViolationError as err:
+        if err.report.tick != 1 or "tick 1" not in str(err):
+            raise AssertionError(f"check_run named {err.report.tick}")
+        log(f"phase 13: memsum limb corrupted at boot (N=100,000): bit 5 "
+            f"on ticks 1-4, check_run raised {str(err).splitlines()[0]!r}")
+    else:
+        raise AssertionError("check_run let the corrupted run pass")
+    torch.cuda.synchronize()
+    return out
+
+
+def receiver_recorder_runs(rx_account, device) -> dict:
+    """Phase 14's receiver half: the N=1024 main-path run with a 64-row
+    recorder, equal to ``rx_n1024_recorder.json`` (counters, events,
+    config ids, ring rows and stamps), ``rx_deliver`` 6 times a tick and
+    ``rx_account`` never, the final state and logs equal to the run
+    without the recorder; then both in turns."""
+    import torch
+    from rapid_tpu_torch import device as device_mod
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import receiver, recorder
+    from rapid_tpu_torch.faults import crash_window_delay_schedule
+    from rapid_tpu_torch.settings import Settings
+
+    run = golden.RX_RECORDERS[-1]
+    n, ticks = run.n, golden.GOLDEN_TICKS
+    on = Settings(rx_kernel="pallas", flight_recorder_window=run.window)
+    off = Settings(rx_kernel="pallas")
+    member = receiver.lower_receiver_schedule(crash_window_delay_schedule(n),
+                                              on, device=device)
+    want = golden.load(run.path)
+    first = {}
+    times = {"off": [], "on": []}
+    for which in ("on",) + ("off", "on", "on", "off") * TURN_ROUNDS:
+        settings = on if which == "on" else off
+        zero_counts(rx_account)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reads = device_mod.host_reads
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = receiver.receiver_simulate(member.state, member.faults, ticks,
+                                         settings)
+        end.record()
+        end.synchronize()
+        counts = (rx_account.deliver_launches, rx_account.launches)
+        if counts != (6 * ticks, 0):
+            raise AssertionError(f"receiver W={settings.flight_recorder_window}"
+                                 f" launched (rx_deliver, rx_account) "
+                                 f"{counts}, want {(6 * ticks, 0)}")
+        receiver.check_flags(got[0].flags)
+        if not first:
+            rec = golden.run_record(got[0], got[1], n)
+            rec["recorder"] = recorder.recorder_payload(got[2])
+            diff_ = golden.differences(rec, want)
+            if diff_:
+                raise AssertionError(f"N={n} recorder run differs from "
+                                     f"its golden file in {diff_[:8]}")
+            first = {"final": got[0], "logs": got[1],
+                     "stamps": recorder.stamps(got[2]), "launches": counts,
+                     "ms_per_tick": start.elapsed_time(end) / ticks,
+                     "host_reads_per_tick":
+                         (device_mod.host_reads - reads) / ticks,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+            continue
+        if not (same_run(first["final"], got[0])
+                and same_run(first["logs"], got[1])):
+            raise AssertionError(f"receiver run with the recorder {which} "
+                                 "differs from the first recorder run")
+        times[which].append(start.elapsed_time(end) / ticks)
+    log(f"phase 14: N={n} x {ticks} ticks with W={on.flight_recorder_window} "
+        f"equals {run.path.name} (rows and stamps "
+        f"{first['stamps']}), rx_deliver {first['launches'][0]} launches, "
+        f"rx_account {first['launches'][1]}, {first['ms_per_tick']:.2f} "
+        f"ms/tick, {first['host_reads_per_tick']:.3f} host reads/tick, peak "
+        f"{first['peak_bytes'] / 2**20:.1f} MiB; the runs without the "
+        f"recorder equal it")
+    print_turns(14, f"N={n} receiver with the recorder", times)
+    return {"stamps": first["stamps"], "deliver_launches":
+            first["launches"][0], "account_launches": first["launches"][1],
+            "ms_per_tick": first["ms_per_tick"],
+            "host_reads_per_tick": first["host_reads_per_tick"],
+            "peak_bytes": first["peak_bytes"], "in_turns": times}
+
+
+def phase_recorder(device, rx_account) -> dict:
+    """Phase 14: a 64-row recorder on phase 7's run and on phase 4's
+    N=1024 receiver run."""
+    from rapid_tpu_torch import golden
+
+    sc = golden.OPTIONS["shared_n100k_crash_rec64"]
+    shared = phase_shared(sc, 14, device, rx_account)
+    shared.pop("log")
+    boot = sc.boot(device=device)
+    shared["in_turns"] = option_in_turns(
+        sc, golden.SHARED["shared_n100k_crash"], boot, TURN_ROUNDS,
+        rx_account)
+    print_turns(14, "shared_n100k_crash with the recorder",
+                shared["in_turns"])
+    return {"shared": shared,
+            "receiver": receiver_recorder_runs(rx_account, device)}
+
+
+PLANNED = ("shared_n100k_planned_churn", "shared_n10k_planned_mixed")
+
+
+def phase_planned(device, rx_account) -> dict:
+    """Phase 15, run in a child process under the pinned
+    ``PYTHONHASHSEED``: ``plan_churn`` builds each schedule, then
+    ``init_state(member=, id_fps=)`` and ``simulate(churn=)`` run it,
+    equal to its golden file (the run and the planner's prediction)."""
+    from rapid_tpu_torch import golden
+
+    out = {}
+    for name in PLANNED:
+        # The child's first runs pay for loading the card's kernels: the
+        # first run of each scenario is its cold one, a second run from
+        # the same boot its warm one.
+        run = phase_shared(name, 15, device, rx_account)
+        run.pop("log")
+        sc = golden.OPTIONS[name]
+        boot = sc.boot(device=device)
+        warm, ms_tick, reads, launches, _ = run_shared(boot, sc, rx_account)
+        if launches:
+            raise AssertionError(f"{name} launched a kernel")
+        check_golden(sc, golden.shared_run_record(sc.name, *warm,
+                                                  plan=boot.plan), name)
+        run.update(cold_ms_per_tick=run.pop("ms_per_tick"),
+                   ms_per_tick=ms_tick, plan_s_again=boot.plan_s)
+        log(f"phase 15: {name}: plan_churn took {run['plan_s']:.2f} s and "
+            f"{boot.plan_s:.2f} s, view changes {run['decides']}; a second "
+            f"run from a new boot: {ms_tick:.3f} ms/tick ({reads:.3f} host "
+            f"reads/tick), equal to the golden file")
+        out[name] = run
+    return out
+
+
+def planned_child() -> dict:
+    """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
+    files; any failure there fails this process."""
+    import os
+
+    from rapid_tpu_torch import golden
+
+    env = dict(os.environ, PYTHONHASHSEED=golden.PLAN_HASH_SEED)
+    done = subprocess.run([sys.executable, __file__, "--planned"], env=env,
+                          capture_output=True, text=True, timeout=900)
+    for line in done.stdout.splitlines()[:-1]:
+        log(line)
+    if done.returncode != 0:
+        print(done.stderr[-6000:], file=sys.stderr)
+        raise AssertionError(f"phase 15's child exited {done.returncode}")
+    return json.loads(done.stdout.splitlines()[-1])
 
 
 def main() -> int:
@@ -552,6 +838,9 @@ def main() -> int:
     if loaded:
         print(f"chip_smoke: JAX modules loaded: {loaded}", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--planned"]:
+        print(json.dumps(phase_planned(torch.device("cuda", 0), rx_account)))
+        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -592,6 +881,27 @@ def main() -> int:
             contested["n_member"] != 99_992:
         raise AssertionError("the contested run did not decide 8 classic "
                              "rounds from tick 19 leaving 99,992 members")
+    for phase, variant in ((11, "ring"), (12, "hier")):
+        run = shared[f"n100k_crash_{variant}"] = phase_shared(
+            f"shared_n100k_crash_{variant}", phase, device, rx_account)
+        if run["decides"] != [(113, 1000)] or run["n_member"] != 99_000:
+            raise AssertionError(f"the {variant} variant did not decide the "
+                                 f"burst at tick 113")
+        print_factors(phase, variant, run, shared["n100k_crash"])
+    shared["monitor"] = phase_monitor(device, rx_account)
+    shared["recorder"] = phase_recorder(device, rx_account)
+    planned = shared["planned"] = planned_child()
+    want = {"shared_n100k_planned_churn": ([[16, 16], [29, 16], [46, 16],
+                                            [59, 16]], 100_000),
+            "shared_n10k_planned_mixed": ([[113, 500], [126, 16], [139, 16],
+                                           [156, 16], [169, 16]], 9_500)}
+    for name, (decides, members) in want.items():
+        if planned[name]["decides"] != decides or \
+                planned[name]["n_member"] != members:
+            raise AssertionError(f"{name} decided {planned[name]['decides']}"
+                                 f" leaving {planned[name]['n_member']}")
+    for run in shared.values():
+        run.pop("log", None)
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{

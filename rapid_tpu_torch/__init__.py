@@ -15,8 +15,13 @@ without a card the default raises. The user-facing pair is::
     final, logs = engine.receiver.receiver_simulate(
         member.state, member.faults, n_ticks, settings)
 
-with ``settings.rx_kernel == "pallas"``. This package imports ``torch``,
-``numpy`` and the standard library only.
+with ``settings.rx_kernel == "pallas"``. The shared-state engine
+(``engine.init_state`` then ``engine.simulate``) runs one view for every
+receiver, with churn (``engine.plan_churn`` schedules it from the join
+protocol, against the host mirrors in ``oracle``), the classic-Paxos
+fallback, the ring and hier variants (``variants``), the invariant
+monitor and the flight recorder. This package imports ``torch``, ``numpy``
+and the standard library only.
 """
 from rapid_tpu_torch.settings import Settings
 

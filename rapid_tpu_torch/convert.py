@@ -2,10 +2,10 @@
 
 ``from_reference`` maps a reference NamedTuple (``EngineState``,
 ``StepLog``, ``ReceiverState``, ``PackedReceiverState``,
-``ReceiverStepLog``, ``PackedReceiverBundle``, and the schedules
-``ChurnSchedule`` and ``FallbackSchedule``, the reference's or the port's
-own host half's) or ``EngineFaults`` of arrays to the port's type on
-``device``: 32-bit
+``ReceiverStepLog``, ``PackedReceiverBundle``, ``RecorderState``, and
+the schedules ``ChurnSchedule`` and ``FallbackSchedule``, the reference's
+or the port's own host half's; a ``ChurnPlan`` gives its schedule) or
+``EngineFaults`` of arrays to the port's type on ``device``: 32-bit
 limbs (fields named ``*_hi``/``*_lo``) become masked int64, bool, int8,
 int16, int32 and uint8 keep their dtype; the faults' drop configuration
 is copied as host values, and a schedule's absent (None) fields stay
@@ -22,6 +22,7 @@ import torch
 from rapid_tpu_torch.device import resolve_device
 from rapid_tpu_torch.engine.churn import ChurnSchedule
 from rapid_tpu_torch.engine.paxos import FallbackSchedule
+from rapid_tpu_torch.engine.recorder import RecorderState
 from rapid_tpu_torch.engine.rx_packed import (
     PackedReceiverBundle, PackedReceiverState)
 from rapid_tpu_torch.engine.state import (
@@ -31,7 +32,7 @@ from rapid_tpu_torch.engine.state import (
 _TYPES = {cls.__name__: cls for cls in
           (EngineState, StepLog, ReceiverState, ReceiverStepLog,
            PackedReceiverState, PackedReceiverBundle, ChurnSchedule,
-           FallbackSchedule)}
+           FallbackSchedule, RecorderState)}
 
 
 def _leaf_from(name: str, leaf, dev):
@@ -50,6 +51,8 @@ def from_reference(nt, device="cuda"):
         return EngineFaults(**config,
                             **{f: _leaf_from(f, getattr(nt, f, None), dev)
                                for f in EngineFaults.FIELDS})
+    if name == "ChurnPlan":
+        return from_reference(nt.schedule, dev)
     if name == "PackedReceiverBundle":
         return PackedReceiverBundle(
             packed=from_reference(nt.packed, dev),

@@ -2,8 +2,10 @@
 
 Modules mirror the reference's layout: ``state`` (the carries, logs and
 faults), ``topology``, ``paxos`` (the classic-Paxos fallback and its host
-planner), ``churn`` (join/leave schedules and identifier redraws),
-``monitor``, ``cut``, ``votes``, ``step`` (the shared-state engine),
+planner), ``churn`` (join/leave schedules, identifier redraws and the host
+planner ``plan_churn``), ``monitor``, ``cut``, ``votes``, ``invariants``
+(the invariant monitor), ``recorder`` (the flight recorder), ``step``
+(the shared-state engine, with the ``variants`` ring and hier),
 ``diff`` (host-side events and counters of the shared engine),
 ``rx_account`` (the delivery kernels and their plain versions), ``receiver`` (the
 per-receiver step, boot, lowering and host extractors) and ``rx_packed``
@@ -17,9 +19,17 @@ The shared engine's entry points are exported here::
     # to the device by convert.from_reference):
     final, logs = simulate(state, faults, n_ticks, Settings(),
                            churn=churn_schedule, fallback=fallback_schedule)
+    # a schedule planned by the join protocol:
+    plan = plan_churn(endpoints, n, node_ids, n_ticks, Settings(),
+                      joins={slot: tick}, leaves={slot: tick})
+    # the monitor and the recorder:
+    final, logs, rec = simulate(state, faults, n_ticks, Settings(
+        invariant_checks=True, flight_recorder_window=64))
+    check_run(logs)
 """
 from rapid_tpu_torch.engine.churn import (
-    ChurnSchedule, synthetic_churn_schedule)
+    ChurnEnvelopeError, ChurnPlan, ChurnSchedule, plan_churn,
+    synthetic_churn_schedule)
 from rapid_tpu_torch.engine.diff import (
     ViewEvent, engine_events, expand_counters, expand_fallback_counters)
 from rapid_tpu_torch.engine.paxos import (
@@ -28,11 +38,15 @@ from rapid_tpu_torch.engine.paxos import (
 from rapid_tpu_torch.engine.state import (
     EngineFaults, EngineState, StepLog, crash_faults, init_state,
     link_faults, state_config_id)
+from rapid_tpu_torch.engine.invariants import (
+    InvariantViolationError, check_run)
 from rapid_tpu_torch.engine.step import simulate
 
-__all__ = ["ChurnSchedule", "EngineFaults", "EngineState",
-           "FallbackEnvelopeError", "FallbackSchedule", "StepLog",
-           "ViewEvent", "crash_faults", "engine_events", "expand_counters",
-           "expand_fallback_counters", "init_state", "link_faults",
-           "plan_fallback", "simulate", "state_config_id",
-           "synthetic_churn_schedule", "synthetic_contested_schedule"]
+__all__ = ["ChurnEnvelopeError", "ChurnPlan", "ChurnSchedule",
+           "EngineFaults", "EngineState", "FallbackEnvelopeError",
+           "FallbackSchedule", "InvariantViolationError", "StepLog",
+           "ViewEvent", "check_run", "crash_faults", "engine_events",
+           "expand_counters", "expand_fallback_counters", "init_state",
+           "link_faults", "plan_churn", "plan_fallback", "simulate",
+           "state_config_id", "synthetic_churn_schedule",
+           "synthetic_contested_schedule"]

@@ -111,10 +111,6 @@ def _require_pallas(settings: Settings) -> None:
             f"rx_kernel={settings.rx_kernel!r}: the port runs the packed "
             f"carry with the delivery kernel (rx_kernel='pallas') only; the "
             f"dense 'xla' and 'packed' receiver paths are a later slice")
-    if settings.flight_recorder_window:
-        raise NotImplementedError(
-            "flight_recorder_window > 0: the flight recorder is a later "
-            "slice of the port")
 
 
 def _cfg_eq(a_hi, a_lo, b_hi, b_lo):
@@ -878,13 +874,21 @@ def init_receiver_state(uids: Sequence[int], id_fp_sum: int,
 def receiver_simulate(state, faults: EngineFaults, n_ticks: int,
                       settings: Settings):
     """Run ``n_ticks`` ticks over the packed carry; returns
-    ``(final_dense_state, stacked_logs)``. ``state`` is a booted dense
+    ``(final_dense_state, stacked_logs)``, and with
+    ``settings.flight_recorder_window > 0`` ``(final_dense_state,
+    stacked_logs, recorder)``. ``state`` is a booted dense
     ``ReceiverState`` or an ``rx_packed.PackedReceiverBundle`` on the
     device the run should use."""
-    from rapid_tpu_torch.engine import rx_packed
+    from rapid_tpu_torch.engine import recorder, rx_packed
 
     _require_pallas(settings)
-    return rx_packed.simulate(state, faults, n_ticks, settings)
+    final, logs = rx_packed.simulate(state, faults, n_ticks, settings)
+    if settings.flight_recorder_window:
+        rec = recorder.record_receiver_run(
+            recorder.init(settings, device=logs.tick.device), logs,
+            settings)
+        return final, logs, rec
+    return final, logs
 
 
 class ReceiverMember(NamedTuple):

@@ -48,9 +48,16 @@ reference computes and then masks away:
   round's tally changes only when a vote arrives, so it is computed (and
   whether it reaches the quorum read) once per arrival tick.
 
-This slice runs ``protocol_variant="rapid"`` without invariant checks,
-flight recorder or mesh; each of those raises ``NotImplementedError``
-naming its ``ROADMAP.md`` queue item.
+``Settings.protocol_variant`` picks the vote tally and the message
+factors: "rapid" and "ring" the segmented tally, "ring" with its two-lap
+factors (``variants.ring``; its permutation round trip is the identity
+on values), "hier" the group quorums (``variants.hier``, the groups
+hashed once on a tick that needs them); each branch runs only under its
+variant. With
+``invariant_checks`` every tick packs ``invariants.check_step`` into
+``inv_bits`` (else the constant 0); with ``flight_recorder_window > 0``
+``simulate`` also returns the run's ``recorder.RecorderState``. A device
+mesh raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -61,11 +68,13 @@ import torch
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import read_arrays, read_host, resolve_device
 from rapid_tpu_torch.engine import churn as churn_mod
-from rapid_tpu_torch.engine import cut, monitor, paxos, votes
+from rapid_tpu_torch.engine import (cut, invariants, monitor, paxos,
+                                    recorder, votes)
 from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs)
 from rapid_tpu_torch.engine.topology import build_topology
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.variants import hier, ring
 
 #: The classic-Paxos message factors of ``StepLog``.
 PX_COUNTS = ("pxvote_senders", "pxvote_recipients", "px1a_senders",
@@ -73,25 +82,12 @@ PX_COUNTS = ("pxvote_senders", "pxvote_recipients", "px1a_senders",
              "px2a_recipients", "px2b_senders", "px2b_recipients")
 
 
-def require_scope(settings: Settings, mesh=None) -> None:
+def require_scope(mesh=None) -> None:
     """Refuse what the shared engine's port does not run yet."""
-    later = (
-        (settings.protocol_variant != "rapid",
-         f"protocol_variant={settings.protocol_variant!r}: the ring and "
-         f"hier variants are ROADMAP.md Queue 1 item 4"),
-        (settings.invariant_checks,
-         "invariant_checks=True: the invariant monitor is ROADMAP.md "
-         "Queue 1 item 5"),
-        (settings.flight_recorder_window != 0,
-         "flight_recorder_window > 0: the flight recorder is ROADMAP.md "
-         "Queue 1 item 5"),
-        (mesh is not None,
-         "a device mesh: sharding is ROADMAP.md Queue 1 item 10"),
-    )
-    for refused, why in later:
-        if refused:
-            raise NotImplementedError(
-                f"{why}; the shared engine's port does not run it yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh: sharding is ROADMAP.md Queue 1 item 10; the "
+            "shared engine's port does not run it yet")
 
 
 class _Host:
@@ -219,7 +215,7 @@ def step(state: EngineState, faults: EngineFaults, settings: Settings,
     ``tick`` is ``state.tick`` as a host int, read from the state when
     omitted (the state's epoch and the schedules are read all the same).
     """
-    require_scope(settings, mesh)
+    require_scope(mesh)
     host = _Host(state, churn, fallback)
     if tick is not None:
         host.tick = int(tick)
@@ -234,6 +230,8 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     t = host.tick + 1
     dev = state.member.device
     c = state.member.shape[0]
+    variant = settings.protocol_variant
+    n_groups, gid = hier.hier_group_count(c), None
     i32 = lambda x: x.to(torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     no_slots = lambda: torch.zeros(c, dtype=torch.bool, device=dev)
@@ -263,17 +261,33 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     if arriving:
         alive_members = state.member & ~crashed
         valid = state.voters & ~crashed
-        decided, vote_tally = votes.count_fast_round(
-            state.phash_hi.expand(c), state.phash_lo.expand(c), valid,
-            n_member)
+        if variant == "hier":
+            gid = hier.group_ids(state.uid_hi, state.uid_lo, n_groups)
+            decided, vote_tally = hier.hier_count_fast_round(
+                state.member, valid, gid, n_groups)
+        else:
+            decided, vote_tally = votes.count_fast_round(
+                state.phash_hi.expand(c), state.phash_lo.expand(c), valid,
+                n_member)
         vote_quorum = votes.fast_quorum(n_member)
         # A decision needs an alive receiver to count the votes, and a
         # scripted decide this tick takes precedence.
         alert = decided & alive_members.any()
         if sc is not None:
             alert = alert & ~sc
-        vote_senders_alive = i32(valid.sum())
-        vote_deliver_alive = i32(alive_members.sum())
+        # Vote delivery factors: every vote to every alive member; the
+        # ring's two laps; hier's whole exchange as one factor, recipient 1.
+        if variant == "hier":
+            gate = valid.any() & alive_members.any()
+            vote_senders_alive = torch.where(
+                gate, hier.hier_exchange_messages(
+                    valid, alive_members, gid, n_groups), zero)
+            vote_deliver_alive = i32(gate)
+        else:
+            vote_senders_alive = (ring.ring_pair_factor(valid)
+                                  if variant == "ring"
+                                  else i32(valid.sum()))
+            vote_deliver_alive = i32(alive_members.sum())
         vote_pending = vote_pending & ~votes_arriving
     if fallback is not None:
         vote_tally = torch.maximum(vote_tally, px_tally)
@@ -332,8 +346,10 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     # ---- phase 2: alert delivery, aggregation, announce ----------------
     src_alive = ~crashed
     batch_src = mid.pending_deliver.any(dim=1)
-    flushers_alive = i32((batch_src & src_alive).sum())
     n_alive = i32((mid.member & src_alive).sum())
+    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive)
+                      if variant == "ring"
+                      else i32((batch_src & src_alive).sum()))
     delivered_down = cut.deliver_reports(mid, src_alive)
     delivered_up = None
     if churn is not None and host.churn_may_deliver(t):
@@ -354,10 +370,19 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     n_member_now = n_member
     vote_senders = n_alive if announce else zero
     vote_recipients = n_member_now if announce else zero
+    if announce and variant == "ring":
+        vote_senders = torch.full_like(zero, 2)
+    elif announce and variant == "hier":
+        if gid is None:
+            gid = hier.group_ids(mid.uid_hi, mid.uid_lo, n_groups)
+        vote_senders = hier.hier_exchange_messages(
+            mid.member & src_alive, mid.member, gid, n_groups)
+        vote_recipients = torch.ones_like(zero)
 
     # ---- phase 3: batch flush (1-tick quiescence) ----------------------
     flusher_mask = mid.pending_flush.any(dim=1)
-    flushers = i32(flusher_mask.sum())
+    flushers = (ring.ring_pair_factor(flusher_mask) if variant == "ring"
+                else i32(flusher_mask.sum()))
     flush_recipients = torch.where(flusher_mask.any(), n_member_now, zero)
     mid = mid._replace(pending_deliver=mid.pending_flush,
                        pending_flush=torch.zeros_like(mid.pending_flush),
@@ -407,6 +432,21 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
             host.px_gauges = (i32((new.px_timer != I32_MAX).sum()),
                               new.px_crnd_r.max())
         px_timers_armed, px_coord_round = host.px_gauges
+    if variant == "ring" and "pxvote_senders" in px:
+        # The scripted fast-round votes ride the ring's two laps too.
+        px["pxvote_senders"] = ring.ring_pair_factor(
+            px["pxvote_senders"] > 0)
+
+    inv_bits = zero
+    if settings.invariant_checks:
+        false = torch.zeros((), dtype=torch.bool, device=dev)
+        inv_bits = invariants.check_step(
+            state, new, decide_now=decide_now,
+            fast_decide=false if alert is None else alert,
+            classic_decide=false if sc is None else sc,
+            fast_mask=state.proposal,
+            classic_mask=pmask if sc_decide else no_slots(),
+            settings=settings)
 
     if decide or host.config is None:
         host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
@@ -441,7 +481,7 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
                                                          t),
         link_dropped=zero,
         px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
-        inv_bits=zero,
+        inv_bits=inv_bits,
         **{name: px.get(name, zero) for name in PX_COUNTS},
     )
     host.tick = t
@@ -460,11 +500,12 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
     """Run ``n_ticks`` shared-engine steps on ``device``, where ``state``,
     ``faults`` and the schedules must live; returns ``(final, logs)``
     with every ``StepLog`` field stacked on a leading tick axis, as the
-    reference's ``lax.scan`` gives them. ``churn`` is a
-    ``churn.ChurnSchedule`` and ``fallback`` a ``paxos.FallbackSchedule``
-    of tensors (``convert.from_reference`` moves a host schedule), or
-    None."""
-    require_scope(settings, mesh)
+    reference's ``lax.scan`` gives them, and with
+    ``settings.flight_recorder_window > 0`` ``(final, logs, recorder)``.
+    ``churn`` is a ``churn.ChurnSchedule`` and ``fallback`` a
+    ``paxos.FallbackSchedule`` of tensors (``convert.from_reference``
+    moves a host schedule), or None."""
+    require_scope(mesh)
     dev = resolve_device(device)
     placed = [("state", state.member.device),
               ("faults", faults.crash_tick.device)]
@@ -481,4 +522,9 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
     for _ in range(int(n_ticks)):
         state, log = _step(state, faults, settings, host, churn, fallback)
         logs.append(log)
-    return state, stack_logs(logs)
+    logs = stack_logs(logs)
+    if settings.flight_recorder_window:
+        rec = recorder.record_run(recorder.init(settings, device=dev), logs,
+                                  settings)
+        return state, logs, rec
+    return state, logs

@@ -1,0 +1,116 @@
+"""First-divergence reports, as the reference's forensics builds them.
+
+Own copies of ``Divergence``, ``DivergenceReport``, ``DivergenceError``
+and ``build_report``: a located divergence (tick, field, our value, the
+reference side's value) with the trailing context records before it,
+rendered as an ``AssertionError`` message and optionally written as a
+JSONL artifact (context records first, the divergence record last).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+
+def _jsonable(v):
+    if isinstance(v, (set, frozenset)):
+        return sorted(v)
+    if isinstance(v, tuple):
+        return list(v)
+    return v
+
+
+def write_jsonl(path, records, default=None) -> None:
+    """Records as JSONL, one newline-terminated line each, keys sorted."""
+    with open(path, "w") as fh:
+        for rec in records:
+            fh.write(json.dumps(rec, sort_keys=True, default=default) + "\n")
+
+
+@dataclass
+class Divergence:
+    """The first disagreeing (tick, field) pair between two streams."""
+
+    tick: int
+    field: str
+    engine: object  # our side's value
+    oracle: object  # the reference side's value
+
+
+@dataclass
+class DivergenceReport:
+    """A located divergence plus trailing context records."""
+
+    tick: int
+    field: str
+    engine: object
+    oracle: object
+    context: List[Dict[str, object]] = field(default_factory=list)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {"record": "divergence", "tick": self.tick,
+                "field": self.field,
+                "engine": _jsonable(self.engine),
+                "oracle": _jsonable(self.oracle)}
+
+    def render(self) -> str:
+        lines = [
+            f"engine diverged from oracle at tick {self.tick}, "
+            f"field {self.field!r}:",
+            f"  engine: {self.engine!r}",
+            f"  oracle: {self.oracle!r}",
+        ]
+        if self.context:
+            lines.append(f"last {len(self.context)} records before the "
+                         f"divergence:")
+            for rec in self.context:
+                lines.append("  " + json.dumps(rec, sort_keys=True,
+                                               default=str))
+        return "\n".join(lines)
+
+    def write_jsonl(self, path) -> None:
+        """Context records first, the divergence record last."""
+        write_jsonl(path, [*self.context, self.as_dict()], default=str)
+
+
+class DivergenceError(AssertionError):
+    """A located first divergence, as an ``AssertionError``."""
+
+    def __init__(self, report: DivergenceReport,
+                 artifact: Optional[str] = None) -> None:
+        self.report = report
+        self.artifact = artifact
+        msg = report.render()
+        if artifact:
+            msg += f"\nforensics artifact: {artifact}"
+        super().__init__(msg)
+
+
+def build_report(div: Divergence,
+                 engine_metrics: Optional[Sequence] = None,
+                 oracle_metrics: Optional[Sequence] = None,
+                 events: Sequence = (),
+                 context_n: int = 4) -> DivergenceReport:
+    """The report of ``div`` with the last ``context_n`` records at or
+    before its tick: metrics rows of each stream given (``"record":
+    "tick_metrics"``, objects with ``tick`` and ``as_dict()``) and view
+    events (``"record": "view_event"``)."""
+    context: List[Dict[str, object]] = []
+    for stream in (engine_metrics, oracle_metrics):
+        if not stream:
+            continue
+        for m in [m for m in stream if m.tick <= div.tick][-context_n:]:
+            rec = {"record": "tick_metrics"}
+            rec.update(m.as_dict())
+            context.append(rec)
+    for e in [e for e in events if e.tick <= div.tick][-context_n:]:
+        rec = {"record": "view_event"}
+        rec.update(e.as_dict() if hasattr(e, "as_dict")
+                   else dataclasses.asdict(e))
+        rec["slots"] = _jsonable(rec.get("slots"))
+        context.append(rec)
+    return DivergenceReport(tick=div.tick, field=div.field,
+                            engine=div.engine, oracle=div.oracle,
+                            context=context)

@@ -3,14 +3,23 @@
 ``testdata/rx_n64_golden.json`` records the reference's per-receiver
 engine on ``faults.crash_window_delay_schedule(64)`` over 160 ticks:
 per-tick counters and phase counters, per-slot events and final config
-ids. ``testdata/shared_*.json`` record the reference's shared engine on
-the ``SHARED`` scenarios over 160 ticks: events, every per-tick scalar of
-``StepLog``, the expanded counters, the final config id and a SHA-256 of
-every final-state field. The scenarios are crash bursts, probe drop with
-a flip-flop window, sustained churn and contested consensus, each in the
-shape ``benchmarks/bench_engine.py`` gives it. CPU tests regenerate the
-files from the reference and hold the port's CPU runs to them;
-``chip_smoke.py`` compares the port's runs on the card against them.
+ids; ``testdata/rx_n{64,1024}_recorder.json`` the same at N=64 and
+N=1024 with a flight recorder (``RX_RECORDERS``; 32 and 64 rows, so the
+ring wraps). ``testdata/shared_*.json``
+record the reference's shared engine on the ``SHARED`` and ``OPTIONS``
+scenarios: events, every per-tick scalar of ``StepLog``, the expanded
+counters, the final config id, a SHA-256 of every final-state field and,
+where the scenario has them, the recorder's rows and stamps and the churn
+planner's prediction. ``SHARED`` are crash bursts, probe drop with a
+flip-flop window, sustained churn and contested consensus, each in the
+shape ``benchmarks/bench_engine.py`` gives it; ``OPTIONS`` the ring and
+hier variants, the recorder, and churn planned by ``churn.plan_churn``.
+A planned scenario's node ids depend on ``PYTHONHASHSEED``
+(``oracle.cluster.default_rng``): its file records the seed it was made
+under (``PLAN_HASH_SEED``), and a run compared with it must use the same.
+CPU tests regenerate the files from the reference and hold the port's CPU
+runs to them; ``chip_smoke.py`` compares the port's runs on the card
+against them.
 """
 from __future__ import annotations
 
@@ -29,7 +38,25 @@ GOLDEN_PATH = TESTDATA / "rx_n64_golden.json"
 GOLDEN_N = 64
 GOLDEN_TICKS = 160
 SHARED_TICKS = 160
+PLAN_BURST = 16         # slots per planned join or leave burst
+PLAN_HASH_SEED = "0"    # the PYTHONHASHSEED planned scenarios are made under
 I32_MAX = (1 << 31) - 1
+
+
+class RxRecorderRun(NamedTuple):
+    """The per-receiver engine on ``faults.crash_window_delay_schedule(n)``
+    over ``GOLDEN_TICKS`` ticks with a ``window``-row flight recorder."""
+
+    n: int
+    window: int
+
+    @property
+    def path(self) -> Path:
+        return TESTDATA / f"rx_n{self.n}_recorder.json"
+
+
+#: The receiver recorder runs: N=64 for the CPU tests, N=1024 for the card.
+RX_RECORDERS = (RxRecorderRun(64, 32), RxRecorderRun(1024, 64))
 
 
 class SharedBoot(NamedTuple):
@@ -41,6 +68,8 @@ class SharedBoot(NamedTuple):
     churn: object           # a ChurnSchedule of tensors, or None
     fallback: object        # a FallbackSchedule of tensors, or None
     setup_s: float
+    plan: object = None     # the churn.ChurnPlan of a planned scenario
+    plan_s: float = 0.0     # host seconds of plan_churn (in setup_s)
 
 
 @dataclass(frozen=True)
@@ -56,7 +85,16 @@ class SharedScenario:
     slots, members ``[0, n)``, and ``churn.synthetic_churn_schedule``'s
     alternating join and leave bursts of that many slots from tick 10.
     ``contested`` is ``bench_engine.run_contested``:
-    ``paxos.synthetic_contested_schedule`` over the run's ticks."""
+    ``paxos.synthetic_contested_schedule`` over the run's ticks.
+
+    ``join_bursts``/``leave_bursts`` plan churn with ``churn.plan_churn``
+    over ``ticks`` ticks, in the churn differentials' identity universe
+    (``identity.default_endpoints``/``default_node_ids``): burst ``i``
+    joins dormant slots ``[n + 16 i, n + 16 (i + 1))`` or removes members
+    ``[1 + 16 i, 1 + 16 (i + 1))`` at its tick; ``crash_block`` crashes
+    the ``n // 20`` slots from ``n // 2`` at ``crash_tick``. ``variant``,
+    ``invariant_checks`` and ``recorder_window`` are the run's
+    ``Settings``."""
 
     name: str
     n: int
@@ -67,15 +105,49 @@ class SharedScenario:
     flip_flop: bool = False
     churn_burst: int = 0
     contested: bool = False
+    variant: str = "rapid"
+    invariant_checks: bool = False
+    recorder_window: int = 0
+    join_bursts: Tuple[int, ...] = ()
+    leave_bursts: Tuple[int, ...] = ()
+    crash_block: bool = False
+    ticks: int = SHARED_TICKS
 
     @property
     def path(self) -> Path:
         return TESTDATA / f"{self.name}.json"
 
+    @property
+    def planned(self) -> bool:
+        return bool(self.join_bursts or self.leave_bursts)
+
+    def settings(self):
+        """The run's ``Settings``."""
+        from rapid_tpu_torch.settings import Settings
+
+        return Settings(protocol_variant=self.variant,
+                        invariant_checks=self.invariant_checks,
+                        flight_recorder_window=self.recorder_window)
+
     def churn_period(self, settings) -> int:
         return settings.churn_decide_delay_ticks + 3
 
+    def plan_calls(self):
+        """``(joins, leaves, crashes)`` of a planned scenario, as
+        ``plan_churn`` takes them: slot -> tick."""
+        joins = {self.n + PLAN_BURST * i + k: tick
+                 for i, tick in enumerate(self.join_bursts)
+                 for k in range(PLAN_BURST)}
+        leaves = {1 + PLAN_BURST * i + k: tick
+                  for i, tick in enumerate(self.leave_bursts)
+                  for k in range(PLAN_BURST)}
+        ticks = self.crash_ticks()
+        crashes = {s: t for s, t in enumerate(ticks) if t != I32_MAX}
+        return joins, leaves, crashes
+
     def capacity(self, settings) -> int:
+        if self.planned:
+            return self.n + PLAN_BURST * len(self.join_bursts)
         if not self.churn_burst:
             return self.n
         cycles = max(1, (SHARED_TICKS - 10) // (2 * self.churn_period(
@@ -86,6 +158,9 @@ class SharedScenario:
         ticks = [I32_MAX] * self.n
         if self.crash_every:
             for slot in range(0, self.n, self.crash_every):
+                ticks[slot] = self.crash_tick
+        if self.crash_block:
+            for slot in range(self.n // 2, self.n // 2 + self.n // 20):
                 ticks[slot] = self.crash_tick
         return ticks
 
@@ -105,15 +180,30 @@ class SharedScenario:
         from rapid_tpu_torch.engine import churn, paxos
         from rapid_tpu_torch.engine.state import (
             EngineFaults, init_state, link_faults)
-        from rapid_tpu_torch.identity import synthetic_uids
+        from rapid_tpu_torch.identity import (
+            default_endpoints, default_identities, default_node_ids,
+            synthetic_uids)
         from rapid_tpu_torch.settings import Settings
 
         settings = Settings()
         start = time.perf_counter()
         c = self.capacity(settings)
         uids = synthetic_uids(c)
+        id_fp_sum = 0
         member = np.arange(c) < self.n
-        churn_sched = fallback = id_fps = None
+        churn_sched = fallback = id_fps = plan = None
+        plan_s = 0.0
+        if self.planned:
+            joins, leaves, crashes = self.plan_calls()
+            plan = churn.plan_churn(
+                default_endpoints(c), self.n, default_node_ids(self.n),
+                self.ticks, settings, joins=joins, leaves=leaves,
+                crashes=crashes)
+            plan_s = time.perf_counter() - start
+            uids = default_identities(c)[0]
+            id_fp_sum = default_identities(self.n)[1]
+            id_fps = plan.id_fps
+            churn_sched = from_reference(plan, device=device)
         if self.churn_burst:
             sched, id_fps, _ = churn.synthetic_churn_schedule(
                 c, self.n, settings, start=10, burst=self.churn_burst,
@@ -123,8 +213,8 @@ class SharedScenario:
             sched, _ = paxos.synthetic_contested_schedule(
                 self.n, settings, SHARED_TICKS, uids=uids)
             fallback = from_reference(sched, device=device)
-        state = init_state(uids, 0, settings, member=member, id_fps=id_fps,
-                           device=device)
+        state = init_state(uids, id_fp_sum, settings, member=member,
+                           id_fps=id_fps, device=device)
         base = link_faults(self.crash_ticks() + [I32_MAX] * (c - self.n),
                            self.windows(), c, device=device)
         faults = EngineFaults(
@@ -132,7 +222,7 @@ class SharedScenario:
             **{f: getattr(base, f) for f in EngineFaults.FIELDS})
         state.member.sum().item()       # the boot has reached the device
         return SharedBoot(state, faults, churn_sched, fallback,
-                          time.perf_counter() - start)
+                          time.perf_counter() - start, plan, plan_s)
 
 
 SHARED = {sc.name: sc for sc in (
@@ -153,6 +243,46 @@ SHARED = {sc.name: sc for sc in (
     SharedScenario("shared_n1000_contested", 1000, contested=True),
     SharedScenario("shared_n100k_contested", 100_000, contested=True),
 )}
+
+
+#: The shared engine's options, each in a golden file of its own.
+OPTIONS = {sc.name: sc for sc in (
+    # shared_n100k_crash under the ring and hier variants.
+    SharedScenario("shared_n100k_crash_ring", 100_000, crash_every=100,
+                   variant="ring"),
+    SharedScenario("shared_n100k_crash_hier", 100_000, crash_every=100,
+                   variant="hier"),
+    # shared_n100k_crash with a flight recorder of 64 rows.
+    SharedScenario("shared_n100k_crash_rec64", 100_000, crash_every=100,
+                   recorder_window=64),
+    # BASELINE configuration 5's concurrent joins and leaves, scheduled by
+    # the join protocol: two join and two leave bursts of 16 at 100k
+    # members ...
+    SharedScenario("shared_n100k_planned_churn", 100_000,
+                   join_bursts=(10, 40), leave_bursts=(25, 55)),
+    # ... and its correlated failure (a contiguous 5 % crash block) with
+    # concurrent joins and leaves, at 10k members.
+    SharedScenario("shared_n10k_planned_mixed", 10_000, crash_block=True,
+                   join_bursts=(120, 150), leave_bursts=(135, 165),
+                   ticks=200),
+)}
+
+SCENARIOS = {**SHARED, **OPTIONS}
+
+
+def plan_record(plan) -> dict:
+    """JSON-ready form of a ``ChurnPlan``'s prediction."""
+    return {
+        "events": [[int(t), kind, int(cfg), [int(s) for s in slots]]
+                   for t, kind, cfg, slots in plan.events],
+        "redraws": {str(s): int(t) for s, t in sorted(plan.redraws.items())},
+        "wired": {str(s): int(t) for s, t in sorted(plan.wired.items())},
+        "joiner_ids": {str(s): [int(i.high), int(i.low)]
+                       for s, i in sorted(plan.joiner_ids.items())},
+        "final_members": len(plan.final_members),
+        "final_config_id": int(plan.final_config_id),
+        "pythonhashseed": PLAN_HASH_SEED,
+    }
 
 
 def record(events, counters, phase_counters, config_ids, n: int) -> dict:
@@ -213,16 +343,33 @@ def shared_record(name: str, events, logs, counters, config_id: int,
     }
 
 
-def shared_run_record(name: str, final, logs) -> dict:
-    """``shared_record`` of a port run (final state and stacked logs)."""
+def shared_run_record(name: str, final, logs, rec=None,
+                      plan=None) -> dict:
+    """``shared_record`` of a port run (final state and stacked logs),
+    with the recorder's payload and the plan's prediction when given."""
     from rapid_tpu_torch.convert import to_numpy
-    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.engine import diff, recorder
     from rapid_tpu_torch.engine.state import state_config_id
 
-    return shared_record(
+    out = shared_record(
         name, [e.as_dict() for e in diff.engine_events(logs)],
         to_numpy(logs), diff.expand_counters(logs), state_config_id(final),
         to_numpy(final))
+    if rec is not None:
+        out["recorder"] = recorder.recorder_payload(rec)
+    if plan is not None:
+        out["plan"] = plan_record(plan)
+    return out
+
+
+def run_scenario(sc: SharedScenario, device="cuda") -> dict:
+    """Boot ``sc`` on ``device``, run it, and return its record."""
+    from rapid_tpu_torch.engine import simulate
+
+    boot = sc.boot(device=device)
+    out = simulate(boot.state, boot.faults, sc.ticks, sc.settings(),
+                   churn=boot.churn, fallback=boot.fallback, device=device)
+    return shared_run_record(sc.name, *out, plan=boot.plan)
 
 
 def dumps(rec: dict) -> str:

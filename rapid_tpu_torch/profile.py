@@ -7,11 +7,14 @@
         --windows 13:5,60:12
     python -m rapid_tpu_torch.profile --engine shared --scenario contested \
         --windows 20:14,34:6
+    python -m rapid_tpu_torch.profile --engine shared --scenario monitored
 
 The per-receiver engine (default) lowers
 ``faults.crash_window_delay_schedule(n)``; the shared engine boots one of
-``golden.SHARED``'s scenarios (``churn`` and ``contested`` name the
-N=100,000 ones). Each window ``FROM:TICKS`` of ``--windows`` (default
+``golden.SCENARIOS`` (``churn`` and ``contested`` name the N=100,000
+ones of ``golden.SHARED``, ``monitored`` its crash burst with the
+invariant monitor on) and runs it with the scenario's settings. Each
+window ``FROM:TICKS`` of ``--windows`` (default
 ``110:20``: the crash scenarios announce and decide around tick 112)
 runs ``FROM`` ticks, then ``TICKS`` more unprofiled (so the
 card loads every kernel the window uses before it is measured), then the
@@ -31,13 +34,16 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
 
-#: Short names of the shared engine's N=100,000 churn and contested runs.
-SCENARIOS = {"churn": "shared_n100k_churn",
-             "contested": "shared_n100k_contested"}
+#: Short names of shared-engine runs: the ``golden.SCENARIOS`` name, and
+#: whether the invariant monitor is on.
+SCENARIOS = {"churn": ("shared_n100k_churn", False),
+             "contested": ("shared_n100k_contested", False),
+             "monitored": ("shared_n100k_crash", True)}
 
 
 def main(argv=None) -> int:
@@ -53,7 +59,7 @@ def main(argv=None) -> int:
                     default="receiver")
     ap.add_argument("--n", type=int, default=1024,
                     help="slots of the per-receiver run")
-    ap.add_argument("--scenario", choices=sorted(golden.SHARED)
+    ap.add_argument("--scenario", choices=sorted(golden.SCENARIOS)
                     + sorted(SCENARIOS), default="shared_n100k_crash",
                     help="the shared engine's run")
     ap.add_argument("--windows", default="110:20",
@@ -70,10 +76,12 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     if args.engine == "shared":
-        settings = Settings()
-        name = SCENARIOS.get(args.scenario, args.scenario)
-        n = golden.SHARED[name].n
-        boot = golden.SHARED[name].boot()
+        name, checks = SCENARIOS.get(args.scenario, (args.scenario, False))
+        sc = golden.SCENARIOS[name]
+        if checks:
+            sc = dataclasses.replace(sc, invariant_checks=True)
+        settings, n = sc.settings(), sc.n
+        boot = sc.boot()
         sched = dict(churn=boot.churn, fallback=boot.fallback)
 
         def start(ticks):
@@ -102,6 +110,7 @@ def main(argv=None) -> int:
         print(json.dumps(profile_window(
             window(start(first), ticks), ticks, args.top,
             {"card": card, "engine": args.engine, "scenario": name, "n": n,
+             "invariant_checks": settings.invariant_checks,
              "ticks": ticks, "from_tick": first})), flush=True)
     return 0
 

@@ -76,3 +76,79 @@ def test_card_run_equals_cpu_run(card):
         for field in got._fields:
             assert np.array_equal(getattr(got, field),
                                   getattr(want, field)), field
+
+
+def _same(a, b):
+    a, b = to_numpy(a), to_numpy(b)
+    for field in a._fields:
+        assert np.array_equal(getattr(a, field), getattr(b, field)), field
+
+
+@pytest.mark.parametrize("options", [
+    dict(protocol_variant="ring"), dict(protocol_variant="hier"),
+    dict(invariant_checks=True), dict(flight_recorder_window=16),
+    dict(protocol_variant="ring", invariant_checks=True,
+         flight_recorder_window=200),
+], ids=["ring", "hier", "monitor", "recorder", "ring_monitor_recorder"])
+def test_shared_options_card_run_equals_cpu_run(card, options):
+    from rapid_tpu_torch.engine import simulate
+    from rapid_tpu_torch.engine.state import I32_MAX, crash_faults, init_state
+    from rapid_tpu_torch.identity import synthetic_uids
+
+    n = 256
+    settings = Settings(**options)
+    crash = [5 if s % 50 == 0 else I32_MAX for s in range(n)]
+    runs = []
+    for device in (card, "cpu"):
+        state = init_state(synthetic_uids(n), 0, settings, device=device)
+        runs.append(simulate(state, crash_faults(crash, device=device), 130,
+                             settings, device=device))
+    assert len(runs[0]) == (3 if settings.flight_recorder_window else 2)
+    for got, want in zip(*runs):
+        _same(got, want)
+    assert int(runs[0][1].decide_now.sum()) == 1
+    assert int(runs[0][1].inv_bits.abs().sum()) == 0
+
+
+def test_planned_churn_card_run_equals_cpu_run(card):
+    from rapid_tpu_torch.convert import from_reference
+    from rapid_tpu_torch.engine import churn, simulate
+    from rapid_tpu_torch.engine.state import I32_MAX, crash_faults, init_state
+    from rapid_tpu_torch.identity import (default_endpoints,
+                                          default_identities,
+                                          default_node_ids)
+
+    n, c = 64, 66
+    plan = churn.plan_churn(default_endpoints(c), n, default_node_ids(n),
+                            180, Settings(), joins={64: 120, 65: 120},
+                            leaves={7: 140}, crashes={3: 5, 17: 5, 40: 5})
+    crash = [5 if s in (3, 17, 40) else I32_MAX for s in range(c)]
+    runs = []
+    for device in (card, "cpu"):
+        state = init_state(default_identities(c)[0],
+                           default_identities(n)[1], Settings(),
+                           member=np.arange(c) < n, id_fps=plan.id_fps,
+                           device=device)
+        runs.append(simulate(state, crash_faults(crash, device=device), 180,
+                             Settings(),
+                             churn=from_reference(plan, device=device),
+                             device=device))
+    for got, want in zip(*runs):
+        _same(got, want)
+    assert int(runs[0][1].decide_now.sum()) == 3
+
+
+def test_receiver_recorder_card_run_equals_cpu_run(card):
+    settings = Settings(rx_kernel="pallas", flight_recorder_window=32)
+    sched = crash_window_delay_schedule(16)
+    runs = []
+    for device in (card, "cpu"):
+        member = receiver.lower_receiver_schedule(sched, settings,
+                                                  device=device)
+        before = rx_account.deliver_launches
+        runs.append(receiver.receiver_simulate(member.state, member.faults,
+                                               120, settings))
+        fused = rx_account.deliver_launches - before
+        assert fused == (6 * 120 if device == card else 0)
+    for got, want in zip(*runs):
+        _same(got, want)

@@ -22,18 +22,18 @@ import torch
 from rapid_tpu.engine import churn as ref_churn
 from rapid_tpu.engine import diff as ref_diff
 from rapid_tpu.engine import paxos as ref_paxos
+from rapid_tpu.engine import recorder as ref_recorder
 from rapid_tpu.engine.state import I32_MAX
 from rapid_tpu.engine.state import EngineFaults as RefFaults
 from rapid_tpu.engine.state import init_state as ref_init_state
 from rapid_tpu.engine.state import link_faults as ref_link_faults
 from rapid_tpu.engine.state import state_config_id as ref_config_id
 from rapid_tpu.faults import LinkWindow as RefWindow
+from rapid_tpu.oracle.membership_view import MembershipView, uid_of
 from rapid_tpu.settings import Settings as RefSettings
 
 from rapid_tpu_torch import golden
-from rapid_tpu_torch.engine import step as port_step
 from rapid_tpu_torch.identity import synthetic_uids
-from rapid_tpu_torch.settings import Settings
 
 ref_step = importlib.import_module("rapid_tpu.engine.step")
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,11 +49,27 @@ def _bench_engine():
 
 def reference_record(sc: golden.SharedScenario) -> dict:
     """The reference's run of ``sc``, built as ``bench_engine`` builds
-    its crash, churn and contested runs."""
-    settings = RefSettings()
+    its crash, churn and contested runs; a planned scenario's schedule
+    comes from the reference's ``plan_churn`` (in the churn
+    differentials' identity universe), and the recorder's payload and the
+    plan's prediction join the record where the scenario has them."""
+    settings = RefSettings(protocol_variant=sc.variant,
+                           invariant_checks=sc.invariant_checks,
+                           flight_recorder_window=sc.recorder_window)
     c = sc.capacity(settings)
     uids = _bench_engine().synthetic_uids(c)
-    churn = fallback = id_fps = None
+    churn = fallback = id_fps = plan = None
+    id_fp_sum = 0
+    if sc.planned:
+        joins, leaves, crashes = sc.plan_calls()
+        endpoints = ref_diff.default_endpoints(c)
+        node_ids = ref_diff.default_node_ids(sc.n)
+        plan = ref_churn.plan_churn(endpoints, sc.n, node_ids, sc.ticks,
+                                    settings, joins=joins, leaves=leaves,
+                                    crashes=crashes)
+        churn, id_fps = plan.schedule, plan.id_fps
+        uids = [uid_of(e) for e in endpoints]
+        id_fp_sum = MembershipView(settings.K, node_ids, [])._id_fp_sum
     if sc.churn_burst:
         churn, id_fps, _ = ref_churn.synthetic_churn_schedule(
             c, sc.n, settings, start=10, burst=sc.churn_burst,
@@ -61,8 +77,8 @@ def reference_record(sc: golden.SharedScenario) -> dict:
     if sc.contested:
         fallback, _ = ref_paxos.synthetic_contested_schedule(
             sc.n, settings, golden.SHARED_TICKS, uids=uids)
-    state = ref_init_state(uids, 0, settings, member=np.arange(c) < sc.n,
-                           id_fps=id_fps)
+    state = ref_init_state(uids, id_fp_sum, settings,
+                           member=np.arange(c) < sc.n, id_fps=id_fps)
     base = ref_link_faults(sc.crash_ticks() + [I32_MAX] * (c - sc.n),
                            [RefWindow(**vars(w)) for w in sc.windows()], c)
     faults = RefFaults(
@@ -70,21 +86,19 @@ def reference_record(sc: golden.SharedScenario) -> dict:
         link_src=base.link_src, link_dst=base.link_dst,
         link_start=base.link_start, link_end=base.link_end,
         link_period=base.link_period, link_two_way=base.link_two_way)
-    final, logs = ref_step.simulate(state, faults, golden.SHARED_TICKS,
-                                    settings, churn=churn, fallback=fallback)
+    out = ref_step.simulate(state, faults, sc.ticks, settings, churn=churn,
+                            fallback=fallback)
+    final, logs = out[:2]
     as_np = lambda nt: type(nt)(*[np.asarray(x) for x in nt])
-    return golden.shared_record(
+    rec = golden.shared_record(
         sc.name, [e.as_dict() for e in ref_diff.engine_events(logs)],
         as_np(logs), ref_diff.expand_counters(logs), ref_config_id(final),
         as_np(final))
-
-
-def port_record(sc: golden.SharedScenario) -> dict:
-    boot = sc.boot(device="cpu")
-    final, logs = port_step.simulate(
-        boot.state, boot.faults, golden.SHARED_TICKS, Settings(),
-        churn=boot.churn, fallback=boot.fallback, device="cpu")
-    return golden.shared_run_record(sc.name, final, logs)
+    if sc.recorder_window:
+        rec["recorder"] = ref_recorder.recorder_payload(out[2])
+    if plan is not None:
+        rec["plan"] = golden.plan_record(plan)
+    return rec
 
 
 def _decides(rec: dict):
@@ -153,14 +167,14 @@ def test_n1000_golden_file_matches_reference(name):
 
 @pytest.mark.parametrize("name", N1000)
 def test_port_cpu_run_equals_n1000_golden(name, few_threads):
-    got = port_record(golden.SHARED[name])
+    got = golden.run_scenario(golden.SHARED[name], device="cpu")
     assert golden.differences(got, golden.load(golden.SHARED[name].path)) \
         == []
 
 
 @pytest.mark.parametrize("name", N100K)
 def test_port_cpu_run_equals_n100k_golden(name, few_threads):
-    got = port_record(golden.SHARED[name])
+    got = golden.run_scenario(golden.SHARED[name], device="cpu")
     assert golden.differences(got, golden.load(golden.SHARED[name].path)) \
         == []
 

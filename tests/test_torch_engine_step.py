@@ -148,10 +148,6 @@ def test_step_reads_the_tick_when_not_given():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(settings=Settings(protocol_variant="ring")), "item 4"),
-    (dict(settings=Settings(protocol_variant="hier")), "item 4"),
-    (dict(settings=Settings(invariant_checks=True)), "item 5"),
-    (dict(settings=Settings(flight_recorder_window=4)), "item 5"),
     (dict(mesh=object()), "item 10"),
 ])
 def test_out_of_slice_options_are_refused(kw, item):
@@ -164,6 +160,26 @@ def test_out_of_slice_options_are_refused(kw, item):
         step.simulate(state, faults, 2, settings, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         step.step(state, faults, settings, **kw)
+
+
+@pytest.mark.parametrize("settings", [
+    Settings(protocol_variant="ring"), Settings(protocol_variant="hier"),
+    Settings(invariant_checks=True), Settings(flight_recorder_window=4),
+], ids=["ring", "hier", "invariant_checks", "flight_recorder"])
+def test_options_once_refused_now_run(settings):
+    """The variants, the monitor and the recorder run in the port; a
+    quiet 8-slot run logs the same as the default settings'."""
+    uids, id_fp_sum = default_identities(8)
+    state = init_state(uids, id_fp_sum, Settings(), device="cpu")
+    faults = from_reference(RefFaults(np.full(8, I32_MAX, np.int32)),
+                            device="cpu")
+    got = step.simulate(state, faults, 2, settings, device="cpu")
+    want = step.simulate(state, faults, 2, Settings(), device="cpu")
+    assert len(got) == (3 if settings.flight_recorder_window else 2)
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    new, log = step.step(state, faults, settings)
+    assert int(log.inv_bits) == 0 and int(new.tick) == 1
 
 
 def test_simulate_refuses_state_on_another_device():

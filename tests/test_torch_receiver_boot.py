@@ -132,9 +132,8 @@ def test_flags_decode_and_check():
         port_rx.check_flags(torch.tensor(port_rx.FLAG_RING_COLLISION))
 
 
-@pytest.mark.parametrize("kw", [{"rx_kernel": "xla"}, {"rx_kernel": "packed"},
-                                {"rx_kernel": "pallas",
-                                 "flight_recorder_window": 4}])
+@pytest.mark.parametrize("kw", [{"rx_kernel": "xla"},
+                                {"rx_kernel": "packed"}])
 def test_out_of_slice_settings_raise(kw):
     sched = port_faults.crash_window_delay_schedule(16)
     with pytest.raises(NotImplementedError, match="later slice"):
