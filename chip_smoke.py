@@ -25,8 +25,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    in and to the run with the packed composition (``account`` around
    ``rx_account``) swapped in. Then, through ``rapid_tpu_torch.tick_time``,
    the default (``rx_deliver``) and the composed path in turns on this
-   card (a warm-up run each, then two rounds of default, composed,
-   composed, default; every run equal to the first and launching only
+   card (a warm-up run each, then default, composed, composed,
+   default; every run equal to the first and launching only
    its own kernel), ms per tick each; the host's µs per delivery call
    inside a tick for each path; and kernels per tick of each path over
    ticks 106-120 under ``torch.profiler``;
@@ -75,7 +75,28 @@ Phases, in order; any failure exits non-zero before the result lines:
     with a 5 % contiguous crash block and the same bursts, 200 ticks,
     equal to ``shared_n10k_planned_mixed.json``; each runs twice, from
     two boots (the child's first run also loads the card's kernels, so
-    the second is the warm one); prints the planner's seconds.
+    the second is the warm one); prints the planner's seconds;
+16. ``rx_deliver`` over a member axis (``[F, B, C, C]`` planes, ``[F, C]``
+    crash masks, ``[F, 14]`` counters starting nonzero) equal to its plain
+    version at C in {13, 32, 48, 1024}, F in {1, 4, 256} (256 at C <= 48)
+    and B in {1, 2}, with and without a phase slot; then at F=256 and
+    C in {32, 48}: device time L2-warm and L2-cold (graph replay), the
+    byte bound, 256 launches of one member each, and the plain version;
+17. the main path of fleets: the four pools of
+    ``rapid_tpu_torch/testdata/fleet_pool{0,1,2,3}.json`` (a campaign's
+    first 256 members of each: shared crash and churn, shared contested,
+    per-receiver latency, per-receiver partition and flip-flop), each
+    lowered by the port from the file's schedules, stacked to the file's
+    shape and run 120 ticks, equal to the file for every member; prints
+    ms per tick and per member-tick, host reads per tick, kernels per
+    tick over ticks 1-10 under ``torch.profiler``, peak memory and
+    ``rx_deliver``'s launches (720 for a per-receiver pool, none for a
+    shared one), counted from 0 around each pool's run;
+18. scaling: pools 0 and 3 at F in {1, 16, 64, 256} (prefixes of the same
+    members), 40 ticks, in turns, up then down, each run's logs equal to
+    phase 17's for those members and ticks, printing ms per member-tick;
+    and member 0 through the one-cluster entry points (``simulate``,
+    ``receiver_simulate``), 120 ticks, equal to its entry.
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -84,7 +105,8 @@ whole ``account`` on the same inputs and for ``rx_account`` alone.
 Phases 6-15 print ms per tick (CUDA events around ``simulate``), host
 reads per tick, peak allocated memory, the decides and the setup seconds
 (the schedule and ``init_state``), and count both kernels' launches in
-each (none on the shared engine, which has no kernel).
+each (none on the shared engine, which has no kernel); phases 17 and 18
+the same for fleets.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
@@ -106,13 +128,23 @@ PARITY_WIDTHS = (64, 200, 1000, 1024, 4096)
 DELIVER_WIDTHS = (13, 64, 200, 1000, 1024, 4096)
 COUNTERS_START = (5, -2, 9, 4, 1)   # nonzero counters the kernels add onto
 PHASE_SLOT = 3
-TURN_ROUNDS = 2                # rounds of default, composed, composed, default
+FLEET_WIDTHS = (13, 32, 48, 1024)   # phase 16: rx_deliver over a member axis
+FLEET_F = (1, 4, 256)              # members (256 only at C <= 48)
+FLEET_MEMBERS = 256                # the campaign's dispatch size
+FLEET_PROFILE_TICKS = 10           # phase 17's profiled window
+SCALE_F = (1, 16, 64, 256)         # phase 18's fleet sizes ...
+SCALE_TICKS = 40                   # ... and ticks
+TURN_ROUNDS = 1                # rounds of default, composed, composed, default
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, stamped with the seconds since the start."""
+    print(f"[{time.perf_counter() - _START:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -798,6 +830,279 @@ def phase_planned(device, rx_account) -> dict:
     return out
 
 
+def random_fleet(c: int, f: int, planes: int, seed: int, device):
+    """Dense message planes of ``f`` members (``[F, C, C]`` for one plane,
+    ``[F, B, C, C]`` for more), their packed blocked planes, crash masks
+    and nonzero ``[F, 14]`` counters."""
+    import torch
+    from rapid_tpu_torch.engine.rx_packed import pack_bits
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)
+    shape = (f, c, c) if planes == 1 else (f, planes, c, c)
+    msgs = t(rng.random(shape) < 0.5)
+    pe = pack_bits(t(rng.random((f, c, c)) < 0.2))
+    crashed = t(rng.random((f, c)) < 0.1)
+    acc = t(rng.integers(-9, 9, (f, 14)).astype(np.int32))
+    return msgs, crashed, pe, acc
+
+
+def fleet_bytes(c: int, f: int, planes: int) -> int:
+    """Bytes one member-axis ``rx_deliver`` launch must move: each
+    member's ``deliver_bytes`` plus its counter row (56 bytes) read."""
+    return f * (deliver_bytes(c, planes) + 14 * 4)
+
+
+def phase_fleet_deliver(rx_account, device) -> tuple:
+    """Phase 16: ``rx_deliver`` over a member axis equals its plain
+    version, then its times at F=256 against the byte bound and against
+    F launches of one member."""
+    import itertools
+
+    import torch
+
+    worst = 0
+    saved = (rx_account.launches, rx_account.deliver_launches)
+    for c in FLEET_WIDTHS:
+        for f in FLEET_F:
+            if f > 4 and c > 48:
+                continue
+            for planes in (1, 2):
+                msgs, crashed, pe, acc = random_fleet(c, f, planes,
+                                                      seed=c + f + planes,
+                                                      device=device)
+                for phase in (None, PHASE_SLOT):
+                    acc_k, acc_p = acc.clone(), acc.clone()
+                    got = rx_account.account_into_kernel(msgs, crashed, pe,
+                                                         acc_k, phase)
+                    want = rx_account.account_into_plain(msgs, crashed, pe,
+                                                         acc_p, phase)
+                    torch.cuda.synchronize()
+                    err = max(int((got.int() - want.int()).abs().max()),
+                              int((acc_k - acc_p).abs().max()))
+                    worst = max(worst, err)
+                    if err:
+                        raise AssertionError(
+                            f"rx_deliver over F={f} != plain at C={c}, "
+                            f"B={planes}, phase={phase}: max |diff| {err}")
+        log(f"phase 16: rx_deliver C={c} over F in "
+            f"{[f for f in FLEET_F if f <= 4 or c <= 48]} x B in (1, 2) == "
+            f"plain (deliv and every member's counters, with and without a "
+            f"phase slot)")
+    times = {}
+    f = FLEET_MEMBERS
+    for c in (32, 48):
+        msgs, crashed, pe, acc = random_fleet(c, f, 1, seed=c, device=device)
+        args = (msgs, crashed, pe, acc, PHASE_SLOT)
+        fused = lambda: rx_account.account_into_kernel(*args)
+        rows = [(msgs[i], crashed[i], pe[i], acc[i]) for i in range(f)]
+        apart = lambda: [rx_account.account_into_kernel(*r, PHASE_SLOT)
+                         for r in rows]
+        read = f * (c * c + c * -(-c // 8) + c + 56)
+        count = -(-2 * L2_BYTES // read)
+        sets = itertools.cycle([random_fleet(c, f, 1, seed=100 + k,
+                                             device=device)[:3]
+                                for k in range(count)])
+        kept = []
+        cold = graph_ms(lambda: kept.append(rx_account.account_into_kernel(
+            *next(sets), acc, PHASE_SLOT)), iters=count)
+        kept.clear()
+        times[c] = {"ms": graph_ms(fused), "cold_ms": cold,
+                    "plain_ms": graph_ms(lambda: rx_account.account_into_plain(
+                        *args)),
+                    "f_launches_ms": graph_ms(apart, iters=4),
+                    "bound_ms": fleet_bytes(c, f, 1) / HBM_BYTES_PER_S * 1e3,
+                    "call_ms": cuda_ms(fused, 200)}
+        t = times[c]
+        log(f"phase 16: rx_deliver F={f} C={c} B=1: {t['ms'] * 1e3:.3f} us "
+            f"L2-warm, {t['cold_ms'] * 1e3:.3f} us L2-cold ({count} input "
+            f"sets, {count * read / L2_BYTES:.2f} x L2), bound "
+            f"{t['bound_ms'] * 1e3:.3f} us, {f} launches of one member "
+            f"{t['f_launches_ms'] * 1e3:.3f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us, {t['call_ms'] * 1e3:.2f} us per "
+            f"eager call")
+    rx_account.launches, rx_account.deliver_launches = saved
+    return worst, times
+
+
+def fleet_run(pool, members, device, ticks=None):
+    """Lower and stack ``members`` of ``pool``, then run them with CUDA
+    events around the run and both kernels' launches and the host reads
+    counted (zeroed just before): ``(out, stats)``."""
+    import torch
+    from rapid_tpu_torch import device as device_mod
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import fleet, rx_account
+
+    start = time.perf_counter()
+    stacked = golden.lower_pool(pool, members, device=device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - start
+    run = (fleet.fleet_simulate if pool.mode == "shared"
+           else fleet.receiver_fleet_simulate)
+    ticks = ticks or golden.FLEET_CAMPAIGN["ticks"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rx_account)
+    reads = device_mod.host_reads
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = run(stacked, ticks, golden.pool_settings(pool), device=device)
+    end.record()
+    end.synchronize()
+    ms = begin.elapsed_time(end)
+    return out, {"f": len(members), "ticks": ticks, "setup_s": setup,
+                 "ms_per_tick": ms / ticks,
+                 "ms_per_member_tick": ms / ticks / len(members),
+                 "host_reads_per_tick": (device_mod.host_reads - reads) / ticks,
+                 "deliver_launches": rx_account.deliver_launches,
+                 "account_launches": rx_account.launches,
+                 "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def fleet_profile(pool, members, device) -> dict:
+    """Kernels, aten ops and host reads per tick of a pool's fleet over
+    ``FLEET_PROFILE_TICKS`` ticks from its boot, under ``torch.profiler``."""
+    from rapid_tpu_torch import golden, profile
+    from rapid_tpu_torch.engine import fleet
+
+    stacked = golden.lower_pool(pool, members, device=device)
+    run = (fleet.fleet_simulate if pool.mode == "shared"
+           else fleet.receiver_fleet_simulate)
+    settings = golden.pool_settings(pool)
+    field = "decide_now" if pool.mode == "shared" else "decide"
+
+    def window():
+        out = run(stacked, FLEET_PROFILE_TICKS, settings, device=device)
+        return getattr(out[1], field)
+
+    return profile.profile_window(window, FLEET_PROFILE_TICKS, 5,
+                                  {"pool": pool.pool_id, "f": len(members)})
+
+
+def phase_fleet_pools(device) -> dict:
+    """Phase 17, the main path: each pool's 256 members lowered by the
+    port from its golden file's schedules, run on the card and equal to
+    the file for every member."""
+    from rapid_tpu_torch import golden
+
+    out, outputs = {}, {}
+    for pool_id, pool in sorted(golden.FLEET_POOLS.items()):
+        want = golden.load(pool.path)
+        members = golden.pool_inputs(want)
+        res, stats = fleet_run(pool, members, device)
+        outputs[pool_id] = res
+        want_launches = (6 * stats["ticks"]
+                         if pool.mode == "per_receiver" else 0)
+        if (stats["deliver_launches"], stats["account_launches"]) != \
+                (want_launches, 0):
+            raise AssertionError(
+                f"pool {pool_id} launched (rx_deliver, rx_account) "
+                f"{(stats['deliver_launches'], stats['account_launches'])},"
+                f" want {(want_launches, 0)}")
+        diff_ = golden.differences(golden.fleet_run_record(pool, members,
+                                                           res), want)
+        if diff_:
+            raise AssertionError(f"pool {pool_id} differs from its golden "
+                                 f"file in {diff_[:8]}")
+        prof = fleet_profile(pool, members, device)
+        decides = sum(len([e for e in m["events"] if e[1] == "view_change"])
+                      for m in want["members"])
+        stats.update(profile=prof, view_change_events=decides)
+        out[pool_id] = stats
+        log(f"phase 17: pool {pool_id} ({pool.mode}, C={pool.capacity}, "
+            f"{'/'.join(pool.kinds)}) F={stats['f']} x {stats['ticks']} "
+            f"ticks equals its golden file for every member: "
+            f"{stats['ms_per_tick']:.3f} ms/tick, "
+            f"{stats['ms_per_member_tick'] * 1e3:.2f} us/member-tick, "
+            f"{stats['host_reads_per_tick']:.3f} host reads/tick, "
+            f"{prof['device_kernels_per_tick']:.1f} kernels/tick and "
+            f"{prof['device_busy_ms_per_tick']:.3f} ms/tick device-busy over "
+            f"ticks 1-{FLEET_PROFILE_TICKS}, peak "
+            f"{stats['peak_bytes'] / 2**20:.1f} MiB, setup "
+            f"{stats['setup_s']:.2f} s, {stats['deliver_launches']} "
+            f"rx_deliver launches, {decides} view-change events")
+    return out, outputs
+
+
+def single_member_run(pool, member: dict, device) -> tuple:
+    """``member`` of ``pool`` through the one-cluster entry points
+    (``simulate``, ``receiver_simulate``), timed by CUDA events: its
+    ``golden.pool_record`` and ms per tick."""
+    import torch
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.convert import to_numpy
+    from rapid_tpu_torch.engine import fleet, receiver, rx_packed, simulate
+
+    one = fleet.member_of(golden.lower_pool(pool, [member], device=device),
+                          0)
+    settings = golden.pool_settings(pool)
+    ticks = golden.FLEET_CAMPAIGN["ticks"]
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    if pool.mode == "shared":
+        final, logs, rec = simulate(one.state, one.faults, ticks, settings,
+                                    churn=one.churn, fallback=one.fallback)
+    else:
+        dense, logs = receiver.receiver_simulate(one.state, one.faults,
+                                                 ticks, settings)
+        final = rx_packed.ReceiverFinalView(*[
+            getattr(dense, f) for f in rx_packed.ReceiverFinalView._fields])
+        rec = None
+    end.record()
+    end.synchronize()
+    axis = lambda nt: None if nt is None else to_numpy(
+        type(nt)(*[leaf[None] for leaf in nt]))
+    record = golden.pool_record(pool, [member], axis(logs), axis(final),
+                                axis(rec))
+    return record, begin.elapsed_time(end) / ticks
+
+
+def phase_fleet_scaling(device, full: dict) -> dict:
+    """Phase 18: pools 0 and 3 at F in ``SCALE_F`` (prefixes of the same
+    members) for ``SCALE_TICKS`` ticks, in turns (up, then down), each
+    run's logs equal to the first F members' first ticks of phase 17's
+    run (``full``), and member 0 through the one-cluster path, equal to
+    its golden entry."""
+    import torch
+    from rapid_tpu_torch import golden
+
+    out = {}
+    for pool_id in (0, 3):
+        pool = golden.FLEET_POOLS[pool_id]
+        want = golden.load(pool.path)
+        inputs = golden.pool_inputs(want)
+        runs = {f: [] for f in SCALE_F}
+        reads = {}
+        for f in SCALE_F + SCALE_F[::-1]:
+            res, stats = fleet_run(pool, inputs[:f], device, SCALE_TICKS)
+            ref_logs = full[pool_id][1]
+            for name, got in zip(res[1]._fields, res[1]):
+                if not torch.equal(got, getattr(ref_logs, name)[
+                        :f, :SCALE_TICKS]):
+                    raise AssertionError(f"pool {pool_id} F={f}: {name} "
+                                         f"differs from phase 17's run")
+            runs[f].append(stats["ms_per_member_tick"])
+            reads[f] = stats["host_reads_per_tick"]
+        record, single_ms = single_member_run(pool, inputs[0], device)
+        if golden.differences(golden.pool_head(record, 1),
+                              golden.pool_head(want, 1)):
+            raise AssertionError(f"pool {pool_id} member 0 alone differs "
+                                 f"from its golden entry")
+        out[pool_id] = {"ms_per_member_tick": runs,
+                        "host_reads_per_tick": reads,
+                        "single_member_ms_per_tick": single_ms}
+        log(f"phase 18: pool {pool_id}, {SCALE_TICKS} ticks, ms per "
+            f"member-tick by F (in turns, up then down): "
+            f"{ {f: [round(t, 5) for t in v] for f, v in runs.items()} }, "
+            f"host reads/tick {reads}, every run's logs equal to phase "
+            f"17's; member 0 alone through the one-cluster path, 120 "
+            f"ticks: {single_ms:.3f} ms/tick, equal to its entry")
+    return out
+
+
 def planned_child() -> dict:
     """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
     files; any failure there fails this process."""
@@ -902,6 +1207,10 @@ def main() -> int:
                                  f" leaving {planned[name]['n_member']}")
     for run in shared.values():
         run.pop("log", None)
+    err_fleet, fleet_times = phase_fleet_deliver(rx_account, device)
+    fleet_pools, pool_outputs = phase_fleet_pools(device)
+    scaling = phase_fleet_scaling(device, pool_outputs)
+    del pool_outputs
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -912,7 +1221,7 @@ def main() -> int:
         "with_wrapper": "rapid_tpu/engine/rx_pallas.py:72",
         "on_main_path": True,
         "launches": main_run["deliver_launches"],
-        "max_abs_err": err_deliver,
+        "max_abs_err": max(err_deliver, err_fleet),
         "parity": "exact",
         **main_t["rx_deliver"],
         "bound_by": "bytes",
@@ -920,6 +1229,10 @@ def main() -> int:
         "c4096": wide_t["rx_deliver"],
         "composed": {"c1024": main_t["composed"],
                      "c4096": wide_t["composed"]},
+        "fleet_launches": {f"pool{pid}": run["deliver_launches"]
+                           for pid, run in fleet_pools.items()},
+        "fleet_max_abs_err": err_fleet,
+        "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
         "name": "rx_account",
         "route": "cuda",
@@ -936,7 +1249,9 @@ def main() -> int:
     }]
     log(json.dumps({"main_path": main_run,
                     "wide": {"n": WIDE_N, "ticks": WIDE_TICKS, **wide},
-                    "shared": shared, "card": card}))
+                    "shared": shared, "fleet_pools": fleet_pools,
+                    "fleet_scaling": scaling,
+                    "fleet_deliver": fleet_times, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,14 +4,16 @@
 ``StepLog``, ``ReceiverState``, ``PackedReceiverState``,
 ``ReceiverStepLog``, ``PackedReceiverBundle``, ``RecorderState``, and
 the schedules ``ChurnSchedule`` and ``FallbackSchedule``, the reference's
-or the port's own host half's; a ``ChurnPlan`` gives its schedule) or
+or the port's own host half's; a ``ChurnPlan`` gives its schedule; the
+fleets' ``FleetMember`` and ``ReceiverMember``, stacked or not) or
 ``EngineFaults`` of arrays to the port's type on ``device``: 32-bit
 limbs (fields named ``*_hi``/``*_lo``) become masked int64, bool, int8,
 int16, int32 and uint8 keep their dtype; the faults' drop configuration
 is copied as host values, and a schedule's absent (None) fields stay
 None. ``to_numpy`` maps the port's
 NamedTuples back to numpy in the reference's dtypes (uint32 limbs), so
-the two sides compare with ``np.array_equal``. Only duck typing by class
+the two sides compare with ``np.array_equal``; a fleet's members, finals,
+logs and recorders keep their leading member axis either way. Only duck typing by class
 name is used: this module imports nothing of the reference.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from rapid_tpu_torch.device import resolve_device
 from rapid_tpu_torch.engine.churn import ChurnSchedule
+from rapid_tpu_torch.engine.fleet import FleetMember, ReceiverMember
 from rapid_tpu_torch.engine.paxos import FallbackSchedule
 from rapid_tpu_torch.engine.recorder import RecorderState
 from rapid_tpu_torch.engine.rx_packed import (
@@ -53,6 +56,9 @@ def from_reference(nt, device="cuda"):
                                for f in EngineFaults.FIELDS})
     if name == "ChurnPlan":
         return from_reference(nt.schedule, dev)
+    if name in ("FleetMember", "ReceiverMember"):
+        cls = FleetMember if name == "FleetMember" else ReceiverMember
+        return cls(*[from_reference(part, dev) for part in nt])
     if name == "PackedReceiverBundle":
         return PackedReceiverBundle(
             packed=from_reference(nt.packed, dev),
@@ -82,6 +88,8 @@ def to_numpy(nt):
         out = {f: _leaf_to(f, getattr(nt, f)) for f in EngineFaults.FIELDS}
         out.update({f: getattr(nt, f) for f in EngineFaults.DROP_CONFIG})
         return out
+    if isinstance(nt, (FleetMember, ReceiverMember)):
+        return type(nt)(*[to_numpy(part) for part in nt])
     if isinstance(nt, PackedReceiverBundle):
         return PackedReceiverBundle(packed=to_numpy(nt.packed),
                                     delay_table=_leaf_to("delay_table",

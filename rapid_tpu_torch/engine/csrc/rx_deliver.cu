@@ -2,26 +2,28 @@
 //
 // Replaces rapid_tpu/engine/rx_pallas.py:_account_kernel (and the
 // packbits/unpackbits/sums of rx_pallas.account around it): the whole of
-// rx_pallas.account in one launch, for a batch of message planes. Over
-// dense bool planes msgs[p, s, d] (p < planes, s and d < C):
+// rx_pallas.account in one launch, for a batch of message planes of every
+// member of a fleet (the reference vmaps it over its members). Over dense
+// bool planes msgs[f, p, s, d] (f < members, p < planes, s and d < C):
 //
-//   ok    = msgs & ~crashed[s] & ~crashed[d]
-//   deliv = ok & ~pe[s, d]            (pe: the packed link-blocked plane)
-//   acc[0]     += sum popc(deliv)                 delivered
-//   acc[1]     += sum popc(msgs) - sum popc(deliv)  dropped
-//   acc[2]     += sum popc(ok & pe)               link_dropped
-//   acc[phase] += sum popc(deliv)                 (when phase >= 0)
+//   ok    = msgs & ~crashed[f, s] & ~crashed[f, d]
+//   deliv = ok & ~pe[f, s, d]         (pe: the packed link-blocked plane)
+//   acc[f, 0]     += sum popc(deliv)                   delivered
+//   acc[f, 1]     += sum popc(msgs) - sum popc(deliv)  dropped
+//   acc[f, 2]     += sum popc(ok & pe)                 link_dropped
+//   acc[f, phase] += sum popc(deliv)                   (when phase >= 0)
 //
-// msgs and deliv are bool (one byte each) [planes, C, C]; crashed bool
-// [C]; pe uint8 [C, ceil(C/8)], little-endian along d with zero pad bits
-// (monitor.link_blocked_packed); acc int32, added into in place. These are
-// the dense receiver._account precedences: a crashed sender first, then a
-// crashed receiver or a link block.
+// msgs and deliv are bool (one byte each) [members, planes, C, C]; crashed
+// bool [members, C]; pe uint8 [members, C, ceil(C/8)], little-endian along
+// d with zero pad bits (monitor.link_blocked_packed); acc int32 [members,
+// acc_stride], added into in place; all contiguous. These are the dense
+// receiver._account precedences: a crashed sender first, then a crashed
+// receiver or a link block. One member is members = 1.
 //
-// Bound: bytes. A launch reads planes*C*C + C*ceil(C/8) + C bytes and
-// writes planes*C*C + 16; the bit algebra is a few integer operations per
-// byte. One plane at C = 1024 moves about 2.23 MB (0.665 us at 3.35 TB/s),
-// under one launch; at C = 4096 about 35.7 MB (10.64 us).
+// Bound: bytes. A launch reads members*(planes*C*C + C*ceil(C/8) + C) bytes
+// and writes members*(planes*C*C + 16); the bit algebra is a few integer
+// operations per byte. One plane at C = 1024 moves about 2.23 MB (0.665 us
+// at 3.35 TB/s), under one launch; at C = 4096 about 35.7 MB (10.64 us).
 //
 // Design: one streaming pass, no reuse and no matrix product, so no TMA
 // and no wgmma: coalesced 16-byte loads already reach the memory rate and
@@ -37,9 +39,11 @@
 // first message load (at C = 1024 each thread makes one step). This needs
 // C % 16 == 0 and 16-byte-aligned planes (the main path's widths);
 // otherwise a byte-wise path takes one packed byte (8 receivers) per step.
-// Counts are reduced by warp shuffles, then through shared memory, and
-// each block adds its sums with one atomicAdd per counter: integer adds
-// are exact in any order, so the counts equal the reference bit for bit.
+// A member is blockIdx.y: a block's grid-stride loop stays inside its
+// member's rows, so its counts never mix members. Counts are reduced by
+// warp shuffles, then through shared memory, and each block adds its sums
+// into its member's row with one atomicAdd per counter: integer adds are
+// exact in any order, so the counts equal the reference bit for bit.
 // The kernel allocates nothing; the caller passes the outputs and stream.
 
 #include <cstdint>
@@ -81,9 +85,16 @@ rx_deliver_kernel(const uint8_t* __restrict__ msgs,
                   const uint8_t* __restrict__ crashed,
                   const uint8_t* __restrict__ pe,
                   uint8_t* __restrict__ deliv, int32_t* __restrict__ acc,
-                  int planes, int c, int phase, int vec) {
+                  int planes, int c, int acc_stride, int phase, int vec) {
   __shared__ int red[3][kWarps];
   const int cb = (c + 7) >> 3;
+  const size_t f = blockIdx.y;
+  const size_t plane_bytes = static_cast<size_t>(planes) * c * c;
+  msgs += f * plane_bytes;
+  deliv += f * plane_bytes;
+  crashed += f * c;
+  pe += f * c * cb;
+  acc += f * acc_stride;
   const int rows = planes * c;
   const int stride = gridDim.x * kThreads;
   int n_m = 0, n_dv = 0, n_ld = 0;
@@ -171,13 +182,18 @@ inline bool aligned(const void* p, uintptr_t to) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() as an int (0 =
-// success); cudaErrorInvalidValue for more than 2**30 work items. The grid
-// is capped at the blocks that fit on the card at once, computed on the
-// first call (the process drives one model of card).
+// success); cudaErrorInvalidValue for more than 2**30 work items a member
+// or more than 65535 members. The grid (x: blocks of one member, y: the
+// members) is capped at the blocks that fit on the card at once, computed
+// on the first call (the process drives one model of card).
 extern "C" int rx_deliver_launch(const void* msgs, const void* crashed,
                                  const void* pe, void* deliv, void* acc,
-                                 int planes, int c, int phase, void* stream) {
-  if (planes <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
+                                 int members, int planes, int c,
+                                 int acc_stride, int phase, void* stream) {
+  if (members <= 0 || planes <= 0 || c <= 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  if (members > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int cb = (c + 7) / 8;
   const long long rows = static_cast<long long>(planes) * c;
   const int vec = (c % 16 == 0) && aligned(msgs, 16) && aligned(deliv, 16) &&
@@ -194,10 +210,12 @@ extern "C" int rx_deliver_launch(const void* msgs, const void* crashed,
     grid_cap = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   }
   const long long want = (items + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < grid_cap ? want : grid_cap);
+  const long long cap = (grid_cap + members - 1) / members;
+  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap),
+                  static_cast<unsigned>(members));
   rx_deliver_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(msgs), static_cast<const uint8_t*>(crashed),
       static_cast<const uint8_t*>(pe), static_cast<uint8_t*>(deliv),
-      static_cast<int32_t*>(acc), planes, c, phase, vec);
+      static_cast<int32_t*>(acc), planes, c, acc_stride, phase, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,6 +70,16 @@ def aggregate(state, delivered_down, delivered_up, any_receiver, settings):
     non-members; None when there are none). The invalidation fixpoint
     runs where ``any_new & seen_down``, as in the reference.
     """
+    out = aggregate_device(state, delivered_down, delivered_up,
+                           any_receiver, settings)
+    (announced,) = read_host(out[2])
+    return out + (bool(announced),)
+
+
+def aggregate_device(state, delivered_down, delivered_up, any_receiver,
+                     settings):
+    """``aggregate``'s six device results, without the read; a fleet maps
+    it over its members and reads their ``announce_now`` at once."""
     lo, hi = settings.L, settings.H
     gate = any_receiver & ~state.announced
     member = state.member[:, None]
@@ -90,9 +100,8 @@ def aggregate(state, delivered_down, delivered_up, any_receiver, settings):
     crossed = counts >= hi
     in_flux = ((counts >= lo) & (counts < hi)).any()
     announce_now = any_new & ~in_flux & crossed.any() & ~state.announced
-    (announced,) = read_host(announce_now)
     return (reports, seen_down, announce_now, crossed, explicit_added,
-            implicit_added, bool(announced))
+            implicit_added)
 
 
 def receiver_aggregate(reports, member, obs_full, delivered_down, gate,

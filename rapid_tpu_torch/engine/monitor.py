@@ -42,8 +42,9 @@ def link_blocked(faults: EngineFaults, src_idx, dst_idx, tick: int):
     for w in range(faults.n_windows):
         src_w, dst_w = faults.link_src[w], faults.link_dst[w]
         hit = src_w[src_idx] & dst_w[dst_idx]
-        hit |= faults.link_two_way[w] & dst_w[src_idx] & src_w[dst_idx]
-        blocked |= active[w] & hit
+        hit = hit | (faults.link_two_way[w] & dst_w[src_idx]
+                     & src_w[dst_idx])
+        blocked = blocked | (active[w] & hit)
     return blocked
 
 
@@ -63,9 +64,9 @@ def link_blocked_packed(faults: EngineFaults, tick: int):
         pdst = pack_bits(dst_w)
         psrc = pack_bits(src_w)
         hit = torch.where(src_w[:, None], pdst[None, :], zero)
-        hit |= torch.where(faults.link_two_way[w] & dst_w[:, None],
-                           psrc[None, :], zero)
-        blocked |= torch.where(active[w], hit, zero)
+        hit = hit | torch.where(faults.link_two_way[w] & dst_w[:, None],
+                                psrc[None, :], zero)
+        blocked = blocked | torch.where(active[w], hit, zero)
     return blocked
 
 

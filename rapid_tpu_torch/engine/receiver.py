@@ -26,10 +26,18 @@ nothing, fingerprint matches of empty rows) is skipped after such a
 check; what it skips is provably the identity. The reference's two
 integer einsums become float32 matmuls on 0/1 operands: their sums stay
 below 2**24, so they are exact (TF32 is switched off for them).
+
+A tick delivers first: all six groups' messages sit in the ring slot of
+the state the tick starts from, so ``_deliver_all`` makes the six
+``rx_deliver`` launches before the groups run (``_tick``). A fleet
+(``fleet_step``, ``receiver_fleet_simulate``) makes the same six
+launches for all members at once and runs the groups per member as one
+batched call, with every row masked where the single cluster skips rows
+after a read.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +49,8 @@ from rapid_tpu_torch.engine.paxos import (
     build_delay_table, classic_rank_index, ring0_positions)
 from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, ReceiverState, ReceiverStepLog, boot_identity,
-    config_id_limbs, flag_bit, link_faults)
+    config_id_limbs, flag_bit, member_map)
 from rapid_tpu_torch.engine.topology import build_topology
-from rapid_tpu_torch.faults import AdversarySchedule, validate_schedule
-from rapid_tpu_torch.identity import default_identities
 from rapid_tpu_torch.settings import Settings
 
 #: Fallback-delay draws precomputed per slot (one per announce).
@@ -179,41 +185,57 @@ def _row_blocks(rows, c):
         yield rows[i:i + step]
 
 
-def _pb_occurrences(fp_hi, fp_lo, coll, seq):
+def _over_rows(block, rows, c, dense: bool, outs):
+    """``block(rows)`` over row blocks, written into the zero ``outs``.
+    ``rows`` (the rows that can be non-zero) found by ``nonzero``; with
+    ``dense`` every row, in static blocks written out of place, so a
+    fleet maps the step over its members."""
+    if dense:
+        step = max(1, _BLOCK_ELEMENTS // max(1, c * c))
+        parts = [block(slice(i, i + step)) for i in range(0, c, step)]
+        return tuple(torch.cat(col) for col in zip(*parts))
+    for blk in _row_blocks(torch.nonzero(rows).flatten(), c):
+        for out, part in zip(outs, block(blk)):
+            out[blk] = part
+    return outs
+
+
+def _pb_occurrences(fp_hi, fp_lo, coll, seq, dense=False):
     """Per receiver row r, over its collected 1b values: whether two
     differ (``uneq[r]``) and, per value i, how many equal values arrived
     earlier (``occ[r, i]``). Blocks of rows, never a ``[C, C, C]`` plane;
     rows with nothing collected are 0 / False."""
     c = coll.shape[1]
-    uneq = torch.zeros(c, dtype=torch.bool, device=coll.device)
-    occ = torch.zeros((c, c), dtype=torch.int32, device=coll.device)
-    rows = torch.nonzero(coll.any(dim=1)).flatten()
-    for blk in _row_blocks(rows, c):
+
+    def block(blk):
         h, lo, cl, s = fp_hi[blk], fp_lo[blk], coll[blk], seq[blk]
         eq = ((h[:, :, None] == h[:, None, :])
               & (lo[:, :, None] == lo[:, None, :]))
-        uneq[blk] = (cl[:, :, None] & cl[:, None, :] & ~eq).flatten(1).any(
-            dim=1)
-        occ[blk] = (cl[:, None, :] & eq
-                    & (s[:, None, :] < s[:, :, None])).sum(
-                        dim=2, dtype=torch.int32)
-    return uneq, occ
+        uneq = (cl[:, :, None] & cl[:, None, :] & ~eq).flatten(1).any(dim=1)
+        occ = (cl[:, None, :] & eq & (s[:, None, :] < s[:, :, None])).sum(
+            dim=2, dtype=torch.int32)
+        return uneq, occ
+
+    return _over_rows(block, coll.any(dim=1), c, dense, (
+        torch.zeros(c, dtype=torch.bool, device=coll.device),
+        torch.zeros((c, c), dtype=torch.int32, device=coll.device)))
 
 
-def _vote_baseline(vt_fp_hi, vt_fp_lo, vt_seen, wv_hi, wv_lo):
+def _vote_baseline(vt_fp_hi, vt_fp_lo, vt_seen, wv_hi, wv_lo, dense=False):
     """``[C, C]``: per receiver row, the stored votes equal to each
     arriving fingerprint (arrival order). Blocks of rows; rows with no
     stored vote are 0."""
     c = vt_seen.shape[1]
-    out = torch.zeros((vt_seen.shape[0], wv_hi.shape[0]), dtype=torch.int32,
-                      device=vt_seen.device)
-    rows = torch.nonzero(vt_seen.any(dim=1)).flatten()
-    for blk in _row_blocks(rows, c):
+
+    def block(blk):
         eq = ((vt_fp_hi[blk][:, :, None] == wv_hi[None, None, :])
               & (vt_fp_lo[blk][:, :, None] == wv_lo[None, None, :]))
-        out[blk] = (vt_seen[blk][:, :, None] & eq).sum(dim=1,
-                                                       dtype=torch.int32)
-    return out
+        return ((vt_seen[blk][:, :, None] & eq).sum(dim=1,
+                                                    dtype=torch.int32),)
+
+    return _over_rows(block, vt_seen.any(dim=1), c, dense, (torch.zeros(
+        (vt_seen.shape[0], wv_hi.shape[0]), dtype=torch.int32,
+        device=vt_seen.device),))[0]
 
 
 def _matmul_count(a, b):
@@ -231,12 +253,13 @@ class _Vars:
             setattr(self, name, getattr(rs, name))
 
 
-def _apply_decides(v: _Vars, t: int, dm, hosts, ridx):
+def _apply_decides(v: _Vars, t: int, dm, hosts, ridx, dense: bool):
     """Apply a wave of view-change decides: remove ``hosts[r]`` from
     ``r``'s view where ``dm[r]``, recompute cfg, reset per-config state.
     The alert queue (``pf``) is deliberately not reset. A wave that
-    decides nothing changes nothing, and is skipped."""
-    if not bool(dm.any()):
+    decides nothing changes nothing, and is skipped (one read), except
+    under ``dense``, where every row is masked by ``dm``."""
+    if not dense and not bool(dm.any()):
         return v.cfg_hi, v.cfg_lo
     bad = dm & (hosts & ~v.member).any(dim=1)
     v.flags = v.flags | flag_bit(bad.any(), FLAG_DECIDE_NOT_IN_VIEW)
@@ -282,6 +305,40 @@ def _apply_decides(v: _Vars, t: int, dm, hosts, ridx):
     return v.cfg_hi, v.cfg_lo
 
 
+def _deliver_all(rs: ReceiverState, faults: EngineFaults, t: int,
+                 settings: Settings):
+    """The tick's six deliveries, ``rx_account.account_into`` once per
+    group in the order ``2b, 2a, 1b, vote, 1a, batch``: every group's
+    messages sit in ring slot ``t % D`` of the state the tick starts
+    from, so all six are known before the groups run. Returns
+    ``(crashed, delivered planes, acc)``: the counter vector ``acc`` holds
+    the delivery counts. Takes one member or a fleet (a leading member
+    axis on every tensor): the kernel covers all members in each launch.
+    """
+    dev = rs.member.device
+    am = t % settings.delivery_ring_depth
+    crashed = monitor.crashed_at(faults, t)
+    if rs.member.dim() == 2:
+        emat = monitor.link_blocked_packed(faults, t)
+    else:
+        emat = member_map(lambda fl: monitor.link_blocked_packed(fl, t),
+                          faults).contiguous()
+    acc = torch.zeros(crashed.shape[:-1] + (len(_COUNTERS),),
+                      dtype=torch.int32, device=dev)
+    ring = lambda plane, dims: plane.select(plane.dim() - dims, am)
+    pd_ring = ring(rs.pd, 3)
+    groups = ((ring(rs.w2b, 4), "p2b"), (ring(rs.w2a, 3), "p2a"),
+              (ring(rs.w1b, 3), "p1b"), (ring(rs.wv, 3), "fv"),
+              (ring(rs.w1a, 3), "p1a"),
+              (pd_ring.any(dim=-1)[..., :, None] & ring(rs.pd_bcast, 3),
+               None))
+    planes = [rx_account.account_into(
+        msgs.contiguous(), crashed, emat, acc,
+        None if phase is None else _SLOT[f"{phase}_delivered"])
+        for msgs, phase in groups]
+    return crashed, planes, acc
+
+
 def receiver_step(rs: ReceiverState, faults: EngineFaults,
                   settings: Settings, tick: Optional[int] = None
                   ) -> Tuple[ReceiverState, ReceiverStepLog]:
@@ -289,40 +346,53 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     and its equivalence to the oracle's send order). ``tick`` is
     ``rs.tick`` as a host int, read from the state when omitted."""
     _require_pallas(settings)
-    v = _Vars(rs)
     t = (int(rs.tick) if tick is None else int(tick)) + 1
+    crashed, planes, acc = _deliver_all(rs, faults, t, settings)
+    return _tick(rs, faults, settings, t, crashed, planes, acc, False)
+
+
+def fleet_step(rs: ReceiverState, faults: EngineFaults, settings: Settings,
+               tick: int) -> Tuple[ReceiverState, ReceiverStepLog]:
+    """One tick of a fleet (the member axis first on every tensor): the
+    six deliveries launch once each for all members, the groups run per
+    member as one batched call (``member_map``) with every row masked,
+    and ``tick`` is the members' common ``rs.tick``."""
+    _require_pallas(settings)
+    t = int(tick) + 1
+    crashed, planes, acc = _deliver_all(rs, faults, t, settings)
+    return member_map(
+        lambda r, fl, cr, pl, a: _tick(r, fl, settings, t, cr, pl, a, True),
+        rs, faults, crashed, planes, acc)
+
+
+def _tick(rs: ReceiverState, faults: EngineFaults, settings: Settings,
+          t: int, crashed, planes, acc, dense: bool):
+    """The groups of tick ``t`` after the deliveries ``planes``, whose
+    counts ``acc`` holds; ``dense`` takes every row where a read would
+    skip some (the fleet's per-member map)."""
+    v = _Vars(rs)
     c = rs.member.shape[0]
     k = rs.ring_order.shape[1]
     dev = rs.member.device
     ridx = torch.arange(c, device=dev)
     jidx = ridx
-    crashed = monitor.crashed_at(faults, t)
-    emat = monitor.link_blocked_packed(faults, t)
     D = settings.delivery_ring_depth
     am = t % D                  # ring slot arriving this tick
+    dv2, dv2a, dv1b, dvv, dv1a, dvpd = planes
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
 
-    # The tick's counters: 0-d views into one int32 vector, which the
-    # delivery kernel adds into in place (slots 0-2 and a phase's slot).
-    acc = torch.zeros(len(_COUNTERS), dtype=torch.int32, device=dev)
-    views = dict(zip(_COUNTERS, acc.unbind()))
-    counts = {k: views[k] for k in ("delivered", "dropped", "link_dropped",
-                                    "sent")}
-    phase_sent = {p: views[f"{p}_sent"] for p in _PHASES}
-    phase_del = {p: views[f"{p}_delivered"] for p in _PHASES}
+    # The tick's sends, added to the delivery counts at the end.
+    sent = dict.fromkeys(("sent",) + tuple(f"{p}_sent" for p in _PHASES),
+                         zero)
 
     dec = {"mask": torch.zeros(c, dtype=torch.bool, device=dev),
            "hosts": torch.zeros((c, c), dtype=torch.bool, device=dev),
            "cfg_hi": torch.zeros(c, dtype=torch.int64, device=dev),
            "cfg_lo": torch.zeros(c, dtype=torch.int64, device=dev)}
 
-    def deliver(msgs, phase=None):
-        slot = None if phase is None else _SLOT[f"{phase}_delivered"]
-        return rx_account.account_into(msgs.contiguous(), crashed, emat,
-                                       acc, slot)
-
     def send(phase, n):
-        phase_sent[phase] += n
-        counts["sent"] += n
+        sent[f"{phase}_sent"] = sent[f"{phase}_sent"] + n
+        sent["sent"] = sent["sent"] + n
 
     def record_decides(dm, hosts, cfg_hi, cfg_lo):
         dec["mask"] = dec["mask"] | dm
@@ -339,7 +409,6 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     w2b_rnd_r = rs.w2b_rnd[am]
     w2b_mask_r = rs.w2b_mask[am]
     w2b_cfg = cfg_gate(rs.w2b_cfg_hi[am], rs.w2b_cfg_lo[am])
-    dv2 = deliver(w2b_ring, "p2b")          # both 2b slots, one launch
     gates = [dv2[slot].T & ~v.stopped[:, None] & w2b_cfg
              for slot in (0, 1)]
     g2b_any = (gates[0] | gates[1]).any(dim=1)
@@ -366,15 +435,14 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     hosts_a = v.p2_mask & dec_a[:, None]
 
     # ---- group 2: apply decide wave A -----------------------------------
-    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_a, hosts_a, ridx)
+    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_a, hosts_a, ridx, dense)
     record_decides(dec_a, hosts_a, ncfg_hi, ncfg_lo)
 
     # ---- group 3: phase-2a delivery -> accept chain -> 2b emission ------
     w2a_ring = rs.w2a[am]
     w2a_fp_hi_r, w2a_fp_lo_r = rs.w2a_fp_hi[am], rs.w2a_fp_lo[am]
     w2a_mask_arr = rs.w2a_mask[am]
-    dv = deliver(w2a_ring, "p2a")
-    gate = (dv.T & ~v.stopped[:, None]
+    gate = (dv2a.T & ~v.stopped[:, None]
             & cfg_gate(rs.w2a_cfg_hi[am], rs.w2a_cfg_lo[am]))
     send2a_min = torch.where(gate, rs.w2a_tick[am][None, :],
                              I32_MAX).amin(dim=1)
@@ -421,8 +489,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     # ---- group 4: phase-1b delivery -> crossing + selection -> 2a -------
     w1b_ring = rs.w1b[am]
     w1b_set_r = rs.w1b_set[am]
-    dv = deliver(w1b_ring, "p1b")
-    gate = (dv.T & ~v.stopped[:, None] & (v.px_crnd_r[:, None] == 2)
+    gate = (dv1b.T & ~v.stopped[:, None] & (v.px_crnd_r[:, None] == 2)
             & cfg_gate(rs.w1b_cfg_hi[am], rs.w1b_cfg_lo[am]))
     new = gate & ~v.pb_seen
     seq_in = rs.w1b_seq[am]      # send key: tick*(C+1) + promiser rx_pos
@@ -461,7 +528,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     collected = maxmask & v.pb_set
     ncoll = _pop(collected)
     pair_uneq, occ = _pb_occurrences(v.pb_fp_hi, v.pb_fp_lo, collected,
-                                     v.pb_seq)
+                                     v.pb_seq, dense)
     single = (ncoll >= 1) & ~pair_uneq
     cand = collected & pair_uneq[:, None] & (occ == (v.px_n // 4)[:, None])
     d_single, _ = _pick_min_seq(collected, v.pb_seq)
@@ -488,8 +555,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     # ---- group 5: fast-vote delivery -> decide wave B -------------------
     wv_ring = rs.wv[am]
     wv_fp_hi_r, wv_fp_lo_r = rs.wv_fp_hi[am], rs.wv_fp_lo[am]
-    dv = deliver(wv_ring, "fv")
-    gate = (dv.T & ~v.stopped[:, None]
+    gate = (dvv.T & ~v.stopped[:, None]
             & cfg_gate(rs.wv_cfg_hi[am], rs.wv_cfg_lo[am]))
     process = gate & ~v.vt_seen
     # A vote's send tick is its announce tick.
@@ -502,7 +568,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     wv_hi_p = wv_fp_hi_r[perm_v]
     wv_lo_p = wv_fp_lo_r[perm_v]
     baseline = _vote_baseline(v.vt_fp_hi, v.vt_fp_lo, v.vt_seen,
-                              wv_hi_p, wv_lo_p)
+                              wv_hi_p, wv_lo_p, dense)
     prior_tot = _pop(v.vt_seen)
     # Arrival-prefix counts of equal fingerprints, in announce order.
     fp_eq_wire = ((wv_hi_p[:, None] == wv_hi_p[None, :])
@@ -526,13 +592,12 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     v.vt_fp_lo = torch.where(process, wv_fp_lo_r[None, :], v.vt_fp_lo)
 
     # ---- group 6: apply decide wave B -----------------------------------
-    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_b, hosts_b, ridx)
+    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_b, hosts_b, ridx, dense)
     record_decides(dec_b, hosts_b, ncfg_hi, ncfg_lo)
 
     # ---- group 7: phase-1a delivery -> promises -> 1b emission ----------
     w1a_ring = rs.w1a[am]
-    dv = deliver(w1a_ring, "p1a")
-    gate = (dv.T & ~v.stopped[:, None]
+    gate = (dv1a.T & ~v.stopped[:, None]
             & cfg_gate(rs.w1a_cfg_hi[am], rs.w1a_cfg_lo[am]))
     send1a_min = torch.where(gate, rs.w1a_tick[am][None, :],
                              I32_MAX).amin(dim=1)
@@ -550,8 +615,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     max_promised = torch.where(promise_s, rank_j[None, :], -1).amax(dim=1)
     v.px_rnd_r = torch.where(pr_any, 2, v.px_rnd_r)
     v.px_rnd_i = torch.where(pr_any, max_promised, v.px_rnd_i)
-    inv1 = torch.empty_like(perm1)
-    inv1[perm1] = jidx
+    inv1 = torch.argsort(perm1)                  # the inverse permutation
     promise = promise_s[:, inv1]                 # back to slot coordinates
     w1b_new = promise
     w1b_vrnd_r_new, w1b_vrnd_i_new = v.px_vrnd_r, v.px_vrnd_i
@@ -577,9 +641,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
 
     # ---- group 8: batch delivery -> cut aggregation -> announce ---------
     pd_ring = rs.pd[am]
-    msgs = pd_ring.any(dim=1)[:, None] & rs.pd_bcast[am]
-    dv = deliver(msgs)
-    recv = (dv.T & ~v.stopped[:, None] & ~v.announced[:, None]
+    recv = (dvpd.T & ~v.stopped[:, None] & ~v.announced[:, None]
             & cfg_gate(rs.pd_cfg_hi[am], rs.pd_cfg_lo[am]))
     # down[r, d, k] = any_s recv[r, s] & pd[s, k] & (pd_dst[s, k] == d)
     onehot = (pd_ring[:, :, None]
@@ -659,21 +721,24 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     pd_dst_new = rs.pf_dst
     pd_cfg_hi_new, pd_cfg_lo_new = rs.pf_cfg_hi, rs.pf_cfg_lo
     pd_fan = flush[:, None] & v.member
-    counts["sent"] += _i32((flush * _pop(v.member)).sum())
+    sent["sent"] = sent["sent"] + _i32((flush * _pop(v.member)).sum())
     v.pf = pf_new
     v.pf_dst = v.own_subj
     v.pf_cfg_hi, v.pf_cfg_lo = v.cfg_hi, v.cfg_lo
 
     # ---- group 12: topology rebuild after decides -----------------------
-    if bool(dec["mask"].any()):
+    # One read skips it on a tick without decides; ``dense`` rebuilds and
+    # keeps the old rows where the member decided nothing.
+    if dense or bool(dec["mask"].any()):
         subj_all, obs_all, _gk, fda_all, fdf_all = build_topology(
             v.member, rs.ring_order, rs.ring_rank)
         pos_all = ring0_positions(v.member, rs.ring_order, rs.ring_rank)
-        v.obs_full = obs_all
-        v.own_subj = subj_all[ridx, ridx]
-        v.own_fd_active = fda_all[ridx, ridx]
-        v.own_fd_first = fdf_all[ridx, ridx]
-        v.rx_pos = pos_all[ridx, ridx]
+        pick = lambda new, old: torch.where(dec["mask"].any(), new, old)
+        v.obs_full = pick(obs_all, v.obs_full)
+        v.own_subj = pick(subj_all[ridx, ridx], v.own_subj)
+        v.own_fd_active = pick(fda_all[ridx, ridx], v.own_fd_active)
+        v.own_fd_first = pick(fdf_all[ridx, ridx], v.own_fd_first)
+        v.rx_pos = pick(pos_all[ridx, ridx], v.rx_pos)
 
     # ---- finalize: rotate the delivery ring ------------------------------
     # A message sent this tick lands in ring slot (t + 1 + delay) % D, the
@@ -684,7 +749,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     darange = torch.arange(D, device=dev)
     keep = (darange != am)[:, None, None]
     slot_hit = ((t + 1 + dmat) % D)[None, :, :] == darange[:, None, None]
-    coll = torch.zeros((), dtype=torch.bool, device=dev)
+    hits = []
 
     def ring_put(ring, fan):
         cleared = ring & keep
@@ -698,7 +763,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
 
     v.tick = torch.tensor(t, dtype=torch.int32, device=dev)
     v.wv, landed, hit_old = ring_put(rs.wv, wv_fan)
-    coll |= hit_old
+    hits.append(hit_old)
     v.wv_fp_hi = stamp(rs.wv_fp_hi, wv_fp_hi_new, landed)
     v.wv_fp_lo = stamp(rs.wv_fp_lo, wv_fp_lo_new, landed)
     v.wv_cfg_hi = stamp(rs.wv_cfg_hi, wv_cfg_hi_new, landed)
@@ -706,14 +771,14 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     v.wv_seq = stamp(rs.wv_seq, wv_seq_new, landed)
 
     v.w1a, landed, hit_old = ring_put(rs.w1a, w1a_fan)
-    coll |= hit_old
+    hits.append(hit_old)
     v.w1a_cfg_hi = stamp(rs.w1a_cfg_hi, w1a_cfg_hi_new, landed)
     v.w1a_cfg_lo = stamp(rs.w1a_cfg_lo, w1a_cfg_lo_new, landed)
     v.w1a_seq = stamp(rs.w1a_seq, w1a_seq_new, landed)
     v.w1a_tick = torch.where(landed, t, rs.w1a_tick)
 
     v.w1b, landed, hit_old = ring_put(rs.w1b, w1b_new)
-    coll |= hit_old
+    hits.append(hit_old)
     v.w1b_vrnd_r = stamp(rs.w1b_vrnd_r, w1b_vrnd_r_new, landed)
     v.w1b_vrnd_i = stamp(rs.w1b_vrnd_i, w1b_vrnd_i_new, landed)
     v.w1b_fp_hi = stamp(rs.w1b_fp_hi, w1b_fp_hi_new, landed)
@@ -725,7 +790,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     v.w1b_seq = stamp(rs.w1b_seq, t * (c + 1) + v.rx_pos, landed)
 
     v.w2a, landed, hit_old = ring_put(rs.w2a, w2a_fan)
-    coll |= hit_old
+    hits.append(hit_old)
     v.w2a_fp_hi = stamp(rs.w2a_fp_hi, w2a_fp_hi_new, landed)
     v.w2a_fp_lo = stamp(rs.w2a_fp_lo, w2a_fp_lo_new, landed)
     v.w2a_mask = stamp(rs.w2a_mask, w2a_mask_new, landed)
@@ -740,7 +805,7 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     ins = slot_hit[:, None] & w2b_fan[None]
     lane_landed = ins.any(dim=-1)                        # [D, 2, C]
     sender_landed = lane_landed.any(dim=1)               # [D, C]
-    coll |= (cleared.any(dim=-1).any(dim=1) & sender_landed).any()
+    hits.append((cleared.any(dim=-1).any(dim=1) & sender_landed).any())
     v.w2b = cleared | ins
     v.w2b_rnd = stamp(rs.w2b_rnd, w2b_rnd_new, lane_landed)
     v.w2b_fp_hi = stamp(rs.w2b_fp_hi, w2b_fp_hi_new, lane_landed)
@@ -750,26 +815,24 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     v.w2b_cfg_lo = stamp(rs.w2b_cfg_lo, w2b_cfg_lo_new, sender_landed)
 
     v.pd_bcast, landed, hit_old = ring_put(rs.pd_bcast, pd_fan)
-    coll |= hit_old
+    hits.append(hit_old)
     v.pd = stamp(rs.pd, pd_new, landed)
     v.pd_dst = stamp(rs.pd_dst, pd_dst_new, landed)
     v.pd_cfg_hi = stamp(rs.pd_cfg_hi, pd_cfg_hi_new, landed)
     v.pd_cfg_lo = stamp(rs.pd_cfg_lo, pd_cfg_lo_new, landed)
 
-    v.flags = v.flags | flag_bit(coll, FLAG_RING_COLLISION)
+    v.flags = v.flags | flag_bit(torch.stack(hits).any(),
+                                 FLAG_RING_COLLISION)
 
+    # The counters: one int32 vector, the deliveries' counts plus the
+    # sends, read as column views.
+    counts = acc + torch.stack([sent.get(name, zero) for name in _COUNTERS])
+    views = dict(zip(_COUNTERS, counts.unbind(-1)))
     log = ReceiverStepLog(
         tick=v.tick,
-        sent=counts["sent"], delivered=counts["delivered"],
-        dropped=counts["dropped"],
         probes_sent=probes_sent, probes_failed=probes_failed,
-        fv_sent=phase_sent["fv"], fv_delivered=phase_del["fv"],
-        p1a_sent=phase_sent["p1a"], p1a_delivered=phase_del["p1a"],
-        p1b_sent=phase_sent["p1b"], p1b_delivered=phase_del["p1b"],
-        p2a_sent=phase_sent["p2a"], p2a_delivered=phase_del["p2a"],
-        p2b_sent=phase_sent["p2b"], p2b_delivered=phase_del["p2b"],
         partitioned_edges=monitor.partitioned_edge_count(faults, ~crashed, t),
-        link_dropped=counts["link_dropped"],
+        **{name: views[name] for name in _COUNTERS},
         announce=announce, ann_prop=ann_prop,
         ann_cfg_hi=ann_cfg_hi, ann_cfg_lo=ann_cfg_lo,
         decide=dec["mask"], dec_hosts=dec["hosts"],
@@ -891,52 +954,33 @@ def receiver_simulate(state, faults: EngineFaults, n_ticks: int,
     return final, logs
 
 
-class ReceiverMember(NamedTuple):
-    """One lowered schedule: the packed boot state and its faults."""
-
-    state: object
-    faults: EngineFaults
-
-
-def lower_receiver_schedule(schedule: AdversarySchedule, settings: Settings,
-                            *, uids: Optional[Sequence[int]] = None,
-                            id_fp_sum: Optional[int] = None,
-                            device="cuda") -> ReceiverMember:
-    """Compile one link-fault schedule into a booted member on ``device``:
-    a ``PackedReceiverBundle`` plus its ``EngineFaults``. Delay rules are
-    budget-checked against ``settings.delivery_ring_depth``; scripted
-    proposes are refused, as is a capacity above
-    ``settings.receiver_capacity_cap``."""
-    from rapid_tpu_torch.engine import rx_packed
+def receiver_fleet_simulate(bundle, faults: EngineFaults, n_ticks: int,
+                            settings: Settings):
+    """Run a stacked per-receiver fleet (``rx_packed.PackedReceiverBundle``
+    and ``EngineFaults`` with the member axis first) ``n_ticks`` ticks:
+    ``(finals, logs)``, the finals packed (``receiver_final_view``), the
+    logs ``[F, T, ...]``, and with ``settings.flight_recorder_window > 0``
+    ``(finals, logs, recorders)``."""
+    from rapid_tpu_torch.engine import recorder, rx_packed
 
     _require_pallas(settings)
-    dev = resolve_device(device)
-    validate_schedule(schedule, ring_depth=settings.delivery_ring_depth)
-    if schedule.proposes:
-        raise ValueError("per-receiver members do not support scripted "
-                         "proposes")
-    n = schedule.n
-    c = max(settings.capacity, n)
-    if c > settings.receiver_capacity_cap:
-        raise ValueError(f"capacity {c} exceeds receiver_capacity_cap "
-                         f"{settings.receiver_capacity_cap}")
-    eff = settings if settings.capacity == c else settings.with_(capacity=c)
-    if uids is None:
-        uids, default_sum = default_identities(n)
-        if id_fp_sum is None:
-            id_fp_sum = default_sum
-    elif id_fp_sum is None:
-        id_fp_sum = 0
-    dense = init_receiver_state(uids, id_fp_sum, eff, seed=schedule.seed,
-                                device=dev)
-    state = rx_packed.bundle_from_dense(dense, eff)
-    del dense
-    crash = np.full(c, I32_MAX, np.int64)
-    crash[:n] = schedule.crash_tick_array()
-    faults = link_faults(crash.tolist(), schedule.windows, c,
-                         delays=schedule.delays, delay_seed=schedule.seed,
-                         device=dev)
-    return ReceiverMember(state=state, faults=faults)
+    finals, logs = rx_packed.fleet_simulate(bundle, faults, n_ticks,
+                                            settings)
+    if settings.flight_recorder_window:
+        return finals, logs, recorder.record_fleet_run(
+            logs, settings, recorder.record_receiver_run)
+    return finals, logs
+
+
+def receiver_final_view(final):
+    """The final-state fields the host reads (``member``, ``stopped``,
+    the cfg limbs, ``flags``): the state itself when dense, unpacked from
+    a packed fleet final."""
+    if isinstance(final, ReceiverState):
+        return final
+    from rapid_tpu_torch.engine import rx_packed
+
+    return rx_packed.final_view(final)
 
 
 # --- host-side extraction ------------------------------------------------
@@ -1009,3 +1053,9 @@ def receiver_phase_counters(logs) -> List[dict]:
 def receiver_config_ids(rs: ReceiverState) -> List[int]:
     """Final per-slot configuration ids as python ints."""
     return [int(x) for x in _u64(rs.cfg_hi, rs.cfg_lo)]
+
+
+# The lowering lives with the fleets, as in the reference; callers of the
+# single-cluster engine find it here too.
+from rapid_tpu_torch.engine.fleet import (  # noqa: E402
+    ReceiverMember, lower_receiver_schedule)

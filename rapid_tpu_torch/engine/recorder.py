@@ -11,7 +11,8 @@ observe hold ``UNOBSERVED``. The rows are a function of the step logs
 alone, so both engines fold a whole run's stacked logs at once
 (``record_run``, ``record_receiver_run``); ``record_step`` and
 ``record_receiver_step`` fold one tick's log, as the reference's scan
-does. With W = 0 nothing here is called.
+does; ``record_fleet_run`` folds a fleet's ``[F, T]`` logs per member.
+With W = 0 nothing here is called.
 """
 from __future__ import annotations
 
@@ -139,6 +140,24 @@ def record_receiver_run(rec: RecorderState, logs,
         dim=1)
     return _push(rec, rows, logs.tick, announce.any(dim=-1),
                  decide.any(dim=-1), fallback, flags != 0)
+
+
+def record_fleet_run(logs, settings: Settings, fold) -> RecorderState:
+    """Fold a fleet's member-major logs (``[F, T, ...]``) into one
+    recorder per member, ``[F, W, G]`` rings and ``[F]`` stamps, in one
+    batched pass; ``fold`` is ``record_run`` or ``record_receiver_run``."""
+    from rapid_tpu_torch.engine.state import member_map
+
+    f = logs.tick.shape[0]
+    fresh = init(settings, device=logs.tick.device)
+    recs = RecorderState(*[leaf.expand((f,) + leaf.shape).clone()
+                           for leaf in fresh])
+    return member_map(lambda r, lg: fold(r, lg, settings), recs, logs)
+
+
+def member_recorder(recs: RecorderState, i: int) -> RecorderState:
+    """Member ``i``'s recorder out of a fleet's stacked recorders."""
+    return RecorderState(*[leaf[i] for leaf in recs])
 
 
 def _one_tick(log):

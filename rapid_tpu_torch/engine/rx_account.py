@@ -92,7 +92,7 @@ def _load():
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.rx_deliver_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -100,21 +100,23 @@ def _load():
 
 
 def _popcount_rows(planes):
-    """Per-row popcount of a uint8 plane via the SWAR ladder."""
+    """Per-row popcount of uint8 planes (along the last axis) via the
+    SWAR ladder."""
     v = planes
     v = v - ((v >> 1) & 0x55)
     v = (v & 0x33) + ((v >> 2) & 0x33)
     v = (v + (v >> 4)) & 0x0F
-    return v.sum(dim=1, dtype=torch.int32)
+    return v.sum(dim=-1, dtype=torch.int32)
 
 
 def account_plain(pm, pe, src, pd):
-    """The kernel's function in PyTorch ops: ``(dv, cnt)``."""
+    """The kernel's function in PyTorch ops: ``(dv, cnt)``. The operands
+    broadcast, so leading plane and member axes ride along."""
     ok = pm & src & pd
     dv = ok & ~pe
-    pad = torch.zeros(pm.shape[:1], dtype=torch.int32, device=pm.device)
-    cnt = torch.stack([_popcount_rows(pm), _popcount_rows(dv),
-                       _popcount_rows(ok & pe), pad], dim=1)
+    pad = torch.zeros(dv.shape[:-1], dtype=torch.int32, device=pm.device)
+    cnt = torch.stack([_popcount_rows(pm.expand_as(dv)), _popcount_rows(dv),
+                       _popcount_rows(ok & pe), pad], dim=-1)
     return dv, cnt
 
 
@@ -195,10 +197,23 @@ def _compose_into(msgs, crashed, pemat, acc, phase, packed):
 
 
 def account_into_plain(msgs, crashed, pemat, acc, phase=None):
-    """``rx_deliver``'s function in PyTorch ops, on any device: each plane
-    through ``pack_bits``, ``account_plain``, ``unpack_bits`` and the
-    sums, added into ``acc`` (``account_into`` has the contract)."""
-    return _compose_into(msgs, crashed, pemat, acc, phase, account_plain)
+    """``rx_deliver``'s function in PyTorch ops, on any device: the planes
+    of every member at once through ``pack_bits``, ``account_plain``,
+    ``unpack_bits`` and the sums, added into ``acc`` (``account_into``
+    has the contract)."""
+    members, planes, c = _layout(msgs, crashed, pemat, acc)
+    lead = tuple(crashed.shape[:-1])
+    pm = pack_bits(msgs.reshape(lead + (planes, c, c)))
+    src = torch.where(crashed, 0, 0xFF).to(torch.uint8)[..., None, :, None]
+    pd = pack_bits(~crashed)[..., None, None, :]
+    dv, cnt = account_plain(pm, pemat[..., None, :, :], src, pd)
+    sums = cnt.sum(dim=(-3, -2), dtype=torch.int32)    # [..., 4]
+    delivered = sums[..., 1]
+    acc[..., :3] += torch.stack([delivered, sums[..., 0] - delivered,
+                                 sums[..., 2]], dim=-1)
+    if phase is not None:
+        acc[..., phase] += delivered
+    return unpack_bits(dv, c).reshape(msgs.shape)
 
 
 def account_into_composed(msgs, crashed, pemat, acc, phase=None):
@@ -207,33 +222,52 @@ def account_into_composed(msgs, crashed, pemat, acc, phase=None):
     return _compose_into(msgs, crashed, pemat, acc, phase, account_packed)
 
 
-def account_into_kernel(msgs, crashed, pemat, acc, phase=None):
-    """Launch ``rx_deliver`` on the current stream (``account_into`` has
-    the contract). Dtypes, shapes and contiguity are checked before the
-    device, so each refusal can be seen on any device."""
-    global deliver_launches
-    if msgs.dim() not in (2, 3) or msgs.shape[-2] != msgs.shape[-1]:
-        raise ValueError(f"msgs must be [C, C] or [B, C, C], got "
-                         f"{tuple(msgs.shape)}")
+def _layout(msgs, crashed, pemat, acc):
+    """``(members, planes, c)`` of one delivery call, its dtypes and shapes
+    checked. One member: ``msgs`` ``[C, C]`` or ``[B, C, C]``, ``crashed``
+    ``[C]``, ``acc`` ``[n]``; a fleet of F: ``msgs`` ``[F, C, C]`` or
+    ``[F, B, C, C]``, ``crashed`` ``[F, C]``, ``pemat`` ``[F, C,
+    ceil(C/8)]``, ``acc`` ``[F, n]``."""
+    lead = tuple(crashed.shape[:-1])[:1]
     c = msgs.shape[-1]
-    if acc.dim() != 1 or acc.numel() < 3:
-        raise ValueError(f"acc must have shape (n,) with n >= 3, got "
+    if (msgs.dim() not in (len(lead) + 2, len(lead) + 3)
+            or tuple(msgs.shape[:len(lead)]) != lead
+            or msgs.shape[-2] != c):
+        raise ValueError(f"msgs must be [C, C] or [B, C, C], after the "
+                         f"member axis of crashed when it has one; got "
+                         f"{tuple(msgs.shape)}")
+    if acc.dim() != len(lead) + 1 or tuple(acc.shape[:-1]) != lead or \
+            acc.shape[-1] < 3:
+        raise ValueError(f"acc must have shape {lead + ('n >= 3',)}, got "
                          f"{tuple(acc.shape)}")
     for name, t, dtype, shape in (
             ("msgs", msgs, torch.bool, tuple(msgs.shape)),
-            ("crashed", crashed, torch.bool, (c,)),
-            ("pemat", pemat, torch.uint8, (c, -(-c // 8))),
+            ("crashed", crashed, torch.bool, lead + (c,)),
+            ("pemat", pemat, torch.uint8, lead + (c, -(-c // 8))),
             ("acc", acc, torch.int32, tuple(acc.shape))):
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
+    members = lead[0] if lead else 1
+    return members, msgs.numel() // max(1, members * c * c), c
+
+
+def account_into_kernel(msgs, crashed, pemat, acc, phase=None):
+    """Launch ``rx_deliver`` on the current stream, one launch for every
+    member (``account_into`` has the contract). Dtypes, shapes and
+    contiguity are checked before the device, so each refusal can be
+    seen on any device."""
+    global deliver_launches
+    members, planes, c = _layout(msgs, crashed, pemat, acc)
+    for name, t in (("msgs", msgs), ("crashed", crashed), ("pemat", pemat),
+                    ("acc", acc)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if phase is not None and not 0 <= phase < acc.numel():
+    if phase is not None and not 0 <= phase < acc.shape[-1]:
         raise ValueError(f"phase slot {phase} is outside acc "
-                         f"({acc.numel()} slots)")
+                         f"({acc.shape[-1]} slots)")
     for name, t in (("msgs", msgs), ("crashed", crashed), ("pemat", pemat),
                     ("acc", acc)):
         if t.device.type != "cuda" or t.device != msgs.device:
@@ -241,11 +275,11 @@ def account_into_kernel(msgs, crashed, pemat, acc, phase=None):
                              f"{t.device}")
     lib = _load()
     deliv = torch.empty_like(msgs)
-    planes = msgs.numel() // max(1, c * c)
     stream = torch.cuda.current_stream(msgs.device).cuda_stream
     err = lib.rx_deliver_launch(msgs.data_ptr(), crashed.data_ptr(),
                                 pemat.data_ptr(), deliv.data_ptr(),
-                                acc.data_ptr(), planes, c,
+                                acc.data_ptr(), members, planes, c,
+                                acc.shape[-1],
                                 -1 if phase is None else phase, stream)
     if err != 0:
         raise RuntimeError(f"rx_deliver kernel launch failed: CUDA error "
@@ -261,8 +295,10 @@ def account_into(msgs, crashed, pemat, acc, phase=None):
     delivered into ``acc[0]``, dropped into ``acc[1]``, link_dropped into
     ``acc[2]`` and, when ``phase`` is a slot index, delivered into
     ``acc[phase]`` (``acc``: int32 ``[n >= 3]``). ``crashed`` is bool
-    ``[C]``, ``pemat`` the packed blocked plane. The plain version for CPU
-    tensors; ``rx_deliver`` for CUDA tensors."""
+    ``[C]``, ``pemat`` the packed blocked plane. A fleet puts a member
+    axis first on every operand (``_layout``) and each member's counts go
+    into its row of ``acc``. The plain version for CPU tensors;
+    ``rx_deliver`` for CUDA tensors."""
     if msgs.device.type == "cpu":
         return account_into_plain(msgs, crashed, pemat, acc, phase)
     return account_into_kernel(msgs, crashed, pemat, acc, phase)

@@ -18,7 +18,9 @@ planes. Between ticks the port carries :class:`PackedReceiverState`:
 
 ``unpack(pack(rs)) == rs`` bit for bit whenever no saturation flag fires,
 and ``simulate`` runs the dense ``receiver_step`` between unpack and pack,
-so results are those of the dense step.
+so results are those of the dense step. ``fleet_simulate`` does the same
+for a stacked fleet and keeps its finals packed (``final_view`` unpacks
+what the host reads).
 """
 from __future__ import annotations
 
@@ -185,6 +187,46 @@ def as_bundle(state, settings: Settings) -> PackedReceiverBundle:
 def stack_logs(logs) -> ReceiverStepLog:
     """Per-tick logs -> one log with a leading tick axis."""
     return ReceiverStepLog(*[torch.stack(f) for f in zip(*logs)])
+
+
+#: What the host reads of a packed final: ``receiver_final_view``.
+ReceiverFinalView = collections.namedtuple(
+    "ReceiverFinalView", ("member", "stopped", "cfg_hi", "cfg_lo", "flags"))
+
+
+def final_view(ps: PackedReceiverState) -> ReceiverFinalView:
+    """The dense ``member``/``stopped`` planes, cfg limbs and flags of a
+    packed final (one member or a fleet)."""
+    c = ps.member.shape[-2]
+    return ReceiverFinalView(member=unpack_bits(ps.member, c),
+                             stopped=unpack_bits(ps.stopped, c),
+                             cfg_hi=ps.cfg_hi, cfg_lo=ps.cfg_lo,
+                             flags=ps.flags)
+
+
+def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings):
+    """The tick loop of a stacked fleet (member axis first on every
+    leaf): unpack, ``receiver.fleet_step``, repack, once per tick, each
+    map batched over the members. Returns the packed finals and the
+    logs, member-major ``[F, T, ...]``."""
+    from rapid_tpu_torch.device import read_arrays
+    from rapid_tpu_torch.engine import receiver as receiver_mod
+    from rapid_tpu_torch.engine.state import member_map
+
+    ps, delay_table = bundle.packed, bundle.delay_table
+    ticks = read_arrays(ps.tick)[0]
+    if len(set(ticks.tolist())) != 1:
+        raise ValueError("fleet members must start at one tick")
+    t0 = int(ticks[0])
+    logs = []
+    for i in range(int(n_ticks)):
+        rs = member_map(lambda p, d: unpack_receiver_state(p, d, settings),
+                        ps, delay_table)
+        nxt, log = receiver_mod.fleet_step(rs, faults, settings, t0 + i)
+        ps = member_map(lambda r: pack_receiver_state(r, settings), nxt)
+        logs.append(log)
+    return ps, ReceiverStepLog(*[torch.stack(col, dim=1)
+                                 for col in zip(*logs)])
 
 
 def simulate(state, faults, n_ticks: int, settings: Settings):

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import resolve_device
@@ -83,6 +84,44 @@ class EngineFaults:
     @property
     def n_delay_rules(self) -> int:
         return 0 if self.delay_src is None else int(self.delay_src.shape[0])
+
+
+def _faults_flatten(faults: EngineFaults):
+    return ([getattr(faults, f) for f in EngineFaults.FIELDS],
+            tuple(getattr(faults, f) for f in EngineFaults.DROP_CONFIG))
+
+
+def _faults_unflatten(leaves, config) -> EngineFaults:
+    return EngineFaults(**dict(zip(EngineFaults.DROP_CONFIG, config)),
+                        **dict(zip(EngineFaults.FIELDS, leaves)))
+
+
+# A pytree, so ``member_map`` batches its tensors; the drop configuration
+# rides as host context.
+_pytree.register_pytree_node(EngineFaults, _faults_flatten,
+                             _faults_unflatten)
+
+
+def member_map(fn, *args):
+    """``fn(*args)`` once per fleet member, as one batched call
+    (``torch.func.vmap`` over the leading member axis).
+
+    Every tensor inside ``args`` (NamedTuples, ``EngineFaults``, dicts,
+    tensors) carries the member axis first; ``None`` leaves and host
+    values pass through unbatched, so ``fn`` sees one member's pytrees as
+    the single-cluster code does. ``fn`` returns tensors or pytrees of
+    tensors, which come back with the member axis first.
+    """
+    leaves, spec = _pytree.tree_flatten(args)
+    at = [i for i, leaf in enumerate(leaves) if torch.is_tensor(leaf)]
+
+    def one(*tensors):
+        full = list(leaves)
+        for i, leaf in zip(at, tensors):
+            full[i] = leaf
+        return fn(*_pytree.tree_unflatten(full, spec))
+
+    return torch.func.vmap(one)(*[leaves[i] for i in at])
 
 
 class EngineState(NamedTuple):
@@ -540,3 +579,74 @@ def link_faults(crash_ticks: Sequence[int], windows, capacity: int,
             delay_seed_hi=torch.tensor(shi, dtype=torch.int64, device=dev),
             delay_seed_lo=torch.tensor(slo, dtype=torch.int64, device=dev))
     return EngineFaults(crash_tick=base.crash_tick, **kw)
+
+
+def _with_fields(faults: EngineFaults, **fields) -> EngineFaults:
+    """``faults`` with some tensor fields replaced, its drop configuration
+    kept."""
+    kw = {f: getattr(faults, f) for f in EngineFaults.FIELDS}
+    kw.update(fields)
+    return EngineFaults(**{f: getattr(faults, f)
+                           for f in EngineFaults.DROP_CONFIG}, **kw)
+
+
+def _grow(existing, pad: int, row_shape, dtype, device, fill=0):
+    tail = torch.full((pad,) + tuple(row_shape), fill, dtype=dtype,
+                      device=device)
+    return tail if existing is None else torch.cat([existing, tail])
+
+
+def pad_link_windows(faults: EngineFaults, w: int) -> EngineFaults:
+    """The link-window tensors padded to exactly ``w`` rows with inert
+    windows: empty endpoint sets and ``start == end == 0``, so a pad row
+    is never active, blocks no edge and adds nothing to
+    ``partitioned_edge_count``. A member with no windows grows them from
+    nothing; ``w == n_windows`` is a no-op; shrinking raises."""
+    cur = faults.n_windows
+    if w == cur:
+        return faults
+    if w < cur:
+        raise ValueError(f"cannot shrink {cur} link windows to {w}")
+    c = int(faults.crash_tick.shape[0])
+    pad, dev = w - cur, faults.crash_tick.device
+    grow = lambda name, shape, dtype: _grow(getattr(faults, name), pad,
+                                            shape, dtype, dev)
+    return _with_fields(
+        faults,
+        link_src=grow("link_src", (c,), torch.bool),
+        link_dst=grow("link_dst", (c,), torch.bool),
+        link_start=grow("link_start", (), torch.int32),
+        link_end=grow("link_end", (), torch.int32),
+        link_period=grow("link_period", (), torch.int32),
+        link_two_way=grow("link_two_way", (), torch.bool))
+
+
+def pad_delay_rules(faults: EngineFaults, r: int) -> EngineFaults:
+    """The delay-rule tensors padded to exactly ``r`` rows with inert
+    rules: empty slot sets, zero base and jitter, no reverse direction
+    and ``start == end == 0``, so every edge keeps delay 0 (the jitter is
+    drawn mod 1). A member with no rules gets zero seed limbs, so every
+    stacked member has the same fields; ``r == n_delay_rules`` is a
+    no-op; shrinking raises."""
+    cur = faults.n_delay_rules
+    if r == cur:
+        return faults
+    if r < cur:
+        raise ValueError(f"cannot shrink {cur} delay rules to {r}")
+    c = int(faults.crash_tick.shape[0])
+    pad, dev = r - cur, faults.crash_tick.device
+    grow = lambda name, shape, dtype, fill=0: _grow(
+        getattr(faults, name), pad, shape, dtype, dev, fill)
+    limb = lambda v: (torch.zeros((), dtype=torch.int64, device=dev)
+                      if v is None else v)
+    return _with_fields(
+        faults,
+        delay_src=grow("delay_src", (c,), torch.bool),
+        delay_dst=grow("delay_dst", (c,), torch.bool),
+        delay_base=grow("delay_base", (), torch.int32),
+        delay_rev=grow("delay_rev", (), torch.int32, -1),
+        delay_jit=grow("delay_jit", (), torch.int32),
+        delay_start=grow("delay_start", (), torch.int32),
+        delay_end=grow("delay_end", (), torch.int32),
+        delay_seed_hi=limb(faults.delay_seed_hi),
+        delay_seed_lo=limb(faults.delay_seed_lo))

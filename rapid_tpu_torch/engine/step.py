@@ -58,11 +58,22 @@ variant. With
 ``inv_bits`` (else the constant 0); with ``flight_recorder_window > 0``
 ``simulate`` also returns the run's ``recorder.RecorderState``. A device
 mesh raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 10).
+
+``fleet_body`` runs a stacked fleet (``engine.fleet``): F members, the
+member axis first on every tensor, through one host loop. ``_FleetHost``
+keeps ``_Host``'s knowledge per member (epochs, arrivals, member counts,
+config ids, the fallback schedules' tick sets), a phase runs when any
+member needs it, as one batched call (``state.member_map``) or the plain
+op where it broadcasts, and its result is kept where a ``[F]`` mask says
+the member's own ``_step`` would have run it. Each read returns a
+``[F]`` vector in one transfer, so host reads and launches per tick do
+not grow with F.
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from rapid_tpu_torch import hashing
@@ -71,7 +82,7 @@ from rapid_tpu_torch.engine import churn as churn_mod
 from rapid_tpu_torch.engine import (cut, invariants, monitor, paxos,
                                     recorder, votes)
 from rapid_tpu_torch.engine.state import (
-    I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs)
+    I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs, member_map)
 from rapid_tpu_torch.engine.topology import build_topology
 from rapid_tpu_torch.settings import Settings
 from rapid_tpu_torch.variants import hier, ring
@@ -527,4 +538,454 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
         rec = recorder.record_run(recorder.init(settings, device=dev), logs,
                                   settings)
         return state, logs, rec
+    return state, logs
+
+
+# ---------------------------------------------------------------------------
+# fleets: F clusters through one host loop and one set of launches a tick
+# ---------------------------------------------------------------------------
+
+
+def _merge(mask, new, old):
+    """``new`` where the ``[F]`` bool ``mask`` holds, else ``old``, field
+    by field; fields ``new`` shares with ``old`` are kept as they are."""
+    def pick(a, b):
+        return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+
+    return old._replace(**{f: pick(a, b) for f, a, b in
+                           zip(old._fields, new, old) if a is not b})
+
+
+class _FleetTicks:
+    """``paxos.FallbackTicks`` of every member, with the union of their
+    tick sets so that a tick on which no member can act is passed over
+    without a loop over the members."""
+
+    def __init__(self, prop_tick, prop_pid, prop_delay, inst_epoch):
+        self.inst_epoch = np.asarray(inst_epoch)
+        self.per = [paxos.FallbackTicks(*rows) for rows in zip(
+            prop_tick, prop_pid, prop_delay, self.inst_epoch)]
+        self.fire_any = set().union(*(s for fb in self.per for s in fb.fire))
+        self.send_any = set().union(*(s for fb in self.per for s in fb.send))
+        self.arrive_any = set().union(*(a.tolist() for fb in self.per
+                                        for a in fb.arrivals))
+        self._arrived = None      # (epochs, t, counts) of the last call
+
+    def rows(self, epoch):
+        """``(e, live)``: each member's schedule row and whether its
+        instance is live, as ``[F]`` numpy arrays."""
+        e = np.clip(epoch, 0, self.inst_epoch.shape[1] - 1)
+        return e, self.inst_epoch[np.arange(len(e)), e] == epoch
+
+    def fired(self, e, live, t: int, *lags: int):
+        """bool ``[F]``: a timer of the member's row fired ``lag`` ticks
+        before ``t`` for one of ``lags``."""
+        if not any(t - lag in self.fire_any for lag in lags):
+            return np.zeros(len(e), bool)
+        return live & np.array([fb.fired_before(int(r), t, *lags)
+                                for fb, r in zip(self.per, e)])
+
+    def sends(self, e, live, t: int):
+        if t not in self.send_any:
+            return np.zeros(len(e), bool)
+        return live & np.array([t in fb.send[int(r)]
+                                for fb, r in zip(self.per, e)])
+
+    def fires(self, e, live, t: int):
+        if t not in self.fire_any:
+            return np.zeros(len(e), bool)
+        return live & np.array([t in fb.fire[int(r)]
+                                for fb, r in zip(self.per, e)])
+
+    def arrived(self, epoch, t: int):
+        """int ``[F]``: ``FallbackTicks.arrived`` of each live member (0
+        for the others); it changes only at an arrival tick or with an
+        epoch."""
+        last = self._arrived
+        if last is not None and np.array_equal(last[0], epoch) and \
+                not any(last[1] < a <= t for a in self.arrive_any):
+            return last[2]
+        e, live = self.rows(epoch)
+        counts = np.array([fb.arrived(int(r), t) if ok else 0
+                           for fb, r, ok in zip(self.per, e, live)])
+        self._arrived = (epoch.copy(), t, counts)
+        return counts
+
+
+class _FleetHost:
+    """What the host knows of a fleet run between its ticks: ``_Host``
+    per member. Epochs and vote arrivals are ``[F]`` numpy arrays; the
+    member counts, config-id limbs and Paxos gauges ``[F]`` tensors; each
+    read returns one ``[F]`` vector in the one transfer it already is."""
+
+    def __init__(self, state: EngineState, churn, fallback):
+        got = read_arrays(state.tick, state.epoch, churn.join_tick,
+                          churn.leave_tick, fallback.prop_tick,
+                          fallback.prop_pid, fallback.prop_delay,
+                          fallback.inst_epoch)
+        if len(set(got[0].tolist())) != 1:
+            raise ValueError("fleet members must start at one tick")
+        self.dev = state.member.device
+        self.tick = int(got[0][0])
+        self.start = self.tick
+        self.epoch = got[1].astype(np.int64)
+        self.inject_ticks = set(got[2].ravel().tolist()) | set(
+            got[3].ravel().tolist())
+        self.fb = _FleetTicks(*got[4:8])
+        self.arriving = None    # bool [F]: fast-round votes arrive next tick
+        self.n_member = None    # i32 [F]
+        self.config = None      # config-id limbs, [F] each
+        self.px_gauges = None   # (px_timers_armed, px_coord_round), [F]
+        self.tally = None       # (keys, ok, win_pid, tally) of the last tally
+        self._rows = None       # (epochs, per-member schedule rows)
+
+    def put(self, mask):
+        """A host ``[F]`` mask on the run's device (no wait for the
+        queued work)."""
+        return torch.from_numpy(np.ascontiguousarray(mask)).to(
+            self.dev, non_blocking=True)
+
+    def fallback_rows(self, fallback, state):
+        """Each member's live-instance row of ``fallback`` as a
+        one-instance schedule (leaves ``[F, 1, ...]``), gathered by the
+        device epochs, which equal ``self.epoch``."""
+        if self._rows is None or not np.array_equal(self._rows[0],
+                                                    self.epoch):
+            e = torch.clamp(state.epoch.long(), 0,
+                            fallback.inst_epoch.shape[1] - 1)
+            at = torch.arange(e.shape[0], device=e.device)
+            self._rows = (self.epoch.copy(), paxos.FallbackSchedule(
+                *[leaf[at, e][:, None] for leaf in fallback]))
+        return self._rows[1]
+
+
+def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
+                host: _FleetHost, churn, fallback):
+    """One tick of every member, the member axis first on every tensor.
+
+    Each phase of ``_step`` runs when any member needs it: the host's
+    condition for one member becomes a ``[F]`` mask, the phase runs for
+    all members (``member_map``, or the plain op where it broadcasts),
+    and its result is taken where the mask holds. A member therefore
+    gets exactly its own ``_step``, and the reference's ``vmap`` of its
+    ``lax.cond``s, by construction.
+    """
+    t = host.tick + 1
+    dev = state.member.device
+    f, c = state.member.shape
+    variant = settings.protocol_variant
+    n_groups, gid = hier.hier_group_count(c), None
+    i32 = lambda x: x.to(torch.int32)
+    zero = torch.zeros(f, dtype=torch.int32, device=dev)
+    no_slots = lambda: torch.zeros((f, c), dtype=torch.bool, device=dev)
+    where = lambda m, a, b: torch.where(
+        m.reshape(m.shape + (1,) * (a.dim() - 1)), a, b)
+    crashed = monitor.crashed_at(faults, t)
+    tick_t = state.tick + 1
+    if host.n_member is None:
+        host.n_member = i32(state.member.sum(dim=-1))
+    n_member = host.n_member
+    fb = host.fb
+    px = {}
+
+    # ---- phase 0: classic-chain deliveries and the scripted fast round
+    sc = sc_pid = None
+    px_tally = zero
+    e, live = fb.rows(host.epoch)
+    rows = host.fallback_rows(fallback, state)
+    chain = fb.fired(e, live, t, 2, 3, 4)
+    if chain.any():
+        m = host.put(chain)
+        new, counts, classic, classic_pid = member_map(
+            lambda s, r, n: paxos.chain_deliver(s, r, t, n), state, rows,
+            n_member)
+        state = _merge(m, new, state)
+        px = {k: torch.where(m, v, zero) for k, v in counts.items()}
+        sc = classic & host.put(fb.fired(e, live, t, 4))
+        sc_pid = classic_pid
+    arrived = fb.arrived(host.epoch, t)
+    if arrived.any():
+        keys = np.stack([host.epoch, arrived])
+        if host.tally is None or not np.array_equal(host.tally[0], keys):
+            # A member's tally is a function of its key alone, so all
+            # members are recomputed when any key moves.
+            host.tally = (keys,) + member_map(
+                lambda s, r, n: paxos.fast_tally(s, r, 0, t, n)[:3],
+                state, rows, n_member)
+        _, ok, win_pid, tally = host.tally
+        am = host.put(arrived > 0)
+        ok = ok & am
+        px_tally = torch.where(am, tally, zero)
+        if sc is None:
+            sc, sc_pid = ok, win_pid
+        else:
+            sc_pid = torch.where(sc, sc_pid, win_pid)
+            sc = sc | ok
+
+    # ---- phase 1: vote delivery and decision --------------------------
+    votes_arriving = state.vote_pending & (state.announce_tick + 1 == t)
+    arriving = host.arriving
+    if arriving is None:
+        arriving = read_arrays(votes_arriving)[0].astype(bool)
+    alert = None
+    vote_tally = vote_quorum = vote_senders_alive = vote_deliver_alive = zero
+    vote_pending = state.vote_pending
+    if arriving.any():
+        va = votes_arriving
+        alive_members = state.member & ~crashed
+        valid = state.voters & ~crashed
+        if variant == "hier":
+            gid = member_map(lambda hi, lo: hier.group_ids(hi, lo, n_groups),
+                             state.uid_hi, state.uid_lo)
+            decided, tally = member_map(
+                lambda m, v, g: hier.hier_count_fast_round(m, v, g,
+                                                           n_groups),
+                state.member, valid, gid)
+        else:
+            decided, tally = member_map(
+                lambda hi, lo, v, n: votes.count_fast_round(
+                    hi.expand(c), lo.expand(c), v, n),
+                state.phash_hi, state.phash_lo, valid, n_member)
+        vote_tally = torch.where(va, tally, zero)
+        vote_quorum = torch.where(va, votes.fast_quorum(n_member), zero)
+        alert = decided & alive_members.any(dim=-1) & va
+        if sc is not None:
+            alert = alert & ~sc
+        if variant == "hier":
+            gate = valid.any(dim=-1) & alive_members.any(dim=-1)
+            senders = torch.where(gate, member_map(
+                lambda v, a, g: hier.hier_exchange_messages(v, a, g,
+                                                            n_groups),
+                valid, alive_members, gid), zero)
+            recipients = i32(gate)
+        else:
+            senders = (ring.ring_pair_factor(valid) if variant == "ring"
+                       else i32(valid.sum(dim=-1)))
+            recipients = i32(alive_members.sum(dim=-1))
+        vote_senders_alive = torch.where(va, senders, zero)
+        vote_deliver_alive = torch.where(va, recipients, zero)
+        vote_pending = vote_pending & ~votes_arriving
+    vote_tally = torch.maximum(vote_tally, px_tally)
+    vote_quorum = torch.maximum(vote_quorum, votes.fast_quorum(n_member))
+
+    # One read settles which members decide.
+    false = torch.zeros(f, dtype=torch.bool, device=dev)
+    fast = false if alert is None else alert
+    classic = false if sc is None else sc
+    decide_now = fast | classic
+    decide = (read_arrays(decide_now)[0].astype(bool)
+              if alert is not None or sc is not None
+              else np.zeros(f, bool))
+    pmask = state.proposal
+
+    if decide.any():
+        if sc is not None:
+            n_pids = rows.table_mask.shape[2]
+            pick = rows.table_mask[:, 0][torch.arange(f, device=dev),
+                                         sc_pid.clamp(0, n_pids - 1).long()]
+            pmask = torch.where(sc[:, None], pick, state.proposal)
+        ck_false = torch.zeros_like(state.reports)
+        decided_state = state._replace(
+            tick=tick_t,
+            **member_map(lambda s, p: _view_change(s, p, True), state,
+                         pmask),
+            fc=torch.zeros_like(state.fc), notified=ck_false,
+            fd_gate=tick_t, pending_flush=ck_false,
+            pending_deliver=ck_false,
+            churn_flush=no_slots(), churn_deliver=no_slots(),
+            reports=ck_false, seen_down=false, announced=false,
+            proposal=no_slots(), vote_pending=vote_pending,
+            voters=no_slots(), epoch=state.epoch + 1, **_px_resets(state))
+        mid = _merge(decide_now, decided_state,
+                     state._replace(tick=tick_t, vote_pending=vote_pending))
+        decision = pmask & decide_now[:, None]
+        host.epoch = host.epoch + decide
+        host.n_member = n_member = torch.where(
+            decide_now, i32(mid.member.sum(dim=-1)), n_member)
+        host.px_gauges = None
+        e, live = fb.rows(host.epoch)
+        rows = host.fallback_rows(fallback, mid)
+    else:
+        mid = state._replace(tick=tick_t, vote_pending=vote_pending)
+        decision = no_slots()
+
+    # ---- phase 1b: late phase-1a delivery (a task-phase send) ----------
+    late = ~decide & fb.fired(e, live, t, 1)
+    if late.any():
+        m = host.put(late)
+        new, senders = member_map(lambda s: paxos.phase1a_deliver(s, t),
+                                  mid)
+        mid = _merge(m, new, mid)
+        px["px1b_senders"] = torch.where(m, senders, zero)
+
+    # ---- phase 2: alert delivery, aggregation, announce ----------------
+    src_alive = ~crashed
+    batch_src = mid.pending_deliver.any(dim=-1)
+    n_alive = i32((mid.member & src_alive).sum(dim=-1))
+    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive)
+                      if variant == "ring"
+                      else i32((batch_src & src_alive).sum(dim=-1)))
+    delivered_down = member_map(cut.deliver_reports, mid, src_alive)
+    delivered_up = None
+    if t - 2 in host.inject_ticks or t <= host.start + 2:
+        # Off its own injection ticks a member's churn batch is empty, so
+        # the delivery adds nothing there.
+        churn_down, delivered_up = member_map(cut.deliver_churn_reports,
+                                              mid, src_alive)
+        delivered_down = delivered_down | churn_down
+    (reports, seen_down, announce_now, crossed, _explicit,
+     implicit_added) = member_map(
+        lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings),
+        mid, delivered_down, delivered_up, n_alive > 0)
+    announce = read_arrays(announce_now)[0].astype(bool)
+    mid = mid._replace(reports=reports, seen_down=seen_down)
+    an = announce_now
+    if announce.any():
+        ph_hi, ph_lo = member_map(votes.proposal_fingerprint, crossed,
+                                  mid.uid_hi, mid.uid_lo)
+        mid = mid._replace(
+            announced=mid.announced | an,
+            proposal=where(an, crossed, mid.proposal),
+            announce_tick=where(an, tick_t, mid.announce_tick),
+            vote_pending=mid.vote_pending | an,
+            voters=where(an, mid.member & src_alive, mid.voters),
+            phash_hi=where(an, ph_hi, mid.phash_hi),
+            phash_lo=where(an, ph_lo, mid.phash_lo))
+    vote_senders = torch.where(an, n_alive, zero)
+    vote_recipients = torch.where(an, n_member, zero)
+    if variant == "ring":
+        vote_senders = torch.where(an, 2, zero).to(torch.int32)
+    elif variant == "hier" and announce.any():
+        if gid is None:
+            gid = member_map(lambda hi, lo: hier.group_ids(hi, lo, n_groups),
+                             mid.uid_hi, mid.uid_lo)
+        vote_senders = torch.where(an, member_map(
+            lambda v, m, g: hier.hier_exchange_messages(v, m, g, n_groups),
+            mid.member & src_alive, mid.member, gid), zero)
+        vote_recipients = torch.where(an, 1, zero).to(torch.int32)
+
+    # ---- phase 3: batch flush (1-tick quiescence) ----------------------
+    flusher_mask = mid.pending_flush.any(dim=-1)
+    flushers = (ring.ring_pair_factor(flusher_mask) if variant == "ring"
+                else i32(flusher_mask.sum(dim=-1)))
+    flush_recipients = torch.where(flusher_mask.any(dim=-1), n_member, zero)
+    mid = mid._replace(pending_deliver=mid.pending_flush,
+                       pending_flush=torch.zeros_like(mid.pending_flush),
+                       churn_deliver=mid.churn_flush,
+                       churn_flush=torch.zeros_like(mid.churn_flush))
+
+    # ---- phase 4a: churn alert injection -------------------------------
+    # Off its own schedule's ticks a member injects nothing, so no mask.
+    churn_injected = zero
+    if t in host.inject_ticks:
+        flush, churn_injected = member_map(
+            lambda s, ch: churn_mod.inject(s, ch, t), mid, churn)
+        mid = mid._replace(churn_flush=flush)
+
+    # ---- phase 4b: failure-detector interval ---------------------------
+    probes_sent = probes_failed = zero
+    new = mid
+    if t % settings.fd_interval_ticks == 0:
+        is_fd = t > mid.fd_gate
+        fc, notified, notify_exp, sent, failed = member_map(
+            lambda s, fl: monitor.monitor_tick(s, fl, settings, t), mid,
+            faults)
+        new = mid._replace(fc=where(is_fd, fc, mid.fc),
+                           notified=where(is_fd, notified, mid.notified),
+                           pending_flush=notify_exp & is_fd[:, None, None])
+        probes_sent = torch.where(is_fd, sent, zero)
+        probes_failed = torch.where(is_fd, failed, zero)
+
+    # ---- phase 4c: scripted proposes and fallback-timer fires ----------
+    for half, due in (("send", fb.sends(e, live, t)),
+                      ("fire", ~decide & fb.fires(e, live, t))):
+        if due.any():
+            m = host.put(due)
+            stepped, task_counts = member_map(
+                lambda s, r, n: paxos.task_phase(
+                    s, r, 0, t, n, half == "send", half == "fire"),
+                new, rows, n_member)
+            new = _merge(m, stepped, new)
+            px.update({k: torch.where(m, v, zero)
+                       for k, v in task_counts.items()})
+            host.px_gauges = None
+    if host.px_gauges is None:
+        host.px_gauges = (i32((new.px_timer != I32_MAX).sum(dim=-1)),
+                          new.px_crnd_r.amax(dim=-1))
+    px_timers_armed, px_coord_round = host.px_gauges
+    if variant == "ring" and "pxvote_senders" in px:
+        px["pxvote_senders"] = torch.where(px["pxvote_senders"] > 0, 2,
+                                           zero).to(torch.int32)
+
+    inv_bits = zero
+    if settings.invariant_checks:
+        inv_bits = member_map(
+            lambda pre, post, d, fd, cd, fm, cm: invariants.check_step(
+                pre, post, decide_now=d, fast_decide=fd, classic_decide=cd,
+                fast_mask=fm, classic_mask=cm, settings=settings),
+            state, new, decide_now, fast, classic, state.proposal,
+            pmask & classic[:, None])
+
+    if decide.any() or host.config is None:
+        host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
+                                      new.memsum_hi, new.memsum_lo)
+    cfg_hi, cfg_lo = host.config
+    alerts_in_flight = i32(
+        new.pending_flush.any(dim=-1).sum(dim=-1)
+        + new.pending_deliver.any(dim=-1).sum(dim=-1)
+        + new.churn_flush.sum(dim=-1) + new.churn_deliver.sum(dim=-1))
+    log = StepLog(
+        tick=tick_t,
+        announce_now=announce_now,
+        proposal=crossed & an[:, None],
+        decide_now=decide_now,
+        decision=decision,
+        config_hi=cfg_hi, config_lo=cfg_lo,
+        n_member=n_member,
+        probes_sent=probes_sent, probes_failed=probes_failed,
+        flushers=flushers, flush_recipients=flush_recipients,
+        flushers_alive=flushers_alive,
+        deliver_alive=torch.where(batch_src.any(dim=-1), n_alive, zero),
+        vote_senders=vote_senders, vote_recipients=vote_recipients,
+        vote_senders_alive=vote_senders_alive,
+        vote_deliver_alive=vote_deliver_alive,
+        alerts_in_flight=alerts_in_flight,
+        cut_reports=i32(new.reports.sum(dim=(-2, -1))),
+        implicit_reports=implicit_added,
+        vote_tally=vote_tally, quorum=vote_quorum,
+        epoch=new.epoch,
+        churn_injected=churn_injected,
+        partitioned_edges=member_map(
+            lambda fl, m: monitor.partitioned_edge_count(fl, m, t), faults,
+            new.member),
+        link_dropped=zero,
+        px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
+        inv_bits=inv_bits,
+        **{name: px.get(name, zero) for name in PX_COUNTS},
+    )
+    host.tick = t
+    host.arriving = announce
+    return new, log
+
+
+def fleet_body(state: EngineState, faults: EngineFaults, churn, fallback,
+               n_ticks: int, settings: Settings):
+    """Run a stacked fleet ``n_ticks`` ticks: one host loop, one set of
+    launches a tick for all F members. Every leaf of the inputs carries
+    the member axis first; ``churn`` and ``fallback`` are required (inert
+    schedules stand in for none, as the reference's fleets have them).
+    Returns ``(finals, logs)`` with logs member-major ``[F, T, ...]``,
+    and with ``settings.flight_recorder_window > 0`` ``(finals, logs,
+    recorders)`` with ``[F, W, G]`` rings."""
+    host = _FleetHost(state, churn, fallback)
+    logs = []
+    for _ in range(int(n_ticks)):
+        state, log = _fleet_step(state, faults, settings, host, churn,
+                                 fallback)
+        logs.append(log)
+    logs = StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
+    if settings.flight_recorder_window:
+        return state, logs, recorder.record_fleet_run(logs, settings,
+                                                      recorder.record_run)
     return state, logs

@@ -32,10 +32,13 @@ def segmented_vote_count(vote_hi, vote_lo, valid):
     The reference's ``lexsort((lo, hi, invalid))`` is three stable sorts,
     least significant key first. Runs are split on ``(hi, lo)`` alone, so
     an invalid vote may share a run with valid ones: it adds nothing to
-    the run's sum and reads 0 itself. The run sums are int32
-    ``index_add_``, exact in any order of accumulation.
+    the run's sum and reads 0 itself. The run sums are an int32
+    ``scatter_add``, exact in any order of accumulation. Every write is
+    out of place and batches natively, so a fleet maps the function over
+    its members (``torch.func.vmap``) in one op per step whatever their
+    number.
     """
-    c = vote_hi.shape[0]
+    c = vote_hi.shape[-1]
     dev = vote_hi.device
     order = torch.argsort(vote_lo, stable=True)
     order = order[torch.argsort(vote_hi[order], stable=True)]
@@ -44,14 +47,13 @@ def segmented_vote_count(vote_hi, vote_lo, valid):
     shi = vote_hi[order]
     slo = vote_lo[order]
     sval = valid[order].to(torch.int32)
-    starts = torch.ones(c, dtype=torch.bool, device=dev)
-    starts[1:] = (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])])
     seg_id = torch.cumsum(starts, dim=0) - 1
-    seg_counts = torch.zeros(c, dtype=torch.int32, device=dev).index_add_(
+    seg_counts = torch.zeros(c, dtype=torch.int32, device=dev).scatter_add(
         0, seg_id, sval)
-    out = torch.zeros(c, dtype=torch.int32, device=dev)
-    out[order] = seg_counts[seg_id] * sval
-    return out
+    return torch.zeros(c, dtype=torch.int32, device=dev).scatter(
+        0, order, seg_counts[seg_id] * sval)
 
 
 def fast_quorum(n_member):

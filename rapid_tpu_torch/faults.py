@@ -1,16 +1,25 @@
-"""Fault schedules in slot coordinates: crashes, link windows, link delays.
+"""Fault schedules in slot coordinates: crashes, link windows, link
+delays, scripted proposes, and the seeded samplers that draw them.
 
-Own copies of the reference's ``LinkWindow``, ``DelayRule``, the part of
-``AdversarySchedule`` the per-receiver engine lowers, and the checks of
-``validate_schedule`` that guard what the engine can represent (slots in
-range, sane windows and rules, every delay within the delivery ring).
-Scripted proposes are not part of the per-receiver envelope: a schedule
-that carries them is refused at lowering.
+Own copies of the reference's ``LinkWindow``, ``DelayRule``,
+``ScriptedPropose``, ``AdversarySchedule`` and ``validate_schedule``
+(slots in range, sane windows, rules and proposes, no two static windows
+or delay rules on one edge at once, every delay within the delivery
+ring), and of the schedule half of the reference's ``faults`` module:
+``random_adversary_schedule``, the campaign sampler
+``sample_adversary_schedule`` with its ``ScenarioWeights``, and
+``two_zone_schedule``. Each draws from one ``random.Random(seed)``
+stream in the reference's order, so a seed gives the reference's
+schedule. ``fleet.lower_schedule`` compiles proposes into a fallback
+instance; ``fleet.lower_receiver_schedule`` refuses them. The oracle's
+``FaultModel`` family (``AdversarySchedule.fault_model``) belongs to the
+host referee, a later slice, and is not here.
 """
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
-from typing import FrozenSet, Optional, Tuple
+from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -57,17 +66,28 @@ class DelayRule:
 
 
 @dataclass(frozen=True)
+class ScriptedPropose:
+    """One scripted consensus propose: slot ``slot`` proposes the removal
+    of ``proposal`` (ascending slot tuple) at tick ``tick`` with an
+    explicit classic-fallback timer delay of ``delay_ticks``."""
+
+    slot: int
+    tick: int
+    proposal: Tuple[int, ...]
+    delay_ticks: int
+
+
+@dataclass(frozen=True)
 class AdversarySchedule:
     """A seeded fault program over an ``n``-slot universe: ``crashes``
     maps slot -> fail-stop tick, ``windows`` and ``delays`` are link
-    rules, ``seed`` keys the per-slot fallback-timer rngs and the per-edge
-    jitter hash. ``proposes`` exists only so a schedule that scripts them
-    can be refused."""
+    rules, ``proposes`` scripted consensus proposes, ``seed`` keys the
+    per-slot fallback-timer rngs and the per-edge jitter hash."""
 
     n: int
     crashes: Tuple[Tuple[int, int], ...] = ()
     windows: Tuple[LinkWindow, ...] = ()
-    proposes: Tuple[object, ...] = ()
+    proposes: Tuple[ScriptedPropose, ...] = ()
     seed: int = 0
     delays: Tuple[DelayRule, ...] = ()
 
@@ -95,11 +115,24 @@ class DelayBudgetError(ValueError):
             f"Settings.delivery_ring_depth or shrink the rule")
 
 
+def _overlapping_edge(a_dirs, b_dirs):
+    """The first directed edge two rules both cover, or None."""
+    for asrc, adst in a_dirs:
+        for bsrc, bdst in b_dirs:
+            if (asrc & bsrc) and (adst & bdst):
+                return min(asrc & bsrc), min(adst & bdst)
+    return None
+
+
 def validate_schedule(schedule: AdversarySchedule,
                       ring_depth: Optional[int] = None) -> None:
-    """Input validation of crashes, windows and delay rules; with
-    ``ring_depth``, a rule whose worst-case draw exceeds ``ring_depth - 1``
-    raises ``DelayBudgetError``."""
+    """Input validation of crashes, windows, proposes and delay rules:
+    slots exist, crashes and proposes land at tick >= 1, proposals are
+    non-empty ascending slot tuples, at most one scripted propose per
+    slot, and no two static windows (or two delay rules) cover one
+    directed edge at overlapping ticks. With ``ring_depth``, a rule whose
+    worst-case draw exceeds ``ring_depth - 1`` raises
+    ``DelayBudgetError``."""
     n = schedule.n
     for slot, tick in schedule.crashes:
         if not 0 <= slot < n:
@@ -118,6 +151,45 @@ def validate_schedule(schedule: AdversarySchedule,
             raise ValueError(
                 f"zero-length window: start_tick {w.start_tick} >= "
                 f"end_tick {w.end_tick}")
+    # Flip-flop windows are exempt: their phases make simultaneous
+    # coverage intentional.
+    static = [w for w in schedule.windows if w.period_ticks == 0]
+    for i, a in enumerate(static):
+        for b in static[i + 1:]:
+            if a.start_tick >= b.end_tick or b.start_tick >= a.end_tick:
+                continue
+            edge = _overlapping_edge(
+                [(a.src_slots, a.dst_slots)]
+                + ([(a.dst_slots, a.src_slots)] if a.two_way else []),
+                [(b.src_slots, b.dst_slots)]
+                + ([(b.dst_slots, b.src_slots)] if b.two_way else []))
+            if edge is not None:
+                raise ValueError(
+                    f"overlapping static windows cover directed edge "
+                    f"{edge[0]}->{edge[1]} in ticks "
+                    f"[{max(a.start_tick, b.start_tick)}, "
+                    f"{min(a.end_tick, b.end_tick)})")
+    per_slot: Dict[int, int] = {}
+    seen: Set[Tuple[int, int]] = set()
+    for p in schedule.proposes:
+        if not 0 <= p.slot < n:
+            raise ValueError(f"propose slot {p.slot} outside universe of {n}")
+        if p.tick < 1:
+            raise ValueError(f"propose tick {p.tick} must be >= 1")
+        if not p.proposal or list(p.proposal) != sorted(set(p.proposal)):
+            raise ValueError("proposal must be a non-empty ascending tuple")
+        if any(not 0 <= s < n for s in p.proposal):
+            raise ValueError("proposal slot outside universe")
+        if p.delay_ticks < 0:
+            raise ValueError("delay_ticks must be >= 0")
+        if (p.slot, p.tick) in seen:
+            raise ValueError(f"two scripted proposes on slot {p.slot} at "
+                             f"tick {p.tick}")
+        seen.add((p.slot, p.tick))
+        per_slot[p.slot] = per_slot.get(p.slot, 0) + 1
+        if per_slot[p.slot] > 1:
+            raise ValueError(f"more than one scripted propose on slot "
+                             f"{p.slot} (device schedule capacity)")
     for r in schedule.delays:
         if not r.src_slots or not r.dst_slots:
             raise ValueError("delay src_slots/dst_slots must be non-empty")
@@ -147,20 +219,321 @@ def validate_schedule(schedule: AdversarySchedule,
         for b in rules[i + 1:]:
             if a.start_tick >= b.end_tick or b.start_tick >= a.end_tick:
                 continue
-            a_dirs = [(a.src_slots, a.dst_slots)] + (
-                [(a.dst_slots, a.src_slots)]
-                if a.reverse_delay_ticks >= 0 else [])
-            b_dirs = [(b.src_slots, b.dst_slots)] + (
-                [(b.dst_slots, b.src_slots)]
-                if b.reverse_delay_ticks >= 0 else [])
-            for asrc, adst in a_dirs:
-                for bsrc, bdst in b_dirs:
-                    if (asrc & bsrc) and (adst & bdst):
-                        raise ValueError(
-                            f"overlapping delay rules cover directed edge "
-                            f"{min(asrc & bsrc)}->{min(adst & bdst)} in "
-                            f"ticks [{max(a.start_tick, b.start_tick)}, "
-                            f"{min(a.end_tick, b.end_tick)})")
+            edge = _overlapping_edge(
+                [(a.src_slots, a.dst_slots)]
+                + ([(a.dst_slots, a.src_slots)]
+                   if a.reverse_delay_ticks >= 0 else []),
+                [(b.src_slots, b.dst_slots)]
+                + ([(b.dst_slots, b.src_slots)]
+                   if b.reverse_delay_ticks >= 0 else []))
+            if edge is not None:
+                raise ValueError(
+                    f"overlapping delay rules cover directed edge "
+                    f"{edge[0]}->{edge[1]} in ticks "
+                    f"[{max(a.start_tick, b.start_tick)}, "
+                    f"{min(a.end_tick, b.end_tick)})")
+
+
+def random_adversary_schedule(n: int, seed: int, ticks: int,
+                              fd_interval: int = 10) -> AdversarySchedule:
+    """Sample an unscripted fault schedule: a crash burst that may straddle
+    an FD-interval boundary, a one-way partition of a random ring subset,
+    and (sometimes) a flip-flop link window. Deterministic in ``seed``."""
+    rng = random.Random(seed)
+    crashes: List[Tuple[int, int]] = []
+    n_crash = rng.randint(1, max(1, n // 16))
+    burst_start = rng.randint(1, max(1, fd_interval))
+    for slot in rng.sample(range(n), n_crash):
+        # Half the crashes land after the next FD boundary -> straddling.
+        tick = burst_start + (fd_interval if rng.random() < 0.5 else 0)
+        crashes.append((slot, tick))
+    windows: List[LinkWindow] = []
+    if rng.random() < 0.75:
+        size = rng.randint(2, max(2, n // 4))
+        iso = frozenset(rng.sample(range(n), size))
+        rest = frozenset(range(n)) - iso
+        windows.append(LinkWindow(src_slots=rest, dst_slots=iso,
+                                  start_tick=rng.randint(1, fd_interval)))
+    if rng.random() < 0.25:
+        size = rng.randint(1, max(1, n // 8))
+        t = frozenset(rng.sample(range(n), size))
+        windows.append(LinkWindow(
+            src_slots=frozenset(range(n)) - t, dst_slots=t,
+            start_tick=rng.randint(1, ticks // 2),
+            period_ticks=rng.randint(2, 4) * fd_interval))
+    schedule = AdversarySchedule(n=n, crashes=tuple(sorted(crashes)),
+                                 windows=tuple(windows), seed=seed)
+    validate_schedule(schedule)
+    return schedule
+
+
+@dataclass(frozen=True)
+class ScenarioWeights:
+    """Sampling weights over the scenario-space kinds of
+    ``sample_adversary_schedule``. Zero removes a kind; weights need not
+    normalize. The default mix exercises every kind.
+
+    Field names are one-to-one with ``SCENARIO_KINDS`` (and, for the
+    latency family, ``DELAY_KINDS``): adding a kind means adding a field
+    here, a branch in the sampler, and an entry in the kind table."""
+
+    crash: float = 1.0
+    partition: float = 1.0
+    flip_flop: float = 1.0
+    contested: float = 1.0
+    churn: float = 1.0
+    delay: float = 1.0
+    jitter: float = 1.0
+    slow_asym: float = 1.0
+
+    def items(self) -> Tuple[Tuple[str, float], ...]:
+        pairs = (("crash", self.crash), ("partition", self.partition),
+                 ("flip_flop", self.flip_flop), ("contested", self.contested),
+                 ("churn", self.churn), ("delay", self.delay),
+                 ("jitter", self.jitter), ("slow_asym", self.slow_asym))
+        out = tuple((k, w) for k, w in pairs if w > 0)
+        if not out:
+            raise ValueError("all scenario weights are zero")
+        return out
+
+
+DEFAULT_SCENARIO_WEIGHTS = ScenarioWeights()
+
+#: Every kind `sample_adversary_schedule` can draw, in ScenarioWeights
+#: field order; campaign forced-weight sweeps iterate this.
+SCENARIO_KINDS = ("crash", "partition", "flip_flop", "contested", "churn",
+                  "delay", "jitter", "slow_asym")
+
+#: The latency-family subset: members whose schedule carries DelayRules.
+DELAY_KINDS = ("delay", "jitter", "slow_asym")
+
+
+@dataclass(frozen=True)
+class SampledScenario:
+    """One draw from scenario space: the fault program plus the sampled
+    kind and whether the campaign should pair it with a churn schedule
+    (churn lives in ``engine.churn.ChurnSchedule``, outside the
+    ``AdversarySchedule`` surface the host referee replays)."""
+
+    kind: str
+    schedule: AdversarySchedule
+    wants_churn: bool = False
+
+
+def _sample_crash_burst(rng, n: int, fd_interval: int) -> List[Tuple[int, int]]:
+    crashes: List[Tuple[int, int]] = []
+    n_crash = rng.randint(1, max(1, n // 16))
+    burst_start = rng.randint(1, max(1, fd_interval))
+    for slot in rng.sample(range(n), n_crash):
+        tick = burst_start + (fd_interval if rng.random() < 0.5 else 0)
+        crashes.append((slot, tick))
+    return sorted(crashes)
+
+
+def sample_adversary_schedule(
+        n: int, seed: int, ticks: int,
+        weights: Optional[ScenarioWeights] = None,
+        fd_interval: int = 10, ring_depth: int = 4) -> SampledScenario:
+    """Seeded scenario-space sampler for Monte-Carlo fleet campaigns.
+
+    Draws a scenario *kind* from ``weights`` — the full kind table is
+    ``SCENARIO_KINDS``, in ``ScenarioWeights`` field order:
+
+    - ``crash``      — one correlated crash burst;
+    - ``partition``  — an isolated subset (sometimes healing mid-run,
+      sometimes with a crash burst on top);
+    - ``flip_flop``  — a periodically flapping link window;
+    - ``contested``  — 2-3 camps proposing conflicting removals with
+      explicit fallback delays (no fast quorum, classic round recovers);
+    - ``churn``      — join/leave traffic (``wants_churn=True``; the
+      churn schedule itself lives in ``engine.churn.ChurnSchedule``,
+      outside the ``AdversarySchedule`` surface), sometimes under a
+      light crash;
+    - ``delay`` / ``jitter`` / ``slow_asym`` — the latency family
+      (``DELAY_KINDS``): fixed slow subsets, bounded per-message jitter,
+      and asymmetric slow links, all bounded by ``ring_depth`` and paired
+      with a crash burst so each regime exercises a view change.
+
+    Knob fills (burst sizes, subsets, periods, camp splits, delay bounds)
+    come from the same ``random.Random(seed)`` stream — fully
+    deterministic in ``seed``. Every returned schedule passes
+    ``validate_schedule`` with the given ``ring_depth``.
+    ``random_adversary_schedule`` above is the fixed crash+partition mix;
+    this sampler is the campaign-facing superset.
+    """
+    weights = weights or DEFAULT_SCENARIO_WEIGHTS
+    rng = random.Random(seed)
+    pairs = weights.items()
+    kind = rng.choices([k for k, _ in pairs], [w for _, w in pairs])[0]
+
+    crashes: List[Tuple[int, int]] = []
+    windows: List[LinkWindow] = []
+    proposes: List[ScriptedPropose] = []
+    delays: List[DelayRule] = []
+    wants_churn = False
+    if kind == "crash":
+        crashes = _sample_crash_burst(rng, n, fd_interval)
+    elif kind == "partition":
+        size = rng.randint(2, max(2, n // 3))
+        iso = frozenset(rng.sample(range(n), size))
+        rest = frozenset(range(n)) - iso
+        end = NEVER_TICK
+        if rng.random() < 0.3:  # sometimes the partition heals mid-run
+            end = max(2, ticks // 2)
+        windows.append(LinkWindow(
+            src_slots=rest, dst_slots=iso,
+            start_tick=rng.randint(1, fd_interval), end_tick=end,
+            two_way=rng.random() < 0.3))
+        if rng.random() < 0.5:
+            crashes = _sample_crash_burst(rng, n, fd_interval)
+    elif kind == "flip_flop":
+        size = rng.randint(1, max(1, n // 8))
+        t = frozenset(rng.sample(range(n), size))
+        windows.append(LinkWindow(
+            src_slots=frozenset(range(n)) - t, dst_slots=t,
+            start_tick=rng.randint(1, max(1, ticks // 2)),
+            period_ticks=rng.randint(1, 4) * fd_interval,
+            two_way=rng.random() < 0.5))
+        if rng.random() < 0.3:
+            crashes = _sample_crash_burst(rng, n, fd_interval)
+    elif kind == "contested":
+        # Split the electorate into camps proposing conflicting removals:
+        # no camp reaches the fast quorum, timers with explicit delays
+        # fire, and the classic-Paxos fallback recovers.
+        n_camps = rng.randint(2, 3)
+        victims = sorted(rng.sample(range(n), n_camps))
+        tick0 = rng.randint(2, max(2, fd_interval))
+        for slot in range(n):
+            camp = rng.randrange(n_camps)
+            proposes.append(ScriptedPropose(
+                slot=slot, tick=tick0, proposal=(victims[camp],),
+                delay_ticks=rng.randint(1, 3 * fd_interval)))
+    elif kind == "churn":
+        wants_churn = True
+        if rng.random() < 0.4:  # churn under a light late crash
+            slot = rng.randrange(n)
+            crashes = [(slot, rng.randint(1, max(1, fd_interval)))]
+    elif kind == "delay":
+        # A fixed-latency slow subset: every message into (and, half the
+        # time, out of) the subset arrives `base` ticks late. No jitter,
+        # so ordering is preserved — the pure tail-latency regime.
+        size = rng.randint(1, max(1, n // 4))
+        slow = frozenset(rng.sample(range(n), size))
+        rest = frozenset(range(n)) - slow
+        base = rng.randint(1, max(1, ring_depth - 1))
+        delays.append(DelayRule(
+            src_slots=rest, dst_slots=slow, delay_ticks=base,
+            reverse_delay_ticks=base if rng.random() < 0.5 else -1,
+            start_tick=rng.randint(0, fd_interval)))
+        # Every latency member pairs its rule with a crash burst so the
+        # regime exercises a full view change under latency — the
+        # campaign's per-regime ticks-to-first-decide tails come from
+        # these decides.
+        crashes = _sample_crash_burst(rng, n, fd_interval)
+    elif kind == "jitter":
+        # Bounded per-message jitter on a subset's inbound edges: draws
+        # differ tick to tick, so consecutive messages on one edge can
+        # swap arrival order — the reordering regime.
+        size = rng.randint(1, max(1, n // 4))
+        t = frozenset(rng.sample(range(n), size))
+        jit = rng.randint(1, max(1, ring_depth - 2))
+        base = rng.randint(0, ring_depth - 1 - jit)
+        delays.append(DelayRule(
+            src_slots=frozenset(range(n)) - t, dst_slots=t,
+            delay_ticks=base, jitter_ticks=jit,
+            reverse_delay_ticks=base if rng.random() < 0.5 else -1,
+            start_tick=rng.randint(0, fd_interval)))
+        crashes = _sample_crash_burst(rng, n, fd_interval)
+    elif kind == "slow_asym":
+        # Slow-link asymmetry: traffic toward one half is slower than the
+        # return path (possibly instant), mimicking a congested uplink.
+        half = frozenset(rng.sample(range(n), max(1, n // 2)))
+        fwd = rng.randint(1, max(1, ring_depth - 1))
+        rev = rng.choice([d for d in range(ring_depth) if d != fwd])
+        delays.append(DelayRule(
+            src_slots=frozenset(range(n)) - half, dst_slots=half,
+            delay_ticks=fwd, reverse_delay_ticks=rev,
+            start_tick=rng.randint(0, fd_interval)))
+        crashes = _sample_crash_burst(rng, n, fd_interval)
+    else:  # pragma: no cover - items() only yields the kinds above
+        raise AssertionError(kind)
+
+    schedule = AdversarySchedule(
+        n=n, crashes=tuple(crashes), windows=tuple(windows),
+        proposes=tuple(proposes), seed=seed, delays=tuple(delays))
+    validate_schedule(schedule, ring_depth=ring_depth)
+    return SampledScenario(kind=kind, schedule=schedule,
+                           wants_churn=wants_churn)
+
+
+def two_zone_schedule(n: int, seed: int, ticks: int,
+                      ring_depth: int = 4,
+                      fd_interval: int = 10) -> AdversarySchedule:
+    """The named two-zone deployment scenario as a concrete schedule.
+
+    Splits the universe into ``zone_a = [0, n//2)`` and
+    ``zone_b = [n//2, n)`` — two racks behind one congested uplink:
+
+    - intra-zone traffic is *fast* (no rule: one-hop baseline both ways);
+    - cross-zone traffic gets one slow-asym ``DelayRule`` — the a->b
+      direction carries the congested base, the return path a strictly
+      smaller one, both directions sharing a small jitter bound so
+      cross-zone messages also reorder;
+    - one correlated crash burst inside ``zone_b`` (a quarter of the
+      zone, same tick) — the rack-level analogue of the traffic
+      generator's correlated leave bursts, forcing view changes whose
+      evidence must cross the slow uplink.
+
+    Knob draws come from ``random.Random(seed)`` so campaigns get a
+    family of two-zone instances, but the zone split itself is fixed.
+    The schedule is validated against ``ring_depth`` before it is
+    returned — a delivery ring too shallow for the drawn worst case
+    raises ``DelayBudgetError`` up front, which is how callers size
+    ``Settings.delivery_ring_depth`` for this preset.
+    """
+    if n < 4:
+        raise ValueError(f"two_zone needs n >= 4 (got {n})")
+    rng = random.Random(seed)
+    zone_a = frozenset(range(n // 2))
+    zone_b = frozenset(range(n // 2, n))
+    jitter = 1 if ring_depth >= 3 else 0
+    fwd = rng.randint(2, max(2, ring_depth - 1 - jitter))
+    rev = rng.randint(1, fwd - 1) if fwd > 1 else 0
+    delays = (DelayRule(src_slots=zone_a, dst_slots=zone_b,
+                        delay_ticks=fwd, jitter_ticks=jitter,
+                        reverse_delay_ticks=rev, start_tick=0),)
+    burst_tick = rng.randint(1, max(1, min(fd_interval, ticks - 1)))
+    n_crash = max(1, len(zone_b) // 4)
+    crashes = tuple(sorted(
+        (slot, burst_tick)
+        for slot in rng.sample(sorted(zone_b), n_crash)))
+    schedule = AdversarySchedule(n=n, crashes=crashes, seed=seed,
+                                 delays=delays)
+    validate_schedule(schedule, ring_depth=ring_depth)
+    return schedule
+
+
+#: Named scenario mixes for campaigns. ``"two_zone"`` biases the sampler
+#: toward the slow-asym latency regime with crash pressure — the weights
+#: twin of the concrete ``two_zone_schedule`` instance family (which
+#: differential tests validate directly at N=64).
+SCENARIO_WEIGHT_PRESETS: Dict[str, ScenarioWeights] = {
+    "default": DEFAULT_SCENARIO_WEIGHTS,
+    "two_zone": ScenarioWeights(
+        crash=1.0, partition=0.0, flip_flop=0.0, contested=0.0,
+        churn=0.0, delay=0.0, jitter=0.0, slow_asym=3.0),
+}
+
+
+def scenario_weights_preset(name: str) -> ScenarioWeights:
+    """Look up a named ``ScenarioWeights`` preset; raises with the
+    catalogue on an unknown name."""
+    try:
+        return SCENARIO_WEIGHT_PRESETS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown scenario-weights preset {name!r}; known presets: "
+            f"{sorted(SCENARIO_WEIGHT_PRESETS)}") from None
 
 
 def crash_window_delay_schedule(n: int, seed: int = 11) -> AdversarySchedule:

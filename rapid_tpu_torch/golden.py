@@ -14,7 +14,14 @@ planner's prediction. ``SHARED`` are crash bursts, probe drop with a
 flip-flop window, sustained churn and contested consensus, each in the
 shape ``benchmarks/bench_engine.py`` gives it; ``OPTIONS`` the ring and
 hier variants, the recorder, and churn planned by ``churn.plan_churn``.
-A planned scenario's node ids depend on ``PYTHONHASHSEED``
+``testdata/fleet_pool{0,1,2,3}.json`` (``FLEET_POOLS``) record the
+reference's fleets of the first 256 members of each pool of a campaign
+of ``benchmarks/campaign_4096.json``'s shape (``FLEET_CAMPAIGN``):
+shared crash and churn members, shared contested members, per-receiver
+latency members, per-receiver partition and flip-flop members; each
+member's schedule, events, config ids and log and final digests, the
+shared pools' recorders, and per field a digest over all members
+(``pool_record``). A planned scenario's node ids depend on ``PYTHONHASHSEED``
 (``oracle.cluster.default_rng``): its file records the seed it was made
 under (``PLAN_HASH_SEED``), and a run compared with it must use the same.
 CPU tests regenerate the files from the reference and hold the port's CPU
@@ -392,4 +399,259 @@ def differences(got: dict, want: dict) -> List[str]:
             out.append(f"{key}[{first}]")
         else:
             out.append(key)
+    return out
+
+
+# --- fleets at the campaign's shape --------------------------------------
+
+#: The campaign whose pools the fleet golden files copy: the shape of
+#: ``benchmarks/campaign_4096.json`` (seed 0, N=32, 120 ticks, 16 dormant
+#: slots of churn headroom, the default scenario weights, dispatches of
+#: 256 members), with a 16-row flight recorder on the shared pools.
+FLEET_CAMPAIGN = {"seed": 0, "n": 32, "ticks": 120, "headroom": 16,
+                  "fleet_size": 256, "recorder": 16, "ring_depth": 4}
+
+
+class FleetPool(NamedTuple):
+    """One pool of the campaign, in the reference's pool order: its mode,
+    the capacity its members boot at, the stack shape the file records
+    (shared: windows, fallback instances, pids; per-receiver: windows,
+    delay rules) and its golden file. The file holds its first
+    ``FLEET_CAMPAIGN["fleet_size"]`` members."""
+
+    pool_id: int
+    mode: str
+    capacity: int
+    shape: Tuple[int, ...]
+    kinds: Tuple[str, ...]
+
+    @property
+    def path(self) -> Path:
+        return TESTDATA / f"fleet_pool{self.pool_id}.json"
+
+
+FLEET_POOLS = {p.pool_id: p for p in (
+    FleetPool(0, "shared", 48, (0, 1, 1), ("crash", "churn")),
+    FleetPool(1, "shared", 48, (0, 1, 3), ("contested",)),
+    FleetPool(2, "per_receiver", 32, (0, 1),
+              ("delay", "jitter", "slow_asym")),
+    FleetPool(3, "per_receiver", 32, (1, 0), ("partition", "flip_flop")),
+)}
+
+
+def member_seed(idx: int, seed: int = 0) -> int:
+    """A campaign member's scenario seed (the reference's
+    ``campaign._member_seed``)."""
+    from rapid_tpu_torch import hashing
+
+    return hashing.hash64(idx, seed=seed & hashing.MASK64) & 0x7FFFFFFF
+
+
+def churn_params(seed: int, headroom: int) -> Dict[str, int]:
+    """The campaign's churn draw for a member that wants churn:
+    ``synthetic_churn_schedule``'s ``burst`` and ``start``."""
+    import random
+
+    rng = random.Random(seed ^ 0xC4B0)
+    burst = min(headroom, rng.choice((2, 4, 8)))
+    return {"burst": burst, "start": rng.randint(5, 25)}
+
+
+def schedule_json(schedule) -> dict:
+    """An ``AdversarySchedule`` of either package as JSON values."""
+    rule = lambda r, names: dict(
+        {k: getattr(r, k) for k in names},
+        src=sorted(r.src_slots), dst=sorted(r.dst_slots))
+    return {
+        "n": schedule.n, "seed": schedule.seed,
+        "crashes": [list(c) for c in schedule.crashes],
+        "windows": [rule(w, ("start_tick", "end_tick", "period_ticks",
+                             "two_way")) for w in schedule.windows],
+        "proposes": [[p.slot, p.tick, list(p.proposal), p.delay_ticks]
+                     for p in schedule.proposes],
+        "delays": [rule(r, ("delay_ticks", "jitter_ticks",
+                            "reverse_delay_ticks", "start_tick",
+                            "end_tick")) for r in schedule.delays],
+    }
+
+
+def schedule_from_json(d: dict):
+    """The port's ``AdversarySchedule`` of ``schedule_json``'s form."""
+    from rapid_tpu_torch import faults
+
+    slots = lambda r: dict(src_slots=frozenset(r["src"]),
+                           dst_slots=frozenset(r["dst"]))
+    rest = lambda r: {k: v for k, v in r.items() if k not in ("src", "dst")}
+    return faults.AdversarySchedule(
+        n=d["n"], seed=d["seed"],
+        crashes=tuple(tuple(c) for c in d["crashes"]),
+        windows=tuple(faults.LinkWindow(**slots(w), **rest(w))
+                      for w in d["windows"]),
+        proposes=tuple(faults.ScriptedPropose(s, t, tuple(p), dl)
+                       for s, t, p, dl in d["proposes"]),
+        delays=tuple(faults.DelayRule(**slots(r), **rest(r))
+                     for r in d["delays"]))
+
+
+def pool_settings(pool: FleetPool):
+    """The port's ``Settings`` of a pool's members."""
+    from rapid_tpu_torch.settings import Settings
+
+    if pool.mode == "shared":
+        return Settings(capacity=pool.capacity,
+                        flight_recorder_window=FLEET_CAMPAIGN["recorder"])
+    return Settings(capacity=pool.capacity, rx_kernel="pallas")
+
+
+def lower_pool(pool: FleetPool, members: List[dict], device="cuda"):
+    """The port's stacked fleet of a pool's recorded members (``members``:
+    the file's member entries), lowered as the campaign lowers them and
+    stacked to the pool's shape."""
+    from rapid_tpu_torch.engine import churn, fleet
+
+    settings = pool_settings(pool)
+    n, headroom = FLEET_CAMPAIGN["n"], FLEET_CAMPAIGN["headroom"]
+    lowered = []
+    for m in members:
+        schedule = schedule_from_json(m["schedule"])
+        if pool.mode == "per_receiver":
+            lowered.append(fleet.lower_receiver_schedule(
+                schedule, settings, fleet_size=len(members), device=device))
+            continue
+        sched = id_fps = None
+        if m["churn"] is not None:
+            sched, id_fps, _ = churn.synthetic_churn_schedule(
+                n + headroom, n, settings, **m["churn"])
+        lowered.append(fleet.lower_schedule(schedule, settings, churn=sched,
+                                            id_fps=id_fps, device=device))
+    if pool.mode == "per_receiver":
+        return fleet.stack_receiver_members(
+            lowered, n_windows=pool.shape[0], n_delay_rules=pool.shape[1])
+    return fleet.stack_members(lowered, n_windows=pool.shape[0],
+                               n_instances=pool.shape[1],
+                               n_pids=pool.shape[2])
+
+
+def run_pool(pool: FleetPool, members: List[dict], device="cuda"):
+    """Lower, stack and run a pool's members for the campaign's ticks on
+    ``device``; returns the fleet's outputs (``fleet_simulate`` or
+    ``receiver_fleet_simulate``)."""
+    from rapid_tpu_torch.engine import fleet
+
+    stacked = lower_pool(pool, members, device=device)
+    run = (fleet.fleet_simulate if pool.mode == "shared"
+           else fleet.receiver_fleet_simulate)
+    return run(stacked, FLEET_CAMPAIGN["ticks"], pool_settings(pool),
+               device=device)
+
+
+def _digest(arrays) -> str:
+    h = hashlib.sha256()
+    for arr in arrays:
+        arr = np.ascontiguousarray(arr)
+        h.update(f"{arr.dtype}{arr.shape}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def _slots(mask) -> List[int]:
+    return [int(s) for s in np.nonzero(mask)[0]]
+
+
+def _u64(hi, lo):
+    return (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(lo).astype(np.uint64)
+
+
+def _receiver_events(logs, i: int) -> List[list]:
+    """Member ``i``'s per-receiver events, receivers with one event
+    grouped: ``[tick, kind, config_id, slots, receivers]``."""
+    out = []
+    ticks = np.asarray(logs.tick)[i]
+    for kind, flag, hosts, hi, lo in (
+            ("view_change", logs.decide, logs.dec_hosts, logs.dec_cfg_hi,
+             logs.dec_cfg_lo),
+            ("proposal", logs.announce, logs.ann_prop, logs.ann_cfg_hi,
+             logs.ann_cfg_lo)):
+        flag, hosts = np.asarray(flag)[i], np.asarray(hosts)[i]
+        cfg = _u64(np.asarray(hi)[i], np.asarray(lo)[i])
+        for t in np.nonzero(flag.any(axis=1))[0]:
+            groups: Dict[Tuple, List[int]] = {}
+            for r in np.nonzero(flag[t])[0]:
+                key = (int(cfg[t, r]), tuple(_slots(hosts[t, r])))
+                groups.setdefault(key, []).append(int(r))
+            out += [[int(ticks[t]), kind, c, list(s), rs]
+                    for (c, s), rs in sorted(groups.items())]
+    return sorted(out, key=lambda e: (e[0], e[1] != "view_change"))
+
+
+def pool_record(pool: FleetPool, members: List[dict], logs, finals,
+                recs=None) -> dict:
+    """The JSON-ready record of one pool run: ``members`` (index, seed,
+    kind, schedule, churn), then per member its events, final config ids
+    and one SHA-256 over its log fields and one over its final fields
+    (in field order), and per field one SHA-256 over all members. ``logs``
+    (``[F, T, ...]``), ``finals`` (shared: the final ``EngineState``;
+    per-receiver: ``receiver_final_view``'s fields) and ``recs`` are
+    NamedTuples of numpy arrays in the reference's dtypes, from either
+    package."""
+    from rapid_tpu_torch.engine import diff, recorder
+
+    out_members = []
+    for i, meta in enumerate(members):
+        entry = dict(meta)
+        if pool.mode == "shared":
+            one = type(logs)(*[np.asarray(x)[i] for x in logs])
+            entry["events"] = [list(e.as_dict().values())
+                               for e in diff.engine_events(one)]
+            entry["config_ids"] = [int(_u64(one.config_hi,
+                                            one.config_lo)[-1])]
+        else:
+            entry["events"] = _receiver_events(logs, i)
+            cfg = _u64(finals.cfg_hi, finals.cfg_lo)[i]
+            live = ~np.asarray(finals.stopped)[i]
+            entry["config_ids"] = sorted({int(c) for c in cfg[live]})
+        entry["log_sha256"] = _digest(np.asarray(x)[i] for x in logs)
+        entry["final_sha256"] = _digest(np.asarray(x)[i] for x in finals)
+        if recs is not None:
+            rec = type(recs)(*[np.asarray(x)[i] for x in recs])
+            entry["recorder"] = {"rows": recorder.ring_rows(rec).tolist(),
+                                 "stamps": recorder.stamps(rec)}
+        out_members.append(entry)
+    return {
+        "pool_id": pool.pool_id, "mode": pool.mode,
+        "capacity": pool.capacity, "shape": list(pool.shape),
+        "campaign": dict(FLEET_CAMPAIGN),
+        "members": out_members,
+        "log_field_sha256": {name: _digest([np.asarray(x)])
+                             for name, x in zip(logs._fields, logs)},
+        "final_field_sha256": {name: _digest([np.asarray(x)])
+                               for name, x in zip(finals._fields, finals)},
+    }
+
+
+def fleet_run_record(pool: FleetPool, members: List[dict], out) -> dict:
+    """``pool_record`` of a port run (``run_pool``'s outputs)."""
+    from rapid_tpu_torch.convert import to_numpy
+    from rapid_tpu_torch.engine import receiver
+
+    finals = out[0] if pool.mode == "shared" else \
+        receiver.receiver_final_view(out[0])
+    return pool_record(pool, members, to_numpy(out[1]), to_numpy(finals),
+                       to_numpy(out[2]) if len(out) > 2 else None)
+
+
+def pool_inputs(want: dict, count=None) -> List[dict]:
+    """The inputs of a pool file's first ``count`` members (all when
+    None): index, seed, kind, schedule and churn draw."""
+    keys = ("index", "seed", "kind", "schedule", "churn")
+    return [{k: m[k] for k in keys} for m in want["members"][:count]]
+
+
+def pool_head(want: dict, count: int) -> dict:
+    """A pool file cut to its first ``count`` members: the per-field
+    digests cover all members, so they are dropped."""
+    out = dict(want, members=want["members"][:count])
+    out.pop("log_field_sha256")
+    out.pop("final_field_sha256")
     return out

@@ -6,7 +6,7 @@ its identity (``group_ids``). A fast round decides when at least
 quorum over their members (``hier_count_fast_round``). One exchange
 costs an intra-group vote per voter, ``G_live**2`` verdict messages among
 the live group aggregators and one relayed verdict per target
-(``hier_exchange_messages``). Per-group counts are an ``index_add_``
+(``hier_exchange_messages``). Per-group counts are a ``scatter_add``
 over the slots, where the reference builds a ``[G, C]`` one-hot.
 ``np_hier_decide`` is the numpy host twin of the decide bit, by
 ``bincount``.
@@ -38,9 +38,10 @@ def group_ids(uid_hi, uid_lo, n_groups: int):
 
 def _group_counts(gid, mask, n_groups: int):
     """i32 [G]: the slots of ``mask`` in each group, an int32
-    ``index_add_`` (exact in any order of accumulation)."""
+    ``scatter_add`` (exact in any order of accumulation), out of place
+    so a fleet maps it over its members."""
     return torch.zeros(n_groups, dtype=torch.int32,
-                       device=gid.device).index_add_(
+                       device=gid.device).scatter_add(
         0, gid.long(), mask.to(torch.int32))
 
 

@@ -14,5 +14,6 @@ import torch
 
 def ring_pair_factor(any_mask):
     """i32: the ring's sender factor for one exchange, 2 when any slot of
-    ``any_mask`` sends (one lap up, one down), else 0."""
-    return torch.where(any_mask.any(), 2, 0).to(torch.int32)
+    ``any_mask`` sends (one lap up, one down), else 0; a ``[F, C]`` mask
+    gives one factor per fleet member."""
+    return torch.where(any_mask.any(dim=-1), 2, 0).to(torch.int32)

@@ -152,3 +152,40 @@ def test_receiver_recorder_card_run_equals_cpu_run(card):
         assert fused == (6 * 120 if device == card else 0)
     for got, want in zip(*runs):
         _same(got, want)
+
+
+@pytest.mark.parametrize("phase", [None, 3])
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("c, f", [(13, 3), (32, 256), (48, 256), (1024, 2)])
+def test_deliver_kernel_over_members_matches_plain(card, c, f, planes,
+                                                   phase):
+    rng = np.random.default_rng(c + f + planes)
+    shape = (f, c, c) if planes == 1 else (f, planes, c, c)
+    msgs = torch.from_numpy(rng.random(shape) < 0.4).to(card)
+    pe = pack_bits(torch.from_numpy(rng.random((f, c, c)) < 0.25).to(card))
+    crashed = torch.from_numpy(rng.random((f, c)) < 0.15).to(card)
+    start = torch.from_numpy(rng.integers(-9, 9, (f, 14)).astype(
+        np.int32)).to(card)
+    acc_k, acc_p = start.clone(), start.clone()
+    before = rx_account.deliver_launches
+    got = rx_account.account_into_kernel(msgs, crashed, pe, acc_k, phase)
+    want = rx_account.account_into_plain(msgs, crashed, pe, acc_p, phase)
+    torch.cuda.synchronize()
+    assert rx_account.deliver_launches == before + 1
+    assert torch.equal(got, want) and torch.equal(acc_k, acc_p)
+
+
+@pytest.mark.parametrize("pool_id", [0, 1, 2, 3])
+def test_fleet_card_run_equals_cpu_run(card, pool_id):
+    from rapid_tpu_torch import golden
+
+    pool = golden.FLEET_POOLS[pool_id]
+    members = golden.pool_inputs(golden.load(pool.path), 6)
+    before = rx_account.deliver_launches
+    on_card = golden.run_pool(pool, members, device=card)
+    launches = rx_account.deliver_launches - before
+    on_cpu = golden.run_pool(pool, members, device="cpu")
+    ticks = golden.FLEET_CAMPAIGN["ticks"]
+    assert launches == (6 * ticks if pool.mode == "per_receiver" else 0)
+    for a, b in zip(on_card, on_cpu):
+        _same(a, b)
