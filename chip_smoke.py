@@ -96,7 +96,30 @@ Phases, in order; any failure exits non-zero before the result lines:
     members), 40 ticks, in turns, up then down, each run's logs equal to
     phase 17's for those members and ticks, printing ms per member-tick;
     and member 0 through the one-cluster entry points (``simulate``,
-    ``receiver_simulate``), 120 ticks, equal to its entry.
+    ``receiver_simulate``), 120 ticks, equal to its entry;
+19. the per-receiver carry layouts at the main path's width: phase 4's
+    run under ``Settings()`` (``rx_kernel="xla"``, the dense carry) and
+    under ``"packed"``, in turns with ``"pallas"`` (xla, packed, pallas,
+    pallas, packed, xla), every run equal to phase 4's (logs and final
+    state), ``rx_deliver`` 960 launches and ``rx_account`` none each;
+    prints ms/tick, host reads/tick and peak memory per layout, and
+    kernels per tick over ticks 106-120 under ``torch.profiler``;
+20. phase 5's N=4096 partition under ``"xla"``, in turns with
+    ``"pallas"`` (xla, pallas, pallas, xla), phase 5's checks on each
+    run and the two layouts' runs equal; ms/tick and peak memory each;
+21. dense fleets: pools 2 and 3 of phase 17 lowered under ``"xla"``,
+    F=256, 120 ticks, equal to their golden files for every member,
+    ``rx_deliver`` 720 launches a pool; ms/tick, µs per member-tick,
+    kernels per tick over ticks 1-10 and peak memory beside phase 17's
+    packed runs;
+22. telemetry of the card's logs: the port's folds
+    (``rapid_tpu_torch.telemetry``) of phases 7, 9 and 10, of phase 14's
+    N=1024 recorder run and of phase 17's pools 0 and 2, each equal to
+    ``rapid_tpu_torch/testdata/telemetry_golden.json`` (the reference's
+    folds) and clean under the port's validators, with the host seconds
+    of each fold; and one Perfetto trace of phase 7's logs written into
+    a temporary directory and loaded back (phase slices, the proposal at
+    112 and the view change at 113).
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -108,7 +131,9 @@ reads per tick, peak allocated memory, the decides and the setup seconds
 each (none on the shared engine, which has no kernel); phases 17 and 18
 the same for fleets.
 
-The line before the last is the ``kernels`` JSON line; the last line is
+``rx_deliver``'s entry of the ``kernels`` line carries its launches on
+phase 4's run under each layout (``launches_by_layout``). The line
+before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
 """
@@ -135,6 +160,7 @@ FLEET_PROFILE_TICKS = 10           # phase 17's profiled window
 SCALE_F = (1, 16, 64, 256)         # phase 18's fleet sizes ...
 SCALE_TICKS = 40                   # ... and ticks
 TURN_ROUNDS = 1                # rounds of default, composed, composed, default
+LAYOUTS = ("xla", "packed", "pallas")   # phase 19's carry layouts
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -356,7 +382,7 @@ def same_run(a, b) -> bool:
                for f in a._fields)
 
 
-def phase_main(rx_account, settings, device) -> dict:
+def phase_main(rx_account, settings, device, keep: dict) -> dict:
     from rapid_tpu_torch import tick_time
     from rapid_tpu_torch.engine import receiver
     from rapid_tpu_torch.faults import crash_window_delay_schedule
@@ -427,43 +453,59 @@ def phase_main(rx_account, settings, device) -> dict:
             f"{w['wall_ms_per_tick']:.2f} ms/tick wall, "
             f"{w['device_busy_ms_per_tick']:.3f} ms/tick device-busy")
     zero_counts(rx_account)
+    keep["main"] = (final, logs)
     return {"n": n, "ticks": ticks, "deliver_launches": fused,
             "account_launches": packed,
             "ms_per_tick": ms_tick, "decided": decided, "in_turns": turns,
             "delivery_calls": calls, "profile": windows}
 
 
-def phase_wide(rx_account, settings, device) -> dict:
-    import torch
-    from rapid_tpu_torch.engine import receiver
+def wide_schedule():
+    """Phase 5's schedule: a one-way partition of the first eighth of
+    N=4096 from tick 3."""
     from rapid_tpu_torch.faults import AdversarySchedule, LinkWindow
 
     n = WIDE_N
     cut = n // 8
-    schedule = AdversarySchedule(
+    return AdversarySchedule(
         n=n, windows=(LinkWindow(src_slots=frozenset(range(cut)),
                                  dst_slots=frozenset(range(cut, n)),
                                  start_tick=3),), seed=1)
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts(rx_account)
-    _, final, logs, ms_tick = run(schedule, settings, WIDE_TICKS, device)
-    peak = torch.cuda.max_memory_allocated()
+
+
+def check_wide(rx_account, final, logs) -> None:
+    """Phase 5's checks of one N=4096 run."""
+    from rapid_tpu_torch.engine import receiver
+
     counts = (rx_account.deliver_launches, rx_account.launches)
     if counts != (6 * WIDE_TICKS, 0):
-        raise AssertionError(f"N={n} launched (rx_deliver, rx_account) "
-                             f"{counts}, want {(6 * WIDE_TICKS, 0)}")
+        raise AssertionError(f"N={WIDE_N} launched (rx_deliver, rx_account)"
+                             f" {counts}, want {(6 * WIDE_TICKS, 0)}")
     receiver.check_flags(final.flags)
+    cut = WIDE_N // 8
     edges = logs.partitioned_edges.cpu().numpy()
-    want = np.array([cut * (n - cut) if t >= 3 else 0
+    want = np.array([cut * (WIDE_N - cut) if t >= 3 else 0
                      for t in range(1, WIDE_TICKS + 1)])
     if not np.array_equal(edges, want):
         raise AssertionError(f"partitioned edges {edges} != {want}")
     if len(set(receiver.receiver_config_ids(final))) != 1:
         raise AssertionError("config ids diverged without a decide")
-    log(f"phase 5: N={n} x {WIDE_TICKS} ticks: {ms_tick:.1f} ms/tick, "
-        f"peak {peak / 2**30:.2f} GiB, {counts[0]} rx_deliver launches")
+
+
+def phase_wide(rx_account, settings, device) -> dict:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rx_account)
+    _, final, logs, ms_tick = run(wide_schedule(), settings, WIDE_TICKS,
+                                  device)
+    peak = torch.cuda.max_memory_allocated()
+    launches = rx_account.deliver_launches
+    check_wide(rx_account, final, logs)
+    log(f"phase 5: N={WIDE_N} x {WIDE_TICKS} ticks: {ms_tick:.1f} ms/tick, "
+        f"peak {peak / 2**30:.2f} GiB, {launches} rx_deliver launches")
     return {"ms_per_tick": ms_tick, "peak_bytes": peak,
-            "deliver_launches": counts[0]}
+            "deliver_launches": launches}
 
 
 def kernel_times(rx_account, device) -> dict:
@@ -560,7 +602,7 @@ def check_golden(sc, rec: dict, label: str) -> None:
                              f"{diff_[:8]}")
 
 
-def phase_shared(sc, phase: int, device, rx_account) -> dict:
+def phase_shared(sc, phase: int, device, rx_account, keep=None) -> dict:
     """One golden scenario (a name of ``golden.SCENARIOS`` or a
     ``SharedScenario``) through the shared engine's entry points, with
     both kernels' launch counts zeroed just before the run and read after
@@ -575,6 +617,8 @@ def phase_shared(sc, phase: int, device, rx_account) -> dict:
         raise AssertionError(f"{sc.name} launched a delivery kernel "
                              f"{launches} times")
     logs = out[1]
+    if keep is not None:
+        keep[sc.name] = logs
     rec = golden.shared_run_record(sc.name, *out, plan=boot.plan)
     check_golden(sc, rec, sc.name)
     phases = diff.expand_fallback_counters(logs)
@@ -703,7 +747,7 @@ def phase_monitor(device, rx_account) -> dict:
     return out
 
 
-def receiver_recorder_runs(rx_account, device) -> dict:
+def receiver_recorder_runs(rx_account, device, keep: dict) -> dict:
     """Phase 14's receiver half: the N=1024 main-path run with a 64-row
     recorder, equal to ``rx_n1024_recorder.json`` (counters, events,
     config ids, ring rows and stamps), ``rx_deliver`` 6 times a tick and
@@ -746,7 +790,8 @@ def receiver_recorder_runs(rx_account, device) -> dict:
         receiver.check_flags(got[0].flags)
         if not first:
             rec = golden.run_record(got[0], got[1], n)
-            rec["recorder"] = recorder.recorder_payload(got[2])
+            rec["recorder"] = keep["rx_recorder"] = \
+                recorder.recorder_payload(got[2])
             diff_ = golden.differences(rec, want)
             if diff_:
                 raise AssertionError(f"N={n} recorder run differs from "
@@ -778,7 +823,7 @@ def receiver_recorder_runs(rx_account, device) -> dict:
             "peak_bytes": first["peak_bytes"], "in_turns": times}
 
 
-def phase_recorder(device, rx_account) -> dict:
+def phase_recorder(device, rx_account, keep: dict) -> dict:
     """Phase 14: a 64-row recorder on phase 7's run and on phase 4's
     N=1024 receiver run."""
     from rapid_tpu_torch import golden
@@ -793,7 +838,7 @@ def phase_recorder(device, rx_account) -> dict:
     print_turns(14, "shared_n100k_crash with the recorder",
                 shared["in_turns"])
     return {"shared": shared,
-            "receiver": receiver_recorder_runs(rx_account, device)}
+            "receiver": receiver_recorder_runs(rx_account, device, keep)}
 
 
 PLANNED = ("shared_n100k_planned_churn", "shared_n10k_planned_mixed")
@@ -925,7 +970,7 @@ def phase_fleet_deliver(rx_account, device) -> tuple:
     return worst, times
 
 
-def fleet_run(pool, members, device, ticks=None):
+def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas"):
     """Lower and stack ``members`` of ``pool``, then run them with CUDA
     events around the run and both kernels' launches and the host reads
     counted (zeroed just before): ``(out, stats)``."""
@@ -935,19 +980,22 @@ def fleet_run(pool, members, device, ticks=None):
     from rapid_tpu_torch.engine import fleet, rx_account
 
     start = time.perf_counter()
-    stacked = golden.lower_pool(pool, members, device=device)
+    stacked = golden.lower_pool(pool, members, device=device,
+                                rx_kernel=rx_kernel)
     torch.cuda.synchronize()
     setup = time.perf_counter() - start
     run = (fleet.fleet_simulate if pool.mode == "shared"
            else fleet.receiver_fleet_simulate)
     ticks = ticks or golden.FLEET_CAMPAIGN["ticks"]
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(rx_account)
     reads = device_mod.host_reads
     begin = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     begin.record()
-    out = run(stacked, ticks, golden.pool_settings(pool), device=device)
+    out = run(stacked, ticks, golden.pool_settings(pool, rx_kernel),
+              device=device)
     end.record()
     end.synchronize()
     ms = begin.elapsed_time(end)
@@ -957,19 +1005,21 @@ def fleet_run(pool, members, device, ticks=None):
                  "host_reads_per_tick": (device_mod.host_reads - reads) / ticks,
                  "deliver_launches": rx_account.deliver_launches,
                  "account_launches": rx_account.launches,
-                 "peak_bytes": torch.cuda.max_memory_allocated()}
+                 "peak_bytes": torch.cuda.max_memory_allocated(),
+                 "run_peak_bytes": torch.cuda.max_memory_allocated() - base}
 
 
-def fleet_profile(pool, members, device) -> dict:
+def fleet_profile(pool, members, device, rx_kernel="pallas") -> dict:
     """Kernels, aten ops and host reads per tick of a pool's fleet over
     ``FLEET_PROFILE_TICKS`` ticks from its boot, under ``torch.profiler``."""
     from rapid_tpu_torch import golden, profile
     from rapid_tpu_torch.engine import fleet
 
-    stacked = golden.lower_pool(pool, members, device=device)
+    stacked = golden.lower_pool(pool, members, device=device,
+                                rx_kernel=rx_kernel)
     run = (fleet.fleet_simulate if pool.mode == "shared"
            else fleet.receiver_fleet_simulate)
-    settings = golden.pool_settings(pool)
+    settings = golden.pool_settings(pool, rx_kernel)
     field = "decide_now" if pool.mode == "shared" else "decide"
 
     def window():
@@ -1019,7 +1069,9 @@ def phase_fleet_pools(device) -> dict:
             f"{prof['device_kernels_per_tick']:.1f} kernels/tick and "
             f"{prof['device_busy_ms_per_tick']:.3f} ms/tick device-busy over "
             f"ticks 1-{FLEET_PROFILE_TICKS}, peak "
-            f"{stats['peak_bytes'] / 2**20:.1f} MiB, setup "
+            f"{stats['peak_bytes'] / 2**20:.1f} MiB "
+            f"({stats['run_peak_bytes'] / 2**20:.1f} above the run's "
+            f"start), setup "
             f"{stats['setup_s']:.2f} s, {stats['deliver_launches']} "
             f"rx_deliver launches, {decides} view-change events")
     return out, outputs
@@ -1032,7 +1084,7 @@ def single_member_run(pool, member: dict, device) -> tuple:
     import torch
     from rapid_tpu_torch import golden
     from rapid_tpu_torch.convert import to_numpy
-    from rapid_tpu_torch.engine import fleet, receiver, rx_packed, simulate
+    from rapid_tpu_torch.engine import fleet, receiver, simulate
 
     one = fleet.member_of(golden.lower_pool(pool, [member], device=device),
                           0)
@@ -1048,8 +1100,7 @@ def single_member_run(pool, member: dict, device) -> tuple:
     else:
         dense, logs = receiver.receiver_simulate(one.state, one.faults,
                                                  ticks, settings)
-        final = rx_packed.ReceiverFinalView(*[
-            getattr(dense, f) for f in rx_packed.ReceiverFinalView._fields])
+        final = golden.final_view(dense)
         rec = None
     end.record()
     end.synchronize()
@@ -1101,6 +1152,270 @@ def phase_fleet_scaling(device, full: dict) -> dict:
             f"17's; member 0 alone through the one-cluster path, 120 "
             f"ticks: {single_ms:.3f} ms/tick, equal to its entry")
     return out
+
+
+def layout_run(member, settings, ticks: int, rx_account, want, label):
+    """``receiver_simulate`` of ``member`` under ``settings``, timed by
+    CUDA events with the launches and host reads counted (zeroed just
+    before) and the peak memory above what was allocated before it;
+    equal to ``want`` (final, logs), ``rx_deliver`` 6 launches a tick and
+    ``rx_account`` none. Returns ``(final, logs, stats)``."""
+    import torch
+    from rapid_tpu_torch import device as device_mod
+    from rapid_tpu_torch.engine import receiver
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(rx_account)
+    reads = device_mod.host_reads
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    final, logs = receiver.receiver_simulate(member.state, member.faults,
+                                             ticks, settings)
+    end.record()
+    end.synchronize()
+    stats = {"ms_per_tick": begin.elapsed_time(end) / ticks,
+             "host_reads_per_tick": (device_mod.host_reads - reads) / ticks,
+             "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+             "run_peak_mib": (torch.cuda.max_memory_allocated() - base)
+             / 2**20,
+             "launches": (rx_account.deliver_launches, rx_account.launches)}
+    if stats["launches"] != (6 * ticks, 0):
+        raise AssertionError(f"{label} launched (rx_deliver, rx_account) "
+                             f"{stats['launches']}, want {(6 * ticks, 0)}")
+    receiver.check_flags(final.flags)
+    if want is not None and not (same_run(final, want[0])
+                                 and same_run(logs, want[1])):
+        raise AssertionError(f"{label} differs from the run it is held to")
+    return final, logs, stats
+
+
+def phase_layouts(rx_account, device, keep: dict) -> dict:
+    """Phase 19: phase 4's run under each carry layout, in turns, every
+    run equal to phase 4's; then each layout's kernels per tick over
+    ticks 106-120 under ``torch.profiler``."""
+    from rapid_tpu_torch import profile, tick_time
+    from rapid_tpu_torch.engine import receiver, rx_packed
+    from rapid_tpu_torch.faults import crash_window_delay_schedule
+    from rapid_tpu_torch.settings import Settings
+
+    n, ticks = tick_time.N, tick_time.TICKS
+    schedule = crash_window_delay_schedule(n)
+    settings = {k: Settings(rx_kernel=k) for k in LAYOUTS}
+    members = {k: receiver.lower_receiver_schedule(schedule, settings[k],
+                                                   device=device)
+               for k in LAYOUTS}
+    if not isinstance(members["xla"].state, receiver.ReceiverState):
+        raise AssertionError("Settings() did not lower a dense member")
+    runs = {k: [] for k in LAYOUTS}
+    launches = {}
+    for k in LAYOUTS + LAYOUTS[::-1]:
+        _, _, stats = layout_run(members[k], settings[k], ticks, rx_account,
+                                 keep["main"], f"phase 19 {k}")
+        runs[k].append(stats)
+        launches[k] = stats["launches"][0]
+    zero_counts(rx_account)
+    windows = {}
+    for k in LAYOUTS:
+        state = tick_time.timed(members[k], settings[k],
+                                ticks=tick_time.WINDOW_FROM)[0]
+        if k != "xla":
+            state = rx_packed.bundle_from_dense(state, settings[k])
+        windows[k] = profile.profile_window(
+            lambda k=k, state=state: tick_time.timed(
+                members[k], settings[k], None, state,
+                tick_time.WINDOW_TICKS)[1].decide,
+            tick_time.WINDOW_TICKS, 5, {"layout": k})
+    zero_counts(rx_account)
+    out = {}
+    for k in LAYOUTS:
+        ms = [r["ms_per_tick"] for r in runs[k]]
+        w = windows[k]
+        out[k] = {"ms_per_tick": ms, "mean_ms_per_tick": sum(ms) / len(ms),
+                  "host_reads_per_tick": runs[k][0]["host_reads_per_tick"],
+                  "peak_mib": max(r["peak_mib"] for r in runs[k]),
+                  "run_peak_mib": max(r["run_peak_mib"] for r in runs[k]),
+                  "deliver_launches": launches[k], "window": w}
+        o = out[k]
+        log(f"phase 19: N={n} x {ticks} ticks under rx_kernel={k!r} equals "
+            f"phase 4's run: ms/tick in run order "
+            f"{[round(t, 3) for t in ms]} (mean "
+            f"{o['mean_ms_per_tick']:.3f}), "
+            f"{o['host_reads_per_tick']:.3f} host reads/tick, peak "
+            f"{o['peak_mib']:.1f} MiB ({o['run_peak_mib']:.1f} above "
+            f"the run's start), {launches[k]} rx_deliver launches, 0 "
+            f"rx_account; ticks 106-120 under torch.profiler: "
+            f"{w['device_kernels_per_tick']:.1f} kernels/tick, "
+            f"{w['aten_ops_per_tick']:.1f} aten ops/tick, "
+            f"{w['device_busy_ms_per_tick']:.3f} ms/tick device-busy")
+    return out
+
+
+def phase_wide_dense(rx_account, device) -> dict:
+    """Phase 20: phase 5's N=4096 partition under "xla", in turns with
+    "pallas" (xla, pallas, pallas, xla), phase 5's checks on every run
+    and every run equal to the first."""
+    from rapid_tpu_torch.engine import fleet, receiver
+    from rapid_tpu_torch.settings import Settings
+
+    schedule = wide_schedule()
+    first = None
+    out = {"xla": [], "pallas": []}
+    for k in ("xla", "pallas", "pallas", "xla"):
+        settings = Settings(rx_kernel=k)
+        member = receiver.lower_receiver_schedule(schedule, settings,
+                                                  device=device)
+        final, logs, stats = layout_run(member, settings, WIDE_TICKS,
+                                        rx_account, first, f"phase 20 {k}")
+        check_wide(rx_account, final, logs)
+        if first is None:
+            first = (final, logs)
+        out[k].append(stats)
+        del member
+    del first
+    fleet.clear_boot_caches()       # the N=4096 boots of both layouts
+    zero_counts(rx_account)
+    for k, runs in out.items():
+        ms = [round(r["ms_per_tick"], 2) for r in runs]
+        log(f"phase 20: N={WIDE_N} x {WIDE_TICKS} ticks under "
+            f"rx_kernel={k!r}: ms/tick {ms}, "
+            f"peak {max(r['peak_mib'] for r in runs) / 1024:.2f} GiB "
+            f"({max(r['run_peak_mib'] for r in runs) / 1024:.2f} above the "
+            f"run's start), every run equal to the first")
+    return {k: {"ms_per_tick": [r["ms_per_tick"] for r in runs],
+                "peak_mib": max(r["peak_mib"] for r in runs),
+                "run_peak_mib": max(r["run_peak_mib"] for r in runs)}
+            for k, runs in out.items()}
+
+
+def phase_dense_fleets(device, packed: dict) -> dict:
+    """Phase 21: pools 2 and 3 lowered on the dense carry, F=256, equal to
+    their golden files, beside phase 17's packed runs (``packed``)."""
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine.state import ReceiverState
+
+    out = {}
+    for pool_id in (2, 3):
+        pool = golden.FLEET_POOLS[pool_id]
+        want = golden.load(pool.path)
+        members = golden.pool_inputs(want)
+        res, stats = fleet_run(pool, members, device, rx_kernel="xla")
+        if not isinstance(res[0], ReceiverState):
+            raise AssertionError(f"pool {pool_id}: the finals are not "
+                                 f"dense")
+        want_launches = 6 * stats["ticks"]
+        if (stats["deliver_launches"], stats["account_launches"]) != \
+                (want_launches, 0):
+            raise AssertionError(
+                f"pool {pool_id} (xla) launched (rx_deliver, rx_account) "
+                f"{(stats['deliver_launches'], stats['account_launches'])}")
+        diff_ = golden.differences(golden.fleet_run_record(pool, members,
+                                                           res), want)
+        if diff_:
+            raise AssertionError(f"pool {pool_id} (xla) differs from its "
+                                 f"golden file in {diff_[:8]}")
+        del res
+        prof = fleet_profile(pool, members, device, rx_kernel="xla")
+        stats["profile"] = prof
+        out[pool_id] = stats
+        p = packed[pool_id]
+        log(f"phase 21: pool {pool_id} under rx_kernel='xla' F={stats['f']} "
+            f"x {stats['ticks']} ticks equals its golden file: "
+            f"{stats['ms_per_tick']:.3f} ms/tick "
+            f"({stats['ms_per_member_tick'] * 1e3:.2f} us/member-tick; "
+            f"phase 17 packed {p['ms_per_tick']:.3f}, "
+            f"{p['ms_per_member_tick'] * 1e3:.2f}), "
+            f"{prof['device_kernels_per_tick']:.1f} kernels/tick over ticks "
+            f"1-{FLEET_PROFILE_TICKS} (packed "
+            f"{p['profile']['device_kernels_per_tick']:.1f}), peak "
+            f"{stats['run_peak_bytes'] / 2**20:.1f} MiB above the run's "
+            f"start (packed {p['run_peak_bytes'] / 2**20:.1f}; "
+            f"{stats['peak_bytes'] / 2**20:.1f} and "
+            f"{p['peak_bytes'] / 2**20:.1f} in all), "
+            f"{stats['host_reads_per_tick']:.3f} host reads/tick, "
+            f"{stats['deliver_launches']} rx_deliver "
+            f"launches")
+    return out
+
+
+def phase_telemetry(keep: dict, pool_outputs: dict) -> dict:
+    """Phase 22: the port's telemetry folds of the card's logs equal the
+    reference's folds in ``telemetry_golden.json`` and pass the port's
+    validators; one Perfetto trace of phase 7's logs loads back."""
+    import tempfile
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry import trace
+
+    want = golden.load(golden.TELEMETRY_PATH)["entries"]
+    folds = golden.port_folds()
+    seconds = {}
+
+    def held(name, fold):
+        start = time.perf_counter()
+        got = fold()
+        seconds[name] = time.perf_counter() - start
+        got = json.loads(golden.dumps(got))
+        diff_ = golden.differences(got, want[name])
+        if diff_:
+            raise AssertionError(f"phase 22: {name} folds differ from the "
+                                 f"reference's in {diff_[:8]}")
+        if got["errors"]:
+            raise AssertionError(f"phase 22: {name}: {got['errors'][:4]}")
+        return got
+
+    for name in golden.TELEMETRY_SHARED:
+        held(name, lambda name=name: golden.shared_telemetry(folds,
+                                                             keep[name]))
+    held("rx_n1024_recorder",
+         lambda: golden.recorder_telemetry(folds, keep["rx_recorder"]))
+    for pool_id in golden.TELEMETRY_POOLS:
+        pool = golden.FLEET_POOLS[pool_id]
+        members = golden.pool_inputs(golden.load(pool.path))
+        res = pool_outputs[pool_id]
+        finals = (None if pool.mode == "shared"
+                  else golden.final_view(res[0]))
+        held(f"fleet_pool{pool_id}", lambda: golden.pool_telemetry(
+            folds, pool, members, res[1], finals))
+    log(f"phase 22: the port's folds of phases 7, 9, 10, 14 (N=1024 "
+        f"recorder) and 17 (pools 0, 2) equal telemetry_golden.json and "
+        f"pass the port's validators; host seconds per fold "
+        f"{ {k: round(v, 4) for k, v in seconds.items()} }")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        start = time.perf_counter()
+        writer = trace.TraceWriter()
+        with trace.wall_span(writer, "fold", {"phase": 22}):
+            trace.trace_from_logs(keep["shared_n100k_crash"], Settings(),
+                                  writer=writer)
+        writer.write(path)
+        seconds["trace"] = time.perf_counter() - start
+        with open(path, "rb") as fh:
+            raw = fh.read()
+    events = json.loads(raw)["traceEvents"]
+    slices = {e["name"] for e in events
+              if e["ph"] == "B" and e["pid"] == trace.VIRTUAL_PID}
+    instants = {(e["name"], e["args"]["tick"]) for e in events
+                if e["ph"] == "i"}
+    ends = sum(e["ph"] == "E" for e in events)
+    begins = sum(e["ph"] == "B" for e in events)
+    if not raw.endswith(b"\n") or begins != ends or \
+            not {"decide", "deliver", "flush", "monitor",
+                 "proposal 0"} <= slices or \
+            not {("proposal", 112), ("view_change", 113)} <= instants or \
+            [e["ts"] for e in events] != sorted(e["ts"] for e in events):
+        raise AssertionError(f"phase 22: the trace of phase 7 is malformed "
+                             f"({begins} B, {ends} E, {sorted(slices)})")
+    log(f"phase 22: Perfetto trace of phase 7's logs: {len(raw)} bytes, "
+        f"{len(events)} events, {begins} slices, phase slices "
+        f"{sorted(slices)}, proposal at 112 and view change at 113; "
+        f"written and loaded in {seconds['trace']:.3f} s")
+    return {"fold_seconds": seconds, "trace_bytes": len(raw),
+            "trace_events": len(events)}
 
 
 def planned_child() -> dict:
@@ -1159,14 +1474,15 @@ def main() -> int:
     phase_build(rx_account)
     err_deliver = phase_parity_deliver(rx_account, device)
     err_account = phase_parity(rx_account, device)
+    keep = {}
     phase_golden(settings, device)
-    main_run = phase_main(rx_account, settings, device)
+    main_run = phase_main(rx_account, settings, device, keep)
     wide = phase_wide(rx_account, settings, device)
     times = kernel_times(rx_account, device)
     shared = {"n1000": phase_shared("shared_n1000_crash", 6, device,
                                     rx_account)}
     shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device,
-                                         rx_account)
+                                         rx_account, keep)
     if shared["n100k_crash"]["decides"] != [(113, 1000)] or \
             shared["n100k_crash"]["n_member"] != 99_000:
         raise AssertionError("the N=100,000 burst did not decide at tick "
@@ -1174,12 +1490,12 @@ def main() -> int:
     shared["n100k_drop_flipflop"] = phase_shared(
         "shared_n100k_drop_flipflop", 8, device, rx_account)
     churn = shared["n100k_churn"] = phase_shared(
-        "shared_n100k_churn", 9, device, rx_account)
+        "shared_n100k_churn", 9, device, rx_account, keep)
     if len(churn["decides"]) != 24 or churn["n_member"] != 100_000:
         raise AssertionError("the churn run did not decide 24 bursts "
                              "leaving 100,000 members")
     contested = shared["n100k_contested"] = phase_shared(
-        "shared_n100k_contested", 10, device, rx_account)
+        "shared_n100k_contested", 10, device, rx_account, keep)
     if len(contested["classic_decides"]) != 8 or \
             len(contested["decides"]) != 8 or \
             contested["classic_decides"][0] != 19 or \
@@ -1194,7 +1510,7 @@ def main() -> int:
                                  f"burst at tick 113")
         print_factors(phase, variant, run, shared["n100k_crash"])
     shared["monitor"] = phase_monitor(device, rx_account)
-    shared["recorder"] = phase_recorder(device, rx_account)
+    shared["recorder"] = phase_recorder(device, rx_account, keep)
     planned = shared["planned"] = planned_child()
     want = {"shared_n100k_planned_churn": ([[16, 16], [29, 16], [46, 16],
                                             [59, 16]], 100_000),
@@ -1210,7 +1526,13 @@ def main() -> int:
     err_fleet, fleet_times = phase_fleet_deliver(rx_account, device)
     fleet_pools, pool_outputs = phase_fleet_pools(device)
     scaling = phase_fleet_scaling(device, pool_outputs)
-    del pool_outputs
+    for pool_id in (1, 3):
+        del pool_outputs[pool_id]
+    layouts = phase_layouts(rx_account, device, keep)
+    wide_dense = phase_wide_dense(rx_account, device)
+    dense_fleets = phase_dense_fleets(device, fleet_pools)
+    telemetry = phase_telemetry(keep, pool_outputs)
+    del pool_outputs, keep
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -1231,6 +1553,10 @@ def main() -> int:
                      "c4096": wide_t["composed"]},
         "fleet_launches": {f"pool{pid}": run["deliver_launches"]
                            for pid, run in fleet_pools.items()},
+        "launches_by_layout": {k: v["deliver_launches"]
+                               for k, v in layouts.items()},
+        "dense_fleet_launches": {f"pool{pid}": run["deliver_launches"]
+                                 for pid, run in dense_fleets.items()},
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -1251,7 +1577,9 @@ def main() -> int:
                     "wide": {"n": WIDE_N, "ticks": WIDE_TICKS, **wide},
                     "shared": shared, "fleet_pools": fleet_pools,
                     "fleet_scaling": scaling,
-                    "fleet_deliver": fleet_times, "card": card}))
+                    "fleet_deliver": fleet_times, "layouts": layouts,
+                    "wide_dense": wide_dense, "dense_fleets": dense_fleets,
+                    "telemetry": telemetry, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

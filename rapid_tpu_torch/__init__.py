@@ -3,8 +3,9 @@
 The engine runs the Rapid membership protocol (K-ring monitoring,
 multi-node cut detection, Fast Paxos with the classic fallback) for every
 simulated slot at once, each slot with its own view, exact under link
-partitions and link delays. The port keeps the reference's packed scan
-carry and replaces its TPU delivery kernel with a CUDA kernel for Hopper
+partitions and link delays. The port carries the reference's dense or
+packed receiver state between ticks (``Settings.rx_kernel``) and replaces
+its TPU delivery kernel with a CUDA kernel for Hopper
 (``engine/csrc/rx_deliver.cu``; the packed kernel ``rx_account.cu`` is
 kept as its yardstick).
 
@@ -15,13 +16,16 @@ without a card the default raises. The user-facing pair is::
     final, logs = engine.receiver.receiver_simulate(
         member.state, member.faults, n_ticks, settings)
 
-with ``settings.rx_kernel == "pallas"``. The shared-state engine
+under any ``settings.rx_kernel`` ("xla", the default, is the dense
+carry). The shared-state engine
 (``engine.init_state`` then ``engine.simulate``) runs one view for every
 receiver, with churn (``engine.plan_churn`` schedules it from the join
 protocol, against the host mirrors in ``oracle``), the classic-Paxos
 fallback, the ring and hier variants (``variants``), the invariant
-monitor and the flight recorder. This package imports ``torch``, ``numpy``
-and the standard library only.
+monitor and the flight recorder. ``telemetry`` folds either engine's
+logs into the reference's summaries, lineage spans, SLO windows and
+Perfetto traces. This package imports ``torch``, ``numpy`` and the
+standard library only.
 """
 from rapid_tpu_torch.settings import Settings
 

@@ -24,8 +24,9 @@ instances (negative ``inst_epoch``) and pids (all-False rows) to the
 fleet's maxima, or to a campaign's larger ones, and stacks every leaf.
 
 Per-receiver members (``lower_receiver_schedule``,
-``stack_receiver_members``) carry the packed receiver state and their
-link windows and delay rules; ``check_receiver_budget`` refuses a
+``stack_receiver_members``) carry the receiver state in the layout that
+``Settings.rx_kernel`` names (dense under "xla", packed otherwise) and
+their link windows and delay rules; ``check_receiver_budget`` refuses a
 capacity above ``Settings.receiver_capacity_cap`` with a
 ``ReceiverBudgetError`` before anything is allocated.
 
@@ -68,8 +69,9 @@ class FleetMember(NamedTuple):
 
 
 class ReceiverMember(NamedTuple):
-    """One per-receiver cluster: its packed state
-    (``rx_packed.PackedReceiverBundle``) and its faults."""
+    """One per-receiver cluster: its state (a dense ``ReceiverState``
+    under ``rx_kernel="xla"``, an ``rx_packed.PackedReceiverBundle``
+    otherwise) and its faults."""
 
     state: object
     faults: EngineFaults
@@ -80,8 +82,9 @@ class ReceiverMember(NamedTuple):
 #: differ only in their dormant-slot identifier fingerprints.
 _BOOT_CACHE: Dict[Tuple, EngineState] = {}
 
-#: Packed per-receiver boots, keyed by ``(n, id_fp_sum, settings,
-#: device)``: only the delay table depends on the schedule's seed.
+#: Per-receiver boots (dense under "xla", packed otherwise), keyed by
+#: ``(n, id_fp_sum, settings, device)``: only the delay table depends
+#: on the schedule's seed.
 _RX_BOOT_CACHE: Dict[Tuple, object] = {}
 
 
@@ -473,13 +476,15 @@ def lower_receiver_schedule(schedule: AdversarySchedule, settings: Settings,
                             fleet_size: int = 1,
                             device="cuda") -> ReceiverMember:
     """Compile one link-fault schedule into a booted member on
-    ``device``: a ``PackedReceiverBundle`` plus its ``EngineFaults``.
-    Scripted proposes are refused; delay rules are budget-checked against
+    ``device``: its state in the layout ``settings.rx_kernel`` names (a
+    dense ``ReceiverState`` under "xla", a ``PackedReceiverBundle``
+    otherwise) plus its ``EngineFaults``. Scripted proposes are refused;
+    delay rules are budget-checked against
     ``settings.delivery_ring_depth``; ``check_receiver_budget`` runs for
     a fleet of ``fleet_size`` before anything is allocated."""
     from rapid_tpu_torch.engine import receiver, rx_packed
 
-    receiver._require_pallas(settings)
+    dense = settings.rx_kernel == "xla"
     dev = resolve_device(device)
     if schedule.proposes:
         raise ValueError("per-receiver members do not support scripted "
@@ -497,23 +502,27 @@ def lower_receiver_schedule(schedule: AdversarySchedule, settings: Settings,
     elif id_fp_sum is None:
         id_fp_sum = 0
     if default_universe:
-        # Only the delay table depends on the seed; the packed carry is
-        # booted once per shape.
+        # Only the delay table depends on the seed; the carry is booted
+        # once per shape (the packed carry leaves the table out, the
+        # dense one takes the member's in its place).
         key = (n, id_fp_sum, eff, dev)
-        packed = _RX_BOOT_CACHE.get(key)
-        if packed is None:
-            dense = receiver.init_receiver_state(uids, id_fp_sum, eff,
-                                                 seed=0, device=dev)
-            packed = _RX_BOOT_CACHE[key] = rx_packed.pack_receiver_state(
-                dense, eff)
+        boot = _RX_BOOT_CACHE.get(key)
+        if boot is None:
+            boot = receiver.init_receiver_state(uids, id_fp_sum, eff,
+                                                seed=0, device=dev)
+            if not dense:
+                boot = rx_packed.pack_receiver_state(boot, eff)
+            _RX_BOOT_CACHE[key] = boot
         table = torch.from_numpy(paxos.build_delay_table(
             schedule.seed, c, receiver.N_DRAWS, eff)).to(dev)
-        state = rx_packed.PackedReceiverBundle(packed=packed,
-                                               delay_table=table)
+        state = (boot._replace(delay_table=table) if dense else
+                 rx_packed.PackedReceiverBundle(packed=boot,
+                                                delay_table=table))
     else:
-        dense = receiver.init_receiver_state(uids, id_fp_sum, eff,
+        state = receiver.init_receiver_state(uids, id_fp_sum, eff,
                                              seed=schedule.seed, device=dev)
-        state = rx_packed.bundle_from_dense(dense, eff)
+        if not dense:
+            state = rx_packed.bundle_from_dense(state, eff)
     crash = np.full(c, I32_MAX, np.int64)
     crash[:n] = schedule.crash_tick_array()
     faults = link_faults(crash.tolist(), schedule.windows, c,
@@ -529,12 +538,19 @@ def stack_receiver_members(members: Sequence[ReceiverMember], *,
     """Stack per-receiver members on a new leading fleet axis, as
     ``stack_members`` does: one capacity, window rows and delay rules
     padded with inert rows to the fleet's maxima or the larger
-    ``n_windows``/``n_delay_rules``. Every plane becomes ``[F, ...]``."""
+    ``n_windows``/``n_delay_rules``. Every plane becomes ``[F, ...]``;
+    the members share one layout, dense or packed."""
     if not members:
         raise ValueError("empty fleet")
-    c0 = int(members[0].state.packed.member.shape[0])
+    layouts = {type(m.state) for m in members}
+    if len(layouts) != 1:
+        raise ValueError("fleet members must share one carry layout")
+    # The slot axis is first on every plane of either layout.
+    capacity = lambda m: int(getattr(m.state, "packed", m.state)
+                             .member.shape[0])
+    c0 = capacity(members[0])
     for m in members:
-        if int(m.state.packed.member.shape[0]) != c0:
+        if capacity(m) != c0:
             raise ValueError("fleet members must share one capacity")
     w = _resolve_max(n_windows, max(m.faults.n_windows for m in members),
                      "n_windows")
@@ -550,8 +566,8 @@ def receiver_fleet_simulate(fleet: ReceiverMember, n_ticks: int,
                             settings: Settings, fleet_mesh=None,
                             device="cuda") -> tuple:
     """Run a stacked per-receiver fleet ``n_ticks`` ticks on ``device``:
-    ``(finals, logs)`` with the member axis first, the finals packed
-    (``receiver.receiver_final_view`` unpacks what the host reads), and
+    ``(finals, logs)`` with the member axis first, the finals in the
+    carry's layout (``receiver.receiver_final_view`` reads either), and
     with ``settings.flight_recorder_window > 0`` ``(finals, logs,
     recorders)``."""
     from rapid_tpu_torch.engine import receiver

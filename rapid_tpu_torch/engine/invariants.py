@@ -32,7 +32,8 @@ import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.engine.paxos import rank_lt
-from rapid_tpu_torch.forensics import DivergenceError, DivergenceReport
+from rapid_tpu_torch.telemetry.forensics import (
+    DivergenceError, DivergenceReport)
 
 #: Violation bits, in bit order.
 INVARIANT_BITS = (

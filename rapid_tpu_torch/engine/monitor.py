@@ -48,6 +48,26 @@ def link_blocked(faults: EngineFaults, src_idx, dst_idx, tick: int):
     return blocked
 
 
+def link_blocked_matrix(faults: EngineFaults, tick: int):
+    """bool [C, C]: the directed edge drop matrix at delivery tick
+    ``tick`` (a self-edge blocks where a slot is in a window's src and
+    dst sets); all False without windows. The reference's dense plane;
+    the port's deliveries read ``link_blocked_packed``, its bit-planes."""
+    c = faults.crash_tick.shape[0]
+    blocked = torch.zeros((c, c), dtype=torch.bool,
+                          device=faults.crash_tick.device)
+    if faults.n_windows == 0:
+        return blocked
+    active = link_window_active(faults, tick)
+    for w in range(faults.n_windows):
+        src_w, dst_w = faults.link_src[w], faults.link_dst[w]
+        hit = src_w[:, None] & dst_w[None, :]
+        hit = hit | (faults.link_two_way[w] & dst_w[:, None]
+                     & src_w[None, :])
+        blocked = blocked | (active[w] & hit)
+    return blocked
+
+
 def link_blocked_packed(faults: EngineFaults, tick: int):
     """uint8 [C, ceil(C/8)]: the blocked-edge plane as little-endian bit
     planes along the dst axis, built per window from the [C] slot masks;

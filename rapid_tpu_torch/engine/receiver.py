@@ -1,7 +1,13 @@
 """Per-receiver tick engine: exact link faults, every slot with its own view.
 
-The port of the reference's per-receiver engine on its packed carry with
-the hand-written delivery kernel (``Settings.rx_kernel = "pallas"``).
+The port of the reference's per-receiver engine under all three
+``Settings.rx_kernel`` values, which here choose the carry between ticks
+and nothing else: "xla" (the default) carries the dense
+``ReceiverState``, "packed" and "pallas" the packed carry of
+``rx_packed`` (and run the same code). Every layout delivers through the
+hand-written kernel (``rx_account.account_into``) on the card and its
+plain version on the CPU; the reference's dense ``_account`` and its
+Pallas kernel are bit-identical, so one delivery serves all three.
 Each slot carries its own membership view, cut detector and Fast Paxos
 instance, and the wire is explicit: a delivery ring ``D`` slots deep
 (``Settings.delivery_ring_depth``), indexed by arrival tick mod D, with
@@ -17,7 +23,8 @@ reductions over that order. Races deeper than the engine tracks set
 sticky ``flags`` bits instead of diverging silently (``check_flags``).
 
 Where the reference lowers to one XLA program, the port runs eagerly:
-the tick loop is a host loop (``rx_packed.simulate``), the tick is a host
+the tick loop is a host loop (``receiver_simulate`` over the dense carry,
+``rx_packed.simulate`` over the packed one), the tick is a host
 int, and the data-dependent branch (the topology rebuild after decides)
 reads a 0-d tensor on the host; the cut fixpoint takes one masked pass
 (``cut._invalidate``). Work that
@@ -109,14 +116,6 @@ def check_flags(flags) -> None:
         raise ReceiverEnvelopeError(
             "per-receiver run left the exactness envelope: "
             + ", ".join(names))
-
-
-def _require_pallas(settings: Settings) -> None:
-    if settings.rx_kernel != "pallas":
-        raise NotImplementedError(
-            f"rx_kernel={settings.rx_kernel!r}: the port runs the packed "
-            f"carry with the delivery kernel (rx_kernel='pallas') only; the "
-            f"dense 'xla' and 'packed' receiver paths are a later slice")
 
 
 def _cfg_eq(a_hi, a_lo, b_hi, b_lo):
@@ -345,7 +344,6 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     """One tick of the per-receiver engine (module docstring: group order
     and its equivalence to the oracle's send order). ``tick`` is
     ``rs.tick`` as a host int, read from the state when omitted."""
-    _require_pallas(settings)
     t = (int(rs.tick) if tick is None else int(tick)) + 1
     crashed, planes, acc = _deliver_all(rs, faults, t, settings)
     return _tick(rs, faults, settings, t, crashed, planes, acc, False)
@@ -357,7 +355,6 @@ def fleet_step(rs: ReceiverState, faults: EngineFaults, settings: Settings,
     six deliveries launch once each for all members, the groups run per
     member as one batched call (``member_map``) with every row masked,
     and ``tick`` is the members' common ``rs.tick``."""
-    _require_pallas(settings)
     t = int(tick) + 1
     crashed, planes, acc = _deliver_all(rs, faults, t, settings)
     return member_map(
@@ -934,18 +931,59 @@ def init_receiver_state(uids: Sequence[int], id_fp_sum: int,
     )
 
 
+def _require_layout(state, settings: Settings, fleet: bool = False) -> None:
+    """The carry must be in the layout ``settings.rx_kernel`` names: a
+    dense ``ReceiverState`` under "xla", a packed bundle under "packed"
+    and "pallas" (where one cluster may pass its dense boot, which the
+    packed loop packs on entry, as the reference's does). Nothing else is
+    packed or unpacked to make a mismatch fit."""
+    from rapid_tpu_torch.engine import rx_packed
+
+    dense = settings.rx_kernel == "xla"
+    if not (dense or fleet):
+        return
+    want = ReceiverState if dense else rx_packed.PackedReceiverBundle
+    if not isinstance(state, want):
+        raise TypeError(
+            f"rx_kernel={settings.rx_kernel!r} runs the "
+            f"{'dense' if dense else 'packed'} carry: got a "
+            f"{type(state).__name__}, want a {want.__name__} (lower the "
+            f"members under the same Settings)")
+
+
+def _dense_loop(rs: ReceiverState, faults: EngineFaults, n_ticks: int,
+                settings: Settings):
+    """The tick loop over the dense carry: ``receiver_step`` on it
+    directly, with no pack or unpack between ticks."""
+    from rapid_tpu_torch.engine import rx_packed
+
+    t0 = int(rs.tick)
+    logs = []
+    for i in range(int(n_ticks)):
+        rs, log = receiver_step(rs, faults, settings, tick=t0 + i)
+        logs.append(log)
+    return rs, rx_packed.stack_logs(logs)
+
+
 def receiver_simulate(state, faults: EngineFaults, n_ticks: int,
                       settings: Settings):
-    """Run ``n_ticks`` ticks over the packed carry; returns
-    ``(final_dense_state, stacked_logs)``, and with
-    ``settings.flight_recorder_window > 0`` ``(final_dense_state,
-    stacked_logs, recorder)``. ``state`` is a booted dense
-    ``ReceiverState`` or an ``rx_packed.PackedReceiverBundle`` on the
-    device the run should use."""
+    """Run ``n_ticks`` ticks; returns ``(final_dense_state,
+    stacked_logs)``, and with ``settings.flight_recorder_window > 0``
+    ``(final_dense_state, stacked_logs, recorder)``. Under
+    ``rx_kernel="xla"`` ``state`` is a dense ``ReceiverState`` and the
+    loop carries it as it is (the reference's ``_simulate``); under
+    "packed" and "pallas" it is an ``rx_packed.PackedReceiverBundle`` (or
+    a dense boot, packed on entry) and the loop carries the packed layout
+    (``rx_packed.simulate``). The state lies on the device the run
+    should use; the results are the same under every layout, but for
+    the packed layouts' saturation flags."""
     from rapid_tpu_torch.engine import recorder, rx_packed
 
-    _require_pallas(settings)
-    final, logs = rx_packed.simulate(state, faults, n_ticks, settings)
+    _require_layout(state, settings)
+    if settings.rx_kernel == "xla":
+        final, logs = _dense_loop(state, faults, n_ticks, settings)
+    else:
+        final, logs = rx_packed.simulate(state, faults, n_ticks, settings)
     if settings.flight_recorder_window:
         rec = recorder.record_receiver_run(
             recorder.init(settings, device=logs.tick.device), logs,
@@ -954,18 +992,21 @@ def receiver_simulate(state, faults: EngineFaults, n_ticks: int,
     return final, logs
 
 
-def receiver_fleet_simulate(bundle, faults: EngineFaults, n_ticks: int,
-                            settings: Settings):
-    """Run a stacked per-receiver fleet (``rx_packed.PackedReceiverBundle``
-    and ``EngineFaults`` with the member axis first) ``n_ticks`` ticks:
-    ``(finals, logs)``, the finals packed (``receiver_final_view``), the
+def receiver_fleet_simulate(fleet_state, faults: EngineFaults,
+                            n_ticks: int, settings: Settings):
+    """Run a stacked per-receiver fleet (states and ``EngineFaults`` with
+    the member axis first) ``n_ticks`` ticks: ``(finals, logs)``, the
     logs ``[F, T, ...]``, and with ``settings.flight_recorder_window > 0``
-    ``(finals, logs, recorders)``."""
+    ``(finals, logs, recorders)``. Under ``rx_kernel="xla"`` the fleet is
+    a stacked dense ``ReceiverState`` and the finals come back dense;
+    under "packed" and "pallas" a stacked ``PackedReceiverBundle`` and
+    the finals come back packed (``receiver_final_view`` reads either)."""
     from rapid_tpu_torch.engine import recorder, rx_packed
 
-    _require_pallas(settings)
-    finals, logs = rx_packed.fleet_simulate(bundle, faults, n_ticks,
-                                            settings)
+    _require_layout(fleet_state, settings, fleet=True)
+    run = (rx_packed.dense_fleet_simulate if settings.rx_kernel == "xla"
+           else rx_packed.fleet_simulate)
+    finals, logs = run(fleet_state, faults, n_ticks, settings)
     if settings.flight_recorder_window:
         return finals, logs, recorder.record_fleet_run(
             logs, settings, recorder.record_receiver_run)

@@ -20,7 +20,13 @@ planes. Between ticks the port carries :class:`PackedReceiverState`:
 and ``simulate`` runs the dense ``receiver_step`` between unpack and pack,
 so results are those of the dense step. ``fleet_simulate`` does the same
 for a stacked fleet and keeps its finals packed (``final_view`` unpacks
-what the host reads).
+what the host reads); ``dense_fleet_simulate`` is its twin on the dense
+carry (``rx_kernel="xla"``), with no unpack or repack.
+
+This carry serves ``rx_kernel`` "packed" and "pallas" alike. In the
+reference the two differ in the delivery ("packed" runs the dense
+``_account``, "pallas" the Pallas kernel, bit-identical to it); the port
+has one delivery for every layout, so the two run the same code.
 """
 from __future__ import annotations
 
@@ -226,6 +232,26 @@ def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings):
         ps = member_map(lambda r: pack_receiver_state(r, settings), nxt)
         logs.append(log)
     return ps, ReceiverStepLog(*[torch.stack(col, dim=1)
+                                 for col in zip(*logs)])
+
+
+def dense_fleet_simulate(rs, faults, n_ticks: int, settings: Settings):
+    """The tick loop of a stacked fleet on the dense carry (member axis
+    first on every leaf): ``receiver.fleet_step`` on the stacked
+    ``ReceiverState`` once per tick. Returns the dense finals and the
+    logs, member-major ``[F, T, ...]``."""
+    from rapid_tpu_torch.device import read_arrays
+    from rapid_tpu_torch.engine import receiver as receiver_mod
+
+    ticks = read_arrays(rs.tick)[0]
+    if len(set(ticks.tolist())) != 1:
+        raise ValueError("fleet members must start at one tick")
+    t0 = int(ticks[0])
+    logs = []
+    for i in range(int(n_ticks)):
+        rs, log = receiver_mod.fleet_step(rs, faults, settings, t0 + i)
+        logs.append(log)
+    return rs, ReceiverStepLog(*[torch.stack(col, dim=1)
                                  for col in zip(*logs)])
 
 

@@ -57,7 +57,7 @@ variant. With
 ``invariant_checks`` every tick packs ``invariants.check_step`` into
 ``inv_bits`` (else the constant 0); with ``flight_recorder_window > 0``
 ``simulate`` also returns the run's ``recorder.RecorderState``. A device
-mesh raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 10).
+mesh raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 8).
 
 ``fleet_body`` runs a stacked fleet (``engine.fleet``): F members, the
 member axis first on every tensor, through one host loop. ``_FleetHost``
@@ -97,7 +97,7 @@ def require_scope(mesh=None) -> None:
     """Refuse what the shared engine's port does not run yet."""
     if mesh is not None:
         raise NotImplementedError(
-            "a device mesh: sharding is ROADMAP.md Queue 1 item 10; the "
+            "a device mesh: sharding is ROADMAP.md Queue 1 item 8; the "
             "shared engine's port does not run it yet")
 
 

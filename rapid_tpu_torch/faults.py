@@ -8,7 +8,8 @@ or delay rules on one edge at once, every delay within the delivery
 ring), and of the schedule half of the reference's ``faults`` module:
 ``random_adversary_schedule``, the campaign sampler
 ``sample_adversary_schedule`` with its ``ScenarioWeights``, and
-``two_zone_schedule``. Each draws from one ``random.Random(seed)``
+``two_zone_schedule``; and ``delay_of_slots``, the host rule for one
+edge's delay. Each sampler draws from one ``random.Random(seed)``
 stream in the reference's order, so a seed gives the reference's
 schedule. ``fleet.lower_schedule`` compiles proposes into a fallback
 instance; ``fleet.lower_receiver_schedule`` refuses them. The oracle's
@@ -19,9 +20,11 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Dict, FrozenSet, List, Optional, Set, Tuple
+from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+from rapid_tpu_torch import hashing
 
 NEVER_TICK = (1 << 31) - 1  # int32-safe "never" sentinel
 
@@ -59,10 +62,46 @@ class DelayRule:
     start_tick: int = 0
     end_tick: int = NEVER_TICK
 
+    def active(self, tick: int) -> bool:
+        return self.start_tick <= tick < self.end_tick
+
     def max_delay(self) -> int:
         """Worst-case extra delay any edge of this rule can draw."""
         return max(self.delay_ticks,
                    max(self.reverse_delay_ticks, 0)) + self.jitter_ticks
+
+
+def _delay_jitter(seed: int, src_slot: int, dst_slot: int, tick: int,
+                  bound: int) -> int:
+    """Uniform draw from ``[0, bound]`` for edge (src, dst) at the send
+    tick: the host form of ``engine.monitor.delay_matrix``'s hash."""
+    if bound <= 0:
+        return 0
+    h = hashing.hash64(
+        src_slot ^ hashing.hash64(dst_slot, seed=tick & hashing.MASK64),
+        seed=(seed ^ 0x6A1770) & hashing.MASK64)
+    return int((h >> 32) % (bound + 1))
+
+
+def delay_of_slots(delays: Sequence[DelayRule], seed: int, src_slot: int,
+                   dst_slot: int, tick: int) -> int:
+    """Extra delivery delay of a message sent ``src -> dst`` at ``tick``:
+    per rule the forward direction before the reverse one, across rules
+    the maximum (the combining order of ``monitor.delay_matrix``)."""
+    best = 0
+    for r in delays:
+        if not r.active(tick):
+            continue
+        if src_slot in r.src_slots and dst_slot in r.dst_slots:
+            base = r.delay_ticks
+        elif r.reverse_delay_ticks >= 0 and src_slot in r.dst_slots \
+                and dst_slot in r.src_slots:
+            base = r.reverse_delay_ticks
+        else:
+            continue
+        best = max(best, base + _delay_jitter(seed, src_slot, dst_slot,
+                                              tick, r.jitter_ticks))
+    return best
 
 
 @dataclass(frozen=True)

@@ -24,6 +24,14 @@ shared pools' recorders, and per field a digest over all members
 (``pool_record``). A planned scenario's node ids depend on ``PYTHONHASHSEED``
 (``oracle.cluster.default_rng``): its file records the seed it was made
 under (``PLAN_HASH_SEED``), and a run compared with it must use the same.
+``testdata/telemetry_golden.json`` (``TELEMETRY_PATH``) records the
+reference's telemetry folds of runs the other files hold: ``summarize``
+of ``engine_metrics``, the lineage spans (``comparable``) and their
+``lineage_summary`` of three ``SHARED`` runs (from the file's ``log``
+columns), ``lineage_from_recorder`` of the N=1024 receiver recorder, and
+``fleet_summaries``/``merge_summaries``/``summary_distributions`` with
+the members' spans of fleet pools 0 and 2; each with the verdict of the
+schema's validators (``telemetry_record``).
 CPU tests regenerate the files from the reference and hold the port's CPU
 runs to them; ``chip_smoke.py`` compares the port's runs on the card
 against them.
@@ -34,7 +42,8 @@ import hashlib
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -475,9 +484,11 @@ def schedule_json(schedule) -> dict:
     }
 
 
-def schedule_from_json(d: dict):
-    """The port's ``AdversarySchedule`` of ``schedule_json``'s form."""
-    from rapid_tpu_torch import faults
+def schedule_from_json(d: dict, faults=None):
+    """The ``AdversarySchedule`` of ``schedule_json``'s form, of the
+    ``faults`` module given (default: the port's)."""
+    if faults is None:
+        from rapid_tpu_torch import faults
 
     slots = lambda r: dict(src_slots=frozenset(r["src"]),
                            dst_slots=frozenset(r["dst"]))
@@ -493,23 +504,25 @@ def schedule_from_json(d: dict):
                      for r in d["delays"]))
 
 
-def pool_settings(pool: FleetPool):
-    """The port's ``Settings`` of a pool's members."""
+def pool_settings(pool: FleetPool, rx_kernel: str = "pallas"):
+    """The port's ``Settings`` of a pool's members; ``rx_kernel`` is the
+    per-receiver pools' carry layout."""
     from rapid_tpu_torch.settings import Settings
 
     if pool.mode == "shared":
         return Settings(capacity=pool.capacity,
                         flight_recorder_window=FLEET_CAMPAIGN["recorder"])
-    return Settings(capacity=pool.capacity, rx_kernel="pallas")
+    return Settings(capacity=pool.capacity, rx_kernel=rx_kernel)
 
 
-def lower_pool(pool: FleetPool, members: List[dict], device="cuda"):
+def lower_pool(pool: FleetPool, members: List[dict], device="cuda",
+               rx_kernel: str = "pallas"):
     """The port's stacked fleet of a pool's recorded members (``members``:
     the file's member entries), lowered as the campaign lowers them and
     stacked to the pool's shape."""
     from rapid_tpu_torch.engine import churn, fleet
 
-    settings = pool_settings(pool)
+    settings = pool_settings(pool, rx_kernel)
     n, headroom = FLEET_CAMPAIGN["n"], FLEET_CAMPAIGN["headroom"]
     lowered = []
     for m in members:
@@ -532,17 +545,18 @@ def lower_pool(pool: FleetPool, members: List[dict], device="cuda"):
                                n_pids=pool.shape[2])
 
 
-def run_pool(pool: FleetPool, members: List[dict], device="cuda"):
+def run_pool(pool: FleetPool, members: List[dict], device="cuda",
+             rx_kernel: str = "pallas"):
     """Lower, stack and run a pool's members for the campaign's ticks on
     ``device``; returns the fleet's outputs (``fleet_simulate`` or
     ``receiver_fleet_simulate``)."""
     from rapid_tpu_torch.engine import fleet
 
-    stacked = lower_pool(pool, members, device=device)
+    stacked = lower_pool(pool, members, device=device, rx_kernel=rx_kernel)
     run = (fleet.fleet_simulate if pool.mode == "shared"
            else fleet.receiver_fleet_simulate)
-    return run(stacked, FLEET_CAMPAIGN["ticks"], pool_settings(pool),
-               device=device)
+    return run(stacked, FLEET_CAMPAIGN["ticks"],
+               pool_settings(pool, rx_kernel), device=device)
 
 
 def _digest(arrays) -> str:
@@ -630,13 +644,21 @@ def pool_record(pool: FleetPool, members: List[dict], logs, finals,
     }
 
 
+def final_view(finals):
+    """The host-read fields of per-receiver finals of either layout (the
+    fields of ``rx_packed.ReceiverFinalView``)."""
+    from rapid_tpu_torch.engine import receiver, rx_packed
+
+    view = receiver.receiver_final_view(finals)
+    return rx_packed.ReceiverFinalView(*[
+        getattr(view, f) for f in rx_packed.ReceiverFinalView._fields])
+
+
 def fleet_run_record(pool: FleetPool, members: List[dict], out) -> dict:
     """``pool_record`` of a port run (``run_pool``'s outputs)."""
     from rapid_tpu_torch.convert import to_numpy
-    from rapid_tpu_torch.engine import receiver
 
-    finals = out[0] if pool.mode == "shared" else \
-        receiver.receiver_final_view(out[0])
+    finals = out[0] if pool.mode == "shared" else final_view(out[0])
     return pool_record(pool, members, to_numpy(out[1]), to_numpy(finals),
                        to_numpy(out[2]) if len(out) > 2 else None)
 
@@ -655,3 +677,134 @@ def pool_head(want: dict, count: int) -> dict:
     out.pop("log_field_sha256")
     out.pop("final_field_sha256")
     return out
+
+
+# --- telemetry folds ------------------------------------------------------
+
+TELEMETRY_PATH = TESTDATA / "telemetry_golden.json"
+
+#: The shared runs whose golden ``log`` columns the telemetry file folds.
+TELEMETRY_SHARED = ("shared_n100k_crash", "shared_n100k_churn",
+                    "shared_n100k_contested")
+
+#: The fleet pools it folds (whole, ``FLEET_CAMPAIGN["fleet_size"]``).
+TELEMETRY_POOLS = (0, 2)
+
+
+class Folds(NamedTuple):
+    """One package's telemetry, so the reference and the port fill the
+    same record: its ``metrics``, ``lineage`` and ``schema`` modules,
+    ``receiver_metrics(final, log, n)`` (one per-receiver member's
+    ``TickMetrics`` for its first ``n`` slots) and ``schedule(json)``
+    (its ``AdversarySchedule`` of ``schedule_json``'s form)."""
+
+    metrics: object
+    lineage: object
+    schema: object
+    receiver_metrics: Callable
+    schedule: Callable
+
+
+def port_folds() -> Folds:
+    from rapid_tpu_torch.telemetry import lineage, metrics, schema
+
+    return Folds(metrics, lineage, schema,
+                 lambda final, log, n: metrics.receiver_metrics(log, n),
+                 schedule_from_json)
+
+
+def log_columns(rec: dict):
+    """A shared golden file's ``log`` columns as a log of numpy arrays
+    (every ``StepLog`` field without a slot axis)."""
+    cols = {k: np.asarray(v, np.int64) for k, v in rec["log"].items()}
+    return SimpleNamespace(_fields=tuple(sorted(cols)), **cols)
+
+
+def _span_block(folds: Folds, spans) -> dict:
+    summary = folds.lineage.lineage_summary(spans)
+    errors = [e for s in spans for e in folds.schema.validate_lineage_span(s)]
+    errors += folds.schema.validate_lineage_summary(summary)
+    return {"spans": [folds.lineage.comparable(s) for s in spans],
+            "lineage": summary, "errors": errors}
+
+
+def shared_telemetry(folds: Folds, logs) -> dict:
+    """The telemetry record of one shared run's ``StepLog`` (or its
+    golden columns): the run summary and the lineage spans, with the
+    validators' verdicts."""
+    summary = folds.metrics.summarize(
+        folds.metrics.engine_metrics(logs)).as_dict()
+    out = _span_block(folds, folds.lineage.fold_spans(
+        folds.lineage.engine_phase_columns(logs)))
+    out["summary"] = summary
+    out["errors"] = folds.schema.validate_telemetry(summary) + out["errors"]
+    return out
+
+
+def recorder_telemetry(folds: Folds, payload: dict) -> dict:
+    """The lineage of a flight-recorder payload, with its verdicts."""
+    out = _span_block(folds, folds.lineage.lineage_from_recorder(payload))
+    out["errors"] = (folds.schema.validate_flight_recorder(payload)
+                     + out["errors"])
+    return out
+
+
+def _host_tree(nt):
+    """A log or state NamedTuple with its leaves on the host, tensors read
+    in one transfer (``metrics.host_log``)."""
+    from rapid_tpu_torch.telemetry.metrics import host_log
+
+    host = host_log(nt, nt._fields)
+    return type(nt)(*[getattr(host, f) for f in nt._fields])
+
+
+def pool_telemetry(folds: Folds, pool: FleetPool, members: List[dict],
+                   logs, finals=None) -> dict:
+    """A pool run's telemetry as the reference's campaign folds it: per
+    member its summary and lineage spans (a per-receiver member's spans
+    with their critical paths where its schedule has delays), the merged
+    summary, the distributions and the lineage summary of every span.
+    ``logs`` is the fleet's member-major log, ``finals`` the
+    per-receiver finals' host-read fields (``final_view``)."""
+    lin = folds.lineage
+    if pool.mode == "shared":
+        summaries = folds.metrics.fleet_summaries(logs)
+        cols = lin.engine_phase_columns(logs)
+        spans = [lin.fold_spans(cols.member(j)) for j in range(len(members))]
+    else:
+        n = FLEET_CAMPAIGN["n"]
+        logs, finals = _host_tree(logs), _host_tree(finals)
+        summaries, spans = [], []
+        for j, meta in enumerate(members):
+            mlog = type(logs)(*[x[j] for x in logs])
+            mfinal = type(finals)(*[x[j] for x in finals])
+            summaries.append(folds.metrics.summarize(
+                folds.receiver_metrics(mfinal, mlog, n)))
+            member_spans = lin.fold_spans(lin.receiver_phase_columns(mlog))
+            schedule = folds.schedule(meta["schedule"])
+            if schedule.delays:
+                for sp in member_spans:
+                    sp["critical_path"] = lin.receiver_critical_path(
+                        mlog, sp, schedule)
+            spans.append(member_spans)
+    merged = folds.metrics.merge_summaries(summaries).as_dict()
+    out = _span_block(folds, [s for member in spans for s in member])
+    out.pop("spans")
+    out["summary"] = merged
+    out["distributions"] = folds.metrics.summary_distributions(summaries)
+    out["members"] = [
+        {"index": meta["index"], "summary": s.as_dict(),
+         "spans": [dict(lin.comparable(sp),
+                        critical_path=sp["critical_path"]) for sp in sp_]}
+        for meta, s, sp_ in zip(members, summaries, spans)]
+    out["errors"] = (folds.schema.validate_telemetry(merged)
+                     + [e for s in summaries
+                        for e in folds.schema.validate_telemetry(
+                            s.as_dict())]
+                     + out["errors"])
+    return out
+
+
+def telemetry_record(entries: Dict[str, dict]) -> dict:
+    """The telemetry file's JSON-ready form."""
+    return {"schema_version": 12, "entries": dict(sorted(entries.items()))}

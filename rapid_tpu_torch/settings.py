@@ -54,10 +54,11 @@ class Settings:
     # (the state is quadratic per member).
     receiver_capacity_cap: int = 4096
 
-    # Receiver scan-carry layout and delivery kernel. The port runs
-    # "pallas" only: the packed carry plus the hand-written delivery
-    # kernel (``engine.rx_account``). "xla" and "packed" are accepted
-    # here, as in the reference, and refused by the engine entry points.
+    # Receiver carry layout between ticks: "xla" the dense ReceiverState,
+    # "packed" and "pallas" the packed carry (``engine.rx_packed``).
+    # Every layout delivers through the hand-written kernel
+    # (``engine.rx_account``) on the card, so "packed" and "pallas" run
+    # the same code; only the packed carry can saturate (and flag).
     rx_kernel: str = "xla"
 
     # Dissemination/consensus protocol variant ("rapid", "ring", "hier").

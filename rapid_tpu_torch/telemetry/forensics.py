@@ -22,13 +22,6 @@ def _jsonable(v):
     return v
 
 
-def write_jsonl(path, records, default=None) -> None:
-    """Records as JSONL, one newline-terminated line each, keys sorted."""
-    with open(path, "w") as fh:
-        for rec in records:
-            fh.write(json.dumps(rec, sort_keys=True, default=default) + "\n")
-
-
 @dataclass
 class Divergence:
     """The first disagreeing (tick, field) pair between two streams."""
@@ -72,7 +65,10 @@ class DivergenceReport:
 
     def write_jsonl(self, path) -> None:
         """Context records first, the divergence record last."""
-        write_jsonl(path, [*self.context, self.as_dict()], default=str)
+        from rapid_tpu_torch.telemetry import write_jsonl_artifact
+
+        write_jsonl_artifact(path, [*self.context, self.as_dict()],
+                             default=str)
 
 
 class DivergenceError(AssertionError):

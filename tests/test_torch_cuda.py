@@ -58,8 +58,9 @@ def test_deliver_kernel_matches_plain(card, c, planes, phase):
     assert torch.equal(got, want) and torch.equal(acc_k, acc_p)
 
 
-def test_card_run_equals_cpu_run(card):
-    settings = Settings(rx_kernel="pallas")
+@pytest.mark.parametrize("rx_kernel", ["pallas", "xla", "packed"])
+def test_card_run_equals_cpu_run(card, rx_kernel):
+    settings = Settings(rx_kernel=rx_kernel)
     sched = crash_window_delay_schedule(16)
     runs = []
     for device in (card, "cpu"):
@@ -189,3 +190,36 @@ def test_fleet_card_run_equals_cpu_run(card, pool_id):
     assert launches == (6 * ticks if pool.mode == "per_receiver" else 0)
     for a, b in zip(on_card, on_cpu):
         _same(a, b)
+
+
+@pytest.mark.parametrize("pool_id", [2, 3])
+def test_dense_fleet_card_run_equals_cpu_run(card, pool_id):
+    from rapid_tpu_torch import golden
+
+    pool = golden.FLEET_POOLS[pool_id]
+    members = golden.pool_inputs(golden.load(pool.path), 6)
+    before = rx_account.deliver_launches
+    on_card = golden.run_pool(pool, members, device=card, rx_kernel="xla")
+    launches = rx_account.deliver_launches - before
+    on_cpu = golden.run_pool(pool, members, device="cpu", rx_kernel="xla")
+    assert launches == 6 * golden.FLEET_CAMPAIGN["ticks"]
+    assert type(on_card[0]).__name__ == "ReceiverState"
+    for a, b in zip(on_card, on_cpu):
+        _same(a, b)
+
+
+def test_telemetry_folds_card_logs_as_cpu_logs(card):
+    from rapid_tpu_torch import golden
+
+    sc = golden.SHARED["shared_n1000_crash"]
+    records = []
+    for device in (card, "cpu"):
+        from rapid_tpu_torch.engine import simulate
+
+        boot = sc.boot(device=device)
+        _, logs = simulate(boot.state, boot.faults, sc.ticks, sc.settings(),
+                           device=device)
+        records.append(golden.shared_telemetry(golden.port_folds(), logs))
+    assert records[0] == records[1]
+    assert records[0]["errors"] == []
+    assert records[0]["summary"]["decisions"] == 1

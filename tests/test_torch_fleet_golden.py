@@ -104,8 +104,11 @@ def reference_pool_members():
     return cfg, pools
 
 
-def reference_pool_record(pool_id: int, cfg=None, pools=None) -> dict:
-    """The reference's record of one pool."""
+def reference_pool_run(pool_id: int, cfg=None, pools=None):
+    """The reference's run of one pool: ``(members, logs, finals,
+    recorders)``, the member entries and NamedTuples of numpy arrays
+    (per-receiver finals cut to ``ReceiverFinalView``'s fields, no
+    recorders)."""
     from rapid_tpu import campaign as ref_campaign
     from rapid_tpu.engine import fleet as ref_fleet
     from rapid_tpu.settings import Settings as RefSettings
@@ -154,7 +157,13 @@ def reference_pool_record(pool_id: int, cfg=None, pools=None) -> dict:
                                      for f in ReceiverFinalView._fields])
         recs = None
     assert shape == pool.shape, (pool_id, shape)
-    return golden.pool_record(pool, metas, numpy(logs), finals, recs)
+    return metas, numpy(logs), finals, recs
+
+
+def reference_pool_record(pool_id: int, cfg=None, pools=None) -> dict:
+    """The reference's record of one pool."""
+    return golden.pool_record(golden.FLEET_POOLS[pool_id],
+                              *reference_pool_run(pool_id, cfg, pools))
 
 
 @pytest.mark.slow

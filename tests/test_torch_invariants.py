@@ -24,7 +24,7 @@ from rapid_tpu.engine.state import crash_faults as ref_crash_faults
 from rapid_tpu.engine.state import init_state as ref_init_state
 from rapid_tpu.settings import Settings as RefSettings
 
-from rapid_tpu_torch import forensics
+from rapid_tpu_torch.telemetry import forensics
 from rapid_tpu_torch.convert import from_reference, to_numpy
 from rapid_tpu_torch.engine import invariants, step
 from rapid_tpu_torch.engine.state import I32_MAX

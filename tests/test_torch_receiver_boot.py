@@ -135,9 +135,24 @@ def test_flags_decode_and_check():
 @pytest.mark.parametrize("kw", [{"rx_kernel": "xla"},
                                 {"rx_kernel": "packed"}])
 def test_out_of_slice_settings_raise(kw):
+    """Every layout runs now; a carry in another layout than the one
+    ``rx_kernel`` names raises instead of being converted: a packed
+    bundle under "xla", a stacked dense fleet under "packed"."""
+    from rapid_tpu_torch.engine import fleet
+
     sched = port_faults.crash_window_delay_schedule(16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_rx.lower_receiver_schedule(sched, Settings(**kw), device="cpu")
+    settings = Settings(**kw)
+    other = Settings(rx_kernel="pallas" if kw["rx_kernel"] == "xla"
+                     else "xla")
+    member = port_rx.lower_receiver_schedule(sched, other, device="cpu")
+    with pytest.raises(TypeError, match=f"rx_kernel='{kw['rx_kernel']}'"):
+        if kw["rx_kernel"] == "xla":
+            port_rx.receiver_simulate(member.state, member.faults, 2,
+                                      settings)
+        else:
+            fleet.receiver_fleet_simulate(
+                fleet.stack_receiver_members([member]), 2, settings,
+                device="cpu")
 
 
 def test_schedule_guards():
