@@ -119,7 +119,30 @@ Phases, in order; any failure exits non-zero before the result lines:
     folds) and clean under the port's validators, with the host seconds
     of each fold; and one Perfetto trace of phase 7's logs written into
     a temporary directory and loaded back (phase slices, the proposal at
-    112 and the view change at 113).
+    112 and the view change at 113);
+23. the host referee holds the per-receiver engine at the main path's
+    width (``engine.diff.run_receiver_differential``, N=1024), under
+    ``Settings()`` (the dense carry) and ``rx_kernel="packed"``,
+    ``rx_deliver`` 6 launches a tick and ``rx_account`` none each, the two
+    device runs equal each other: phase 4's scenario (160 ticks), equal
+    to phase 4's run, whose first divergence from the referee is the one
+    the reference's own engine has there (``MAIN_REFEREE_DIVERGENCE``, a
+    delayed alert batch landing in the decide tick; ROADMAP.md Queue 3);
+    the same scenario with its delay rule ended at tick 100 (160 ticks),
+    exact (``assert_identical``: every slot's events, per-tick counters,
+    per-phase counters and config id), whose rule then delays nothing;
+    ``half_delay_schedule`` (200 ticks), exact, with half the senders'
+    alert batches and votes delayed 2-3 ticks; and the slow-voter
+    scenario of ``tests/test_delay.py`` at N=64 (delay 40, ring 48, 400
+    ticks), exact and decided by the classic round with no drop. Counts
+    the sends each scenario's delay rule held back (a second referee
+    run), and prints the referee's host seconds and the device run's
+    ms/tick apart;
+24. the full oracle cluster holds the shared engine at N=256, each
+    ``assert_identical``: a crash burst, joins and leaves, a joiner whose
+    first node-id draw collides (the identifier redraw), a contested
+    instance decided by the classic round, and the burst under "ring" and
+    "hier"; prints the oracle's host seconds and the engine's ms/tick.
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -132,7 +155,8 @@ each (none on the shared engine, which has no kernel); phases 17 and 18
 the same for fleets.
 
 ``rx_deliver``'s entry of the ``kernels`` line carries its launches on
-phase 4's run under each layout (``launches_by_layout``). The line
+phase 4's run under each layout (``launches_by_layout``) and on each of
+phase 23's runs (``referee_launches``). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -161,6 +185,13 @@ SCALE_F = (1, 16, 64, 256)         # phase 18's fleet sizes ...
 SCALE_TICKS = 40                   # ... and ticks
 TURN_ROUNDS = 1                # rounds of default, composed, composed, default
 LAYOUTS = ("xla", "packed", "pallas")   # phase 19's carry layouts
+SLOW_N, SLOW_TICKS = 64, 400   # phase 23's slow-voter scenario
+HALF_DELAY_TICKS = 200         # phase 23's half_delay scenario
+SHARED_REFEREE_N = 256         # phase 24: the widest oracle-cluster runs
+#: The first divergence of phase 23's main scenario from the host referee
+#: (tick, field, card, referee): the reference's own per-receiver engine
+#: gives it (testdata/rx_n1024_recorder.json against the referee).
+MAIN_REFEREE_DIVERGENCE = [112, "counters.sent", 653312, 1046528]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -1418,6 +1449,273 @@ def phase_telemetry(keep: dict, pool_outputs: dict) -> dict:
             "trace_events": len(events)}
 
 
+def engine_side(res) -> dict:
+    """The device side of a receiver differential, in plain values."""
+    from rapid_tpu_torch.convert import plain
+
+    return plain({"events": [[(e.tick, e.kind, e.config_id, e.slots)
+                              for e in evs]
+                             for evs in res.engine_events_by_slot],
+                  "counters": res.engine_counters,
+                  "phases": res.engine_phase_counters,
+                  "config_ids": res.engine_config_ids})
+
+
+def ended_delay_schedule(n: int):
+    """The main path's scenario with its delay rule ended at tick 100,
+    before the cut: its crashes and two-way window alone (the rule then
+    holds back no message)."""
+    import dataclasses
+
+    from rapid_tpu_torch.faults import crash_window_delay_schedule
+
+    main = crash_window_delay_schedule(n)
+    return dataclasses.replace(main, delays=tuple(
+        dataclasses.replace(r, end_tick=100) for r in main.delays))
+
+
+def half_delay_schedule(n: int):
+    """``tests/test_delay.py``'s delay family (slot n-1 crashing at tick
+    11; delay 2, jitter 1, seed 41) with its rule widened from the first
+    30 of 256 slots to the first half, toward every slot: alert batches
+    and votes of half the senders arrive 2-3 ticks late, reordered
+    against the other half's."""
+    from rapid_tpu_torch.faults import AdversarySchedule, DelayRule
+
+    return AdversarySchedule(
+        n=n, crashes=((n - 1, 11),), seed=41,
+        delays=(DelayRule(src_slots=frozenset(range(n // 2)),
+                          dst_slots=frozenset(range(n)), delay_ticks=2,
+                          jitter_ticks=1),))
+
+
+def delayed_sends(schedule, ticks: int, settings, res) -> dict:
+    """The sends of ``res``'s referee run that a delay rule held back,
+    by message kind: the host engine run again, counting each send its
+    rule delays, and checked to give ``res``'s referee counters."""
+    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.engine.adversary import AdversaryEngine
+    from rapid_tpu_torch.faults import delay_of_slots
+    from rapid_tpu_torch.identity import id_fingerprint
+    from rapid_tpu_torch.oracle.membership_view import uid_of
+
+    counts = {}
+
+    class Counting(AdversaryEngine):
+        def _send(self, src, dst, kind, payload):
+            if delay_of_slots(self.schedule.delays, self.schedule.seed,
+                              src, dst, self.now):
+                counts[kind] = counts.get(kind, 0) + 1
+            super()._send(src, dst, kind, payload)
+
+    n = schedule.n
+    run = Counting(schedule, [uid_of(e) for e in diff.default_endpoints(n)],
+                   sum(id_fingerprint(x) for x in diff.default_node_ids(n))
+                   & ((1 << 64) - 1), settings).run(ticks)
+    if run.tick_history != res.oracle_counters:
+        raise AssertionError("phase 23: the counting referee ran another "
+                             "run")
+    return counts
+
+
+def referee_run(schedule, ticks: int, settings, rx_account, device,
+                label: str):
+    """``run_receiver_differential`` on the card, the kernels' launches
+    counted from 0 around it: ``rx_deliver`` 6 a tick, ``rx_account``
+    none. Returns the result and its numbers."""
+    from rapid_tpu_torch.engine import diff
+
+    zero_counts(rx_account)
+    res = diff.run_receiver_differential(schedule, ticks, settings,
+                                         device=device)
+    launches = (rx_account.deliver_launches, rx_account.launches)
+    zero_counts(rx_account)
+    if launches != (6 * ticks, 0):
+        raise AssertionError(f"phase 23 {label} launched (rx_deliver, "
+                             f"rx_account) {launches}, want "
+                             f"{(6 * ticks, 0)}")
+    stats = {"referee_s": res.seconds["referee"],
+             "engine_ms_per_tick": res.seconds["engine"] * 1e3 / ticks,
+             "deliver_launches": launches[0]}
+    log(f"phase 23: {label}: host referee {stats['referee_s']:.2f} s, "
+        f"device run {stats['engine_ms_per_tick']:.2f} ms/tick (wall, with "
+        f"its host reads), {launches[0]} rx_deliver launches, 0 rx_account")
+    return res, stats
+
+
+def phase_referee_receiver(rx_account, device, keep: dict) -> dict:
+    """Phase 23: the host referee holds the per-receiver engine at the
+    main path's width, under the dense and the packed carry."""
+    from rapid_tpu_torch import tick_time
+    from rapid_tpu_torch.engine import receiver
+    from rapid_tpu_torch.faults import (
+        AdversarySchedule, DelayRule, crash_window_delay_schedule)
+    from rapid_tpu_torch.settings import Settings
+
+    n, ticks = tick_time.N, tick_time.TICKS
+    out = {}
+    phase4 = receiver.receiver_run_payload(*keep["main"], n, ticks)
+    want4 = {"events": phase4.events_by_slot, "counters": phase4.tick_history,
+             "phases": phase4.phase_history,
+             "config_ids": phase4.config_ids}
+    for label, schedule, run_ticks in (
+            ("main", crash_window_delay_schedule(n), ticks),
+            ("ended_delay", ended_delay_schedule(n), ticks),
+            ("half_delay", half_delay_schedule(n), HALF_DELAY_TICKS)):
+        sides = []
+        for kernel in ("xla", "packed"):
+            name = f"{label} N={n} rx_kernel={kernel!r}"
+            res, stats = referee_run(schedule, run_ticks,
+                                     Settings(rx_kernel=kernel), rx_account,
+                                     device, name)
+            div = res.first_divergence()
+            stats["first_divergence"] = None if div is None else [
+                div.tick, div.field, div.engine, div.oracle]
+            if label != "main":
+                res.assert_identical()
+                log(f"phase 23: {name}: assert_identical, every slot's "
+                    f"events, counters, phase counters and config id equal "
+                    f"to the referee's")
+            elif stats["first_divergence"] != MAIN_REFEREE_DIVERGENCE:
+                raise AssertionError(
+                    f"phase 23: {name}: first divergence from the host "
+                    f"referee {stats['first_divergence']}, the reference's "
+                    f"engine gives {MAIN_REFEREE_DIVERGENCE}")
+            else:
+                log(f"phase 23: {name}: the referee finds the divergence "
+                    f"the reference's own engine has on this scenario "
+                    f"(ROADMAP.md Queue 3): tick {div.tick}, {div.field} "
+                    f"{div.engine} on the card against {div.oracle}")
+            sides.append(engine_side(res))
+            out[f"{label}_{kernel}"] = stats
+        if sides[0] != sides[1]:
+            raise AssertionError(f"phase 23 {label}: the dense and the "
+                                 f"packed runs differ")
+        t0 = time.perf_counter()
+        delayed = delayed_sends(schedule, run_ticks, Settings(), res)
+        out[f"{label}_xla"]["delayed_sends"] = delayed
+        log(f"phase 23: {label}: the dense and packed device runs equal "
+            f"each other; the delay rule held back {delayed or 'no'} sends "
+            f"by kind (counted on a second referee run, "
+            f"{time.perf_counter() - t0:.2f} s)")
+        if label == "half_delay" and not (delayed.get("batch")
+                                          and delayed.get("vote")):
+            raise AssertionError("phase 23: half_delay delayed no alert "
+                                 "batch or no vote")
+        if label == "main":
+            from rapid_tpu_torch.convert import plain
+
+            if sides[0] != plain(want4):
+                raise AssertionError("phase 23: the differential's boot "
+                                     "gives another run than phase 4's")
+            log("phase 23: main: the device runs equal phase 4's run "
+                "(lower_receiver_schedule's boot)")
+
+    slow = AdversarySchedule(
+        n=SLOW_N, crashes=((5, 11),), seed=9,
+        delays=(DelayRule(src_slots=frozenset(range(SLOW_N - 16, SLOW_N)),
+                          dst_slots=frozenset(range(SLOW_N)),
+                          delay_ticks=40, start_tick=100),))
+    name = f"slow voters N={SLOW_N}"
+    res, stats = referee_run(slow, SLOW_TICKS,
+                             Settings(delivery_ring_depth=48), rx_account,
+                             device, name)
+    res.assert_identical()
+    totals = {p: sum(d[p] for d in res.engine_phase_counters)
+              for p in ("phase1a_sent", "phase1b_sent", "phase2a_sent",
+                        "phase2b_sent")}
+    if min(totals.values()) < 1 or \
+            sum(r.link_dropped for r in res.oracle_metrics) != 0:
+        raise AssertionError(f"phase 23: {name} did not decide by the "
+                             f"classic round from a slow link alone: "
+                             f"{totals}")
+    delayed = delayed_sends(slow, SLOW_TICKS,
+                            Settings(delivery_ring_depth=48), res)
+    log(f"phase 23: {name}: assert_identical, decided by the classic round "
+        f"with no drop ({totals}); the delay rule held back {delayed} sends "
+        f"by kind")
+    out["slow_voters"] = dict(stats, phase_totals=totals,
+                              delayed_sends=delayed)
+    return out
+
+
+def phase_referee_shared(rx_account, device) -> dict:
+    """Phase 24: the full oracle cluster holds the shared engine at
+    N=256."""
+    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.oracle.cluster import default_rng
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.types import NodeId
+
+    n = SHARED_REFEREE_N
+    burst = {5: 11, 100: 13, 200: 15, 250: 19}
+    endpoints = diff.default_endpoints(n + 1)
+    rng = default_rng(Settings(), endpoints[n])
+    node_ids = diff.default_node_ids(n)
+    node_ids[3] = NodeId(rng.getrandbits(64), rng.getrandbits(64))
+    split = ([[0], [1]], {s: (6, s % 2) for s in range(n)},
+             {s: (10 if s == 0 else 100) for s in range(n)})
+    runs = {
+        "crash_burst": (140, lambda: diff.run_differential(
+            n, burst, 140, device=device),
+            [("proposal", 122, (5, 100, 200, 250)),
+             ("view_change", 123, (5, 100, 200, 250))]),
+        "churn": (60, lambda: diff.run_churn_differential(
+            n=n, capacity=n + 4, n_ticks=60,
+            joins={s: 5 for s in range(n, n + 4)},
+            leaves={11: 30, 42: 30, 197: 30}, device=device),
+            [("proposal", 10, (256, 257, 258, 259)),
+             ("view_change", 11, (256, 257, 258, 259)),
+             ("proposal", 33, (11, 42, 197)),
+             ("view_change", 34, (11, 42, 197))]),
+        "identifier_redraw": (40, lambda: diff.run_churn_differential(
+            n=n, capacity=n + 1, n_ticks=40, joins={n: 5},
+            node_ids=node_ids, device=device),
+            [("proposal", 12, (n,)), ("view_change", 13, (n,))]),
+        "fallback": (30, lambda: diff.run_fallback_differential(
+            n, *split, 30, device=device), None),
+        "ring": (140, lambda: diff.run_variant_differential(
+            n, burst, 140, "ring", device=device), None),
+        "hier": (140, lambda: diff.run_variant_differential(
+            n, burst, 140, "hier", device=device), None),
+    }
+    out = {}
+    for name, (ticks, run, want) in runs.items():
+        zero_counts(rx_account)
+        res = run()
+        launches = (rx_account.deliver_launches, rx_account.launches)
+        if launches != (0, 0):
+            raise AssertionError(f"phase 24 {name}: the shared engine "
+                                 f"launched {launches}")
+        res.assert_identical()
+        got = [(e.kind, e.tick, e.slots) for e in res.engine_events]
+        if want is not None and got != want:
+            raise AssertionError(f"phase 24 {name}: events {got}")
+        if not any(e.kind == "view_change" for e in res.engine_events):
+            raise AssertionError(f"phase 24 {name}: nothing decided")
+        sec = res.seconds
+        stats = {"oracle_s": sec["oracle"], "plan_s": sec.get("plan"),
+                 "engine_ms_per_tick": sec["engine"] * 1e3 / ticks,
+                 "events": got}
+        if name == "fallback":
+            sent = {p: sum(c[f"{p}_sent"] for c in res.oracle_phase_counters)
+                    for p in ("phase1a", "phase2b")}
+            if res.plan_info["mode"] != "classic" or \
+                    sent != {"phase1a": n, "phase2b": n * n}:
+                raise AssertionError(f"phase 24 fallback: {res.plan_info}, "
+                                     f"{sent}")
+            stats["plan_info"] = {k: v for k, v in res.plan_info.items()
+                                  if isinstance(v, (int, str))}
+        out[name] = stats
+        log(f"phase 24: {name} N={n} x {ticks} ticks: assert_identical "
+            f"against the oracle cluster, events {got}; oracle "
+            f"{sec['oracle']:.2f} s on the host"
+            + (f", planner {sec['plan']:.3f} s" if "plan" in sec else "")
+            + f", engine {stats['engine_ms_per_tick']:.2f} ms/tick (wall, "
+            f"with its host reads), no kernel launched")
+    return out
+
+
 def planned_child() -> dict:
     """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
     files; any failure there fails this process."""
@@ -1532,7 +1830,10 @@ def main() -> int:
     wide_dense = phase_wide_dense(rx_account, device)
     dense_fleets = phase_dense_fleets(device, fleet_pools)
     telemetry = phase_telemetry(keep, pool_outputs)
-    del pool_outputs, keep
+    del pool_outputs
+    referee_rx = phase_referee_receiver(rx_account, device, keep)
+    del keep
+    referee_shared = phase_referee_shared(rx_account, device)
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -1557,6 +1858,8 @@ def main() -> int:
                                for k, v in layouts.items()},
         "dense_fleet_launches": {f"pool{pid}": run["deliver_launches"]
                                  for pid, run in dense_fleets.items()},
+        "referee_launches": {k: v["deliver_launches"]
+                             for k, v in referee_rx.items()},
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -1579,7 +1882,8 @@ def main() -> int:
                     "fleet_scaling": scaling,
                     "fleet_deliver": fleet_times, "layouts": layouts,
                     "wide_dense": wide_dense, "dense_fleets": dense_fleets,
-                    "telemetry": telemetry, "card": card}))
+                    "telemetry": telemetry, "referee_receiver": referee_rx,
+                    "referee_shared": referee_shared, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

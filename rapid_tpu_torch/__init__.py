@@ -24,8 +24,20 @@ protocol, against the host mirrors in ``oracle``), the classic-Paxos
 fallback, the ring and hier variants (``variants``), the invariant
 monitor and the flight recorder. ``telemetry`` folds either engine's
 logs into the reference's summaries, lineage spans, SLO windows and
-Perfetto traces. This package imports ``torch``, ``numpy`` and the
-standard library only.
+Perfetto traces.
+
+The host referee checks any scenario against an independent simulation
+of the protocol: ``oracle`` (a whole simulated cluster of
+``MembershipService`` nodes on a deterministic network) and
+``engine.adversary`` (per-slot host replay of a fault schedule), with
+``engine.diff``'s runners driving a scenario through the referee and an
+engine::
+
+    res = engine.diff.run_differential(256, {5: 11, 100: 13}, 140)
+    res = engine.diff.run_receiver_differential(schedule, 160, settings)
+    res.assert_identical()
+
+This package imports ``torch``, ``numpy`` and the standard library only.
 """
 from rapid_tpu_torch.settings import Settings
 

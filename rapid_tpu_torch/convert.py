@@ -13,10 +13,21 @@ is copied as host values, and a schedule's absent (None) fields stay
 None. ``to_numpy`` maps the port's
 NamedTuples back to numpy in the reference's dtypes (uint32 limbs), so
 the two sides compare with ``np.array_equal``; a fleet's members, finals,
-logs and recorders keep their leading member axis either way. Only duck typing by class
+logs and recorders keep their leading member axis either way.
+
+The host referee's inputs and results cross too: ``schedule_from_reference``
+gives the port's ``AdversarySchedule`` (windows, delay rules and proposes)
+of a reference schedule, ``fault_model_from_reference`` the port's
+``FaultModel`` of any of the reference's fault models, and ``plain`` turns
+a result of either package (a differential's result, an ``AdversaryRun``,
+view events, metrics rows, lineage spans) into plain Python values, so
+the two compare with ``==`` field by field. Only duck typing by class
 name is used: this module imports nothing of the reference.
 """
 from __future__ import annotations
+
+import dataclasses
+import enum
 
 import numpy as np
 import torch
@@ -95,3 +106,105 @@ def to_numpy(nt):
                                     delay_table=_leaf_to("delay_table",
                                                          nt.delay_table))
     return type(nt)(**{f: _leaf_to(f, getattr(nt, f)) for f in nt._fields})
+
+
+# ---------------------------------------------------------------------------
+# the host referee's schedules, fault models and results
+# ---------------------------------------------------------------------------
+
+
+def _endpoint(e):
+    from rapid_tpu_torch.types import Endpoint
+
+    return Endpoint(e.hostname, e.port)
+
+
+def _fields(obj, cls, **override):
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def schedule_from_reference(schedule):
+    """The port's ``faults.AdversarySchedule`` of a reference schedule
+    (or of the port's own, copied)."""
+    from rapid_tpu_torch import faults
+
+    return _fields(
+        schedule, faults.AdversarySchedule,
+        windows=tuple(_fields(w, faults.LinkWindow)
+                      for w in schedule.windows),
+        delays=tuple(_fields(r, faults.DelayRule) for r in schedule.delays),
+        proposes=tuple(_fields(p, faults.ScriptedPropose)
+                       for p in schedule.proposes))
+
+
+def fault_model_from_reference(model):
+    """The port's ``faults.FaultModel`` of a reference fault model, by
+    class name; endpoints become the port's ``Endpoint``."""
+    from rapid_tpu_torch import faults
+
+    name = type(model).__name__
+    eps = lambda es: None if es is None else frozenset(
+        _endpoint(e) for e in es)
+    if name == "FaultModel":
+        return faults.HEALTHY
+    if name == "CrashFault":
+        return faults.CrashFault({_endpoint(e): t
+                                  for e, t in model.crashes.items()})
+    if name == "PacketDropFault":
+        return _fields(model, faults.PacketDropFault,
+                       targets=eps(model.targets))
+    if name == "OneWayPartitionFault":
+        return _fields(model, faults.OneWayPartitionFault,
+                       from_set=eps(model.from_set), to_set=eps(model.to_set))
+    if name == "FlipFlopFault":
+        return _fields(model, faults.FlipFlopFault,
+                       targets=eps(model.targets))
+    if name == "ComposedFault":
+        return faults.ComposedFault([fault_model_from_reference(m)
+                                     for m in model.models])
+    if name == "LinkWindowFault":
+        return faults.LinkWindowFault([_fields(w, faults.LinkWindow)
+                                       for w in model.windows])
+    if name == "LinkDelayFault":
+        return faults.LinkDelayFault([_fields(r, faults.DelayRule)
+                                      for r in model.delays], model.seed)
+    raise TypeError(f"no port counterpart for fault model {name}")
+
+
+#: Fields that ``plain`` leaves out: the port's results carry the host
+#: seconds of each side, the reference's do not.
+_SKIP = ("seconds",)
+
+
+def plain(value):
+    """``value`` as plain Python values, the same for the reference's
+    objects and the port's: a dataclass becomes ``(class name, {field:
+    value})`` without the fields named in ``_SKIP``, an endpoint
+    ``("Endpoint", hostname, port)``, an enum ``"Class.NAME"``, numpy
+    values lists and scalars; lists, tuples, sets and dicts keep their
+    kind."""
+    if value is None or isinstance(value, (bool, int, float, str, bytes)):
+        return value
+    if isinstance(value, enum.Enum):
+        return f"{type(value).__name__}.{value.name}"
+    if hasattr(value, "hostname") and hasattr(value, "port"):
+        return ("Endpoint", value.hostname, value.port)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return (type(value).__name__,
+                {f.name: plain(getattr(value, f.name))
+                 for f in dataclasses.fields(value) if f.name not in _SKIP})
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    if isinstance(value, np.generic):
+        return value.item()
+    if isinstance(value, dict):
+        return {plain(k): plain(v) for k, v in value.items()}
+    if isinstance(value, (set, frozenset)):
+        return frozenset(plain(v) for v in value)
+    if isinstance(value, (list, tuple)):
+        return type(value)(plain(v) for v in value) \
+            if type(value) in (list, tuple) else \
+            (type(value).__name__, tuple(plain(v) for v in value))
+    raise TypeError(f"no plain form for {type(value).__name__}")

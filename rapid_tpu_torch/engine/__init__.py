@@ -6,7 +6,9 @@ planner), ``churn`` (join/leave schedules, identifier redraws and the host
 planner ``plan_churn``), ``monitor``, ``cut``, ``votes``, ``invariants``
 (the invariant monitor), ``recorder`` (the flight recorder), ``step``
 (the shared-state engine, with the ``variants`` ring and hier),
-``diff`` (host-side events and counters of the shared engine),
+``diff`` (the differential runners against the host referee, and the
+shared engine's host-side events and counters), ``adversary`` (the host
+adversary engine, the per-receiver engine's referee),
 ``rx_account`` (the delivery kernels and their plain versions), ``receiver`` (the
 per-receiver step, boot, lowering and host extractors) and ``rx_packed``
 (the packed carry and its tick loop).

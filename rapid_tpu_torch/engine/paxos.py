@@ -102,8 +102,10 @@ def build_delay_table(seed: int, capacity: int, n_draws: int,
 class FallbackEnvelopeError(ValueError):
     """The contested scenario leaves what one shared view and one decide
     per tick can carry (tied first timers, a timer firing mid-count or
-    mid-round, a propose landing mid-round). The reference runs such
-    scenarios through its per-slot adversary engine."""
+    mid-round, a propose landing mid-round). Such a scenario is
+    executable all the same: ``engine.diff.run_adversarial_differential``
+    runs it through the per-slot host adversary engine, and the message
+    (the reference's, word for word) says so."""
 
 
 class FallbackSchedule(NamedTuple):
@@ -513,7 +515,9 @@ def plan_fallback(
         if min_fire < fast_decide_tick - 1:
             raise FallbackEnvelopeError(
                 f"timer fires at {min_fire}, before the fast decision at "
-                f"{fast_decide_tick} completes")
+                f"{fast_decide_tick} completes — outside the fleet-kernel "
+                "envelope; run this mid-fast-count fire through "
+                "run_adversarial_differential")
         info.update(mode="fast", decide_tick=fast_decide_tick,
                     winner=fast_pid,
                     racing=bool(min_fire == fast_decide_tick - 1))
@@ -521,19 +525,23 @@ def plan_fallback(
         firing = [s for s, f in fires.items() if f == min_fire]
         if len(firing) != 1:
             raise FallbackEnvelopeError(
-                f"{len(firing)} timers fire together at {min_fire}; one "
-                "shared view needs a unique first coordinator")
+                f"{len(firing)} timers fire together at {min_fire}; the "
+                "fleet kernel needs a unique first coordinator — run tied "
+                "timers through run_adversarial_differential")
         decide = min_fire + 4  # 1a -> 1b -> 2a -> 2b -> decide
         late = [s for s, f in fires.items()
                 if s != firing[0] and f < decide]
         if late:
             raise FallbackEnvelopeError(
                 f"timers of {late} fire during the classic round "
-                f"({min_fire}..{decide}): a rank race")
+                f"({min_fire}..{decide}); the oracle starts a rank race the "
+                "fleet kernel cannot carry — run it through "
+                "run_adversarial_differential")
         late_votes = [s for s, (tick, _) in votes.items() if tick >= min_fire]
         if late_votes:
             raise FallbackEnvelopeError(
-                f"proposes of {late_votes} land mid-classic-round")
+                f"proposes of {late_votes} land mid-classic-round — run "
+                "them through run_adversarial_differential")
         if uids is None:
             uids = _default_uids(c)
         pos = np_ring0_positions(np.asarray(uids, np.uint64), member)

@@ -1096,6 +1096,41 @@ def receiver_config_ids(rs: ReceiverState) -> List[int]:
     return [int(x) for x in _u64(rs.cfg_hi, rs.cfg_lo)]
 
 
+def receiver_run_payload(rs: ReceiverState, logs, n: int, n_ticks: int):
+    """A finished run (the dense final state ``receiver_simulate``
+    returns under every layout, and its logs) as the host adversary
+    engine's ``AdversaryRun``, so the differential and the metrics read
+    both alike. The gauges and the final views come to the host in one
+    transfer."""
+    from rapid_tpu_torch.device import read_arrays
+    from rapid_tpu_torch.engine.adversary import AdversaryRun
+
+    events = receiver_events(logs)
+    counters = receiver_counters(logs)
+    phases = receiver_phase_counters(logs)
+    link_dropped, partitioned, member, stopped = read_arrays(
+        logs.link_dropped, logs.partitioned_edges, rs.member, rs.stopped)
+    totals = {k: sum(row[k] for row in counters)
+              for k in ("sent", "delivered", "dropped", "probes_sent",
+                        "probes_failed")}
+    totals["timeouts"] = 0
+    phase_totals = {k: sum(row[k] for row in phases) for k in phases[0]} \
+        if phases else {}
+    return AdversaryRun(
+        n=n, n_ticks=n_ticks,
+        events_by_slot=[events[s] for s in range(n)],
+        tick_history=counters,
+        phase_history=phases,
+        partitioned_edges=[int(x) for x in partitioned],
+        link_dropped=[int(x) for x in link_dropped],
+        config_ids=receiver_config_ids(rs)[:n],
+        members_by_slot=[frozenset(int(i) for i in np.nonzero(member[s])[0])
+                         for s in range(n)],
+        stopped=[bool(x) for x in stopped[:n]],
+        totals=totals, phase_totals=phase_totals,
+    )
+
+
 # The lowering lives with the fleets, as in the reference; callers of the
 # single-cluster engine find it here too.
 from rapid_tpu_torch.engine.fleet import (  # noqa: E402

@@ -1,30 +1,40 @@
-"""Fault schedules in slot coordinates: crashes, link windows, link
-delays, scripted proposes, and the seeded samplers that draw them.
+"""Fault-injection: the oracle's fault models and the slot-coordinate
+schedules, with the seeded samplers that draw them.
 
-Own copies of the reference's ``LinkWindow``, ``DelayRule``,
-``ScriptedPropose``, ``AdversarySchedule`` and ``validate_schedule``
-(slots in range, sane windows, rules and proposes, no two static windows
-or delay rules on one edge at once, every delay within the delivery
-ring), and of the schedule half of the reference's ``faults`` module:
-``random_adversary_schedule``, the campaign sampler
-``sample_adversary_schedule`` with its ``ScenarioWeights``, and
+Own copies of the reference's ``faults`` module. The host referee's
+``FaultModel`` family (``HEALTHY``, ``CrashFault``, ``PacketDropFault``,
+``OneWayPartitionFault``, ``FlipFlopFault``, ``ComposedFault``,
+``correlated_rack_failure``, ``LinkWindowFault``, ``LinkDelayFault``)
+answers ``is_crashed``, ``edge_ok`` and ``delay_of`` per message, and
+materializes crash and edge masks for a slot universe; probabilistic
+drops hash ``(seed, src uid, dst uid, tick)``, so every side samples the
+same drops without sharing rng state. ``link_windows_of`` lowers a
+model's link rules to ``LinkWindow`` normal form.
+
+The schedule half: ``LinkWindow``, ``DelayRule``, ``ScriptedPropose``,
+``AdversarySchedule`` (with ``fault_model``, its oracle-side twin) and
+``validate_schedule`` (slots in range, sane windows, rules and proposes,
+no two static windows or delay rules on one edge at once, every delay
+within the delivery ring); ``random_adversary_schedule``, the campaign
+sampler ``sample_adversary_schedule`` with its ``ScenarioWeights``, and
 ``two_zone_schedule``; and ``delay_of_slots``, the host rule for one
-edge's delay. Each sampler draws from one ``random.Random(seed)``
-stream in the reference's order, so a seed gives the reference's
-schedule. ``fleet.lower_schedule`` compiles proposes into a fallback
-instance; ``fleet.lower_receiver_schedule`` refuses them. The oracle's
-``FaultModel`` family (``AdversarySchedule.fault_model``) belongs to the
-host referee, a later slice, and is not here.
+edge's delay. Each sampler draws from one ``random.Random(seed)`` stream
+in the reference's order, so a seed gives the reference's schedule.
+``fleet.lower_schedule`` compiles proposes into a fallback instance;
+``fleet.lower_receiver_schedule`` refuses them.
 """
 from __future__ import annotations
 
 import random
-from dataclasses import dataclass
-from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, FrozenSet, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 
 from rapid_tpu_torch import hashing
+from rapid_tpu_torch.identity import uid_of
+from rapid_tpu_torch.types import Endpoint
 
 NEVER_TICK = (1 << 31) - 1  # int32-safe "never" sentinel
 
@@ -43,6 +53,21 @@ class LinkWindow:
     end_tick: int = NEVER_TICK
     period_ticks: int = 0
     two_way: bool = False
+
+    def active(self, tick: int) -> bool:
+        if not (self.start_tick <= tick < self.end_tick):
+            return False
+        if self.period_ticks <= 0:
+            return True
+        return ((tick - self.start_tick) // self.period_ticks) % 2 == 0
+
+    def blocks(self, src_slot: int, dst_slot: int, tick: int) -> bool:
+        if not self.active(tick):
+            return False
+        if src_slot in self.src_slots and dst_slot in self.dst_slots:
+            return True
+        return self.two_way and src_slot in self.dst_slots and \
+            dst_slot in self.src_slots
 
 
 @dataclass(frozen=True)
@@ -135,6 +160,15 @@ class AdversarySchedule:
         for slot, tick in self.crashes:
             ticks[slot] = min(ticks[slot], tick)
         return ticks
+
+    def fault_model(self, endpoints: Sequence[Endpoint]) -> "FaultModel":
+        """The oracle-side ``FaultModel`` of this schedule."""
+        crash = CrashFault({endpoints[slot]: tick
+                            for slot, tick in self.crashes})
+        models: List[FaultModel] = [crash, LinkWindowFault(self.windows)]
+        if self.delays:
+            models.append(LinkDelayFault(self.delays, self.seed))
+        return ComposedFault(models)
 
 
 class DelayBudgetError(ValueError):
@@ -593,3 +627,315 @@ def crash_window_delay_schedule(n: int, seed: int = 11) -> AdversarySchedule:
                           delay_ticks=1, jitter_ticks=2,
                           start_tick=5, end_tick=150),),
         seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# The oracle's fault models
+# ---------------------------------------------------------------------------
+
+
+class FaultModel:
+    """Base: a healthy network."""
+
+    def is_crashed(self, node: Endpoint, tick: int) -> bool:
+        return False
+
+    def edge_ok(self, src: Endpoint, dst: Endpoint, tick: int) -> bool:
+        """Whether a message sent src -> dst delivered at ``tick``
+        survives."""
+        return True
+
+    def delay_of(self, src: Endpoint, dst: Endpoint, tick: int) -> int:
+        """Extra delivery delay in ticks of a message *sent* src -> dst at
+        ``tick``, on top of the one-hop baseline."""
+        return 0
+
+    def crash_mask(self, endpoints: Sequence[Endpoint],
+                   tick: int) -> np.ndarray:
+        """bool[n]: True = crashed at tick."""
+        if type(self).is_crashed is FaultModel.is_crashed:
+            return np.zeros(len(endpoints), dtype=bool)
+        return np.array([self.is_crashed(e, tick) for e in endpoints],
+                        dtype=bool)
+
+    def edge_mask(self, endpoints: Sequence[Endpoint],
+                  tick: int) -> np.ndarray:
+        """bool[n, n]: [s, d] True = deliverable src->dst at tick (crashes
+        apart). The generic form calls ``edge_ok`` per pair; the models
+        below override it with array forms."""
+        n = len(endpoints)
+        mask = np.ones((n, n), dtype=bool)
+        if type(self).edge_ok is FaultModel.edge_ok:
+            return mask
+        for i, s in enumerate(endpoints):
+            for j, d in enumerate(endpoints):
+                if not self.edge_ok(s, d, tick):
+                    mask[i, j] = False
+        return mask
+
+
+HEALTHY = FaultModel()
+
+
+@dataclass
+class CrashFault(FaultModel):
+    """Nodes crash (fail-stop) at given ticks: {endpoint: crash_tick}."""
+
+    crashes: Dict[Endpoint, int] = field(default_factory=dict)
+
+    def is_crashed(self, node: Endpoint, tick: int) -> bool:
+        t = self.crashes.get(node)
+        return t is not None and tick >= t
+
+    def crash_mask(self, endpoints, tick):
+        ticks = np.array([self.crashes.get(e, np.iinfo(np.int64).max)
+                          for e in endpoints])
+        return ticks <= tick
+
+
+@dataclass
+class PacketDropFault(FaultModel):
+    """Drop with probability ``p`` on edges into (``ingress``) or out of
+    (``egress``) a target set, or everywhere without targets."""
+
+    p: float = 0.0
+    targets: Optional[FrozenSet[Endpoint]] = None
+    ingress: bool = True
+    egress: bool = True
+    seed: int = 0
+
+    def _applies(self, src: Endpoint, dst: Endpoint) -> bool:
+        if self.targets is None:
+            return True
+        return (self.ingress and dst in self.targets) or \
+               (self.egress and src in self.targets)
+
+    def edge_ok(self, src: Endpoint, dst: Endpoint, tick: int) -> bool:
+        if not self._applies(src, dst):
+            return True
+        return not _bernoulli(self.seed, uid_of(src), uid_of(dst), tick,
+                              self.p)
+
+    def edge_mask(self, endpoints, tick):
+        uids = np.array([uid_of(e) for e in endpoints], dtype=np.uint64)
+        drop = _bernoulli_matrix(self.seed, uids, tick, self.p)
+        if self.targets is not None:
+            t = np.array([e in self.targets for e in endpoints], dtype=bool)
+            applies = np.zeros((len(endpoints), len(endpoints)), dtype=bool)
+            if self.ingress:
+                applies |= t[None, :]
+            if self.egress:
+                applies |= t[:, None]
+            drop &= applies
+        return ~drop
+
+
+@dataclass
+class OneWayPartitionFault(FaultModel):
+    """Messages from ``from_set`` to ``to_set`` are dropped in
+    ``[start_tick, end_tick)``, one direction only."""
+
+    from_set: FrozenSet[Endpoint] = frozenset()
+    to_set: FrozenSet[Endpoint] = frozenset()
+    start_tick: int = 0
+    end_tick: int = 1 << 62
+
+    def edge_ok(self, src: Endpoint, dst: Endpoint, tick: int) -> bool:
+        if not (self.start_tick <= tick < self.end_tick):
+            return True
+        return not (src in self.from_set and dst in self.to_set)
+
+    def edge_mask(self, endpoints, tick):
+        n = len(endpoints)
+        if not (self.start_tick <= tick < self.end_tick):
+            return np.ones((n, n), dtype=bool)
+        f = np.array([e in self.from_set for e in endpoints], dtype=bool)
+        t = np.array([e in self.to_set for e in endpoints], dtype=bool)
+        return ~(f[:, None] & t[None, :])
+
+
+@dataclass
+class FlipFlopFault(FaultModel):
+    """A target set is unreachable for ``period_ticks``, then reachable
+    for ``period_ticks``, repeating from ``start_tick`` (off first);
+    ``one_way`` drops only messages into the targets."""
+
+    targets: FrozenSet[Endpoint] = frozenset()
+    period_ticks: int = 200
+    start_tick: int = 0
+    one_way: bool = True
+
+    def _off_phase(self, tick: int) -> bool:
+        if tick < self.start_tick:
+            return False
+        return ((tick - self.start_tick) // self.period_ticks) % 2 == 0
+
+    def edge_ok(self, src: Endpoint, dst: Endpoint, tick: int) -> bool:
+        if not self._off_phase(tick):
+            return True
+        if dst in self.targets and src not in self.targets:
+            return False
+        if not self.one_way and src in self.targets and \
+                dst not in self.targets:
+            return False
+        return True
+
+    def edge_mask(self, endpoints, tick):
+        n = len(endpoints)
+        if not self._off_phase(tick):
+            return np.ones((n, n), dtype=bool)
+        t = np.array([e in self.targets for e in endpoints], dtype=bool)
+        blocked = ~t[:, None] & t[None, :]
+        if not self.one_way:
+            blocked |= t[:, None] & ~t[None, :]
+        return ~blocked
+
+
+@dataclass
+class ComposedFault(FaultModel):
+    """Intersection of several fault models (all must allow delivery);
+    delays add."""
+
+    models: List[FaultModel] = field(default_factory=list)
+
+    def is_crashed(self, node, tick):
+        return any(m.is_crashed(node, tick) for m in self.models)
+
+    def edge_ok(self, src, dst, tick):
+        return all(m.edge_ok(src, dst, tick) for m in self.models)
+
+    def delay_of(self, src, dst, tick):
+        return sum(m.delay_of(src, dst, tick) for m in self.models)
+
+    def crash_mask(self, endpoints, tick):
+        mask = np.zeros(len(endpoints), dtype=bool)
+        for m in self.models:
+            mask |= m.crash_mask(endpoints, tick)
+        return mask
+
+    def edge_mask(self, endpoints, tick):
+        mask = np.ones((len(endpoints), len(endpoints)), dtype=bool)
+        for m in self.models:
+            mask &= m.edge_mask(endpoints, tick)
+        return mask
+
+
+def correlated_rack_failure(endpoints: Sequence[Endpoint],
+                            rack_of: Callable[[Endpoint], int],
+                            failed_racks: Set[int],
+                            crash_tick: int) -> CrashFault:
+    """All nodes in the failed racks crash together at ``crash_tick``."""
+    return CrashFault({e: crash_tick for e in endpoints
+                       if rack_of(e) in failed_racks})
+
+
+def _slot_of(endpoint: Endpoint) -> int:
+    """The slot of an ``nX.sim`` endpoint (``engine.diff
+    .default_endpoints``), -1 for any other."""
+    host = endpoint.hostname
+    return int(host[1:host.index(".")]) if host.startswith("n") else -1
+
+
+class LinkWindowFault(FaultModel):
+    """The oracle-side edge rule of slot-indexed ``LinkWindow``s, slots
+    resolved by the ``nX.sim`` convention."""
+
+    def __init__(self, windows: Sequence[LinkWindow]) -> None:
+        self.windows = tuple(windows)
+
+    _slot = staticmethod(_slot_of)
+
+    def edge_ok(self, src: Endpoint, dst: Endpoint, tick: int) -> bool:
+        s, d = self._slot(src), self._slot(dst)
+        return not any(w.blocks(s, d, tick) for w in self.windows)
+
+    def edge_mask(self, endpoints, tick):
+        n = len(endpoints)
+        mask = np.ones((n, n), dtype=bool)
+        slots = np.array([self._slot(e) for e in endpoints])
+        for w in self.windows:
+            if not w.active(tick):
+                continue
+            s = np.isin(slots, list(w.src_slots))
+            d = np.isin(slots, list(w.dst_slots))
+            blocked = s[:, None] & d[None, :]
+            if w.two_way:
+                blocked |= d[:, None] & s[None, :]
+            mask &= ~blocked
+        return mask
+
+
+class LinkDelayFault(FaultModel):
+    """The oracle-side latency rule of slot-indexed ``DelayRule``s; it
+    drops nothing."""
+
+    def __init__(self, delays: Sequence[DelayRule], seed: int) -> None:
+        self.delays = tuple(delays)
+        self.seed = seed
+
+    _slot = staticmethod(_slot_of)
+
+    def delay_of(self, src: Endpoint, dst: Endpoint, tick: int) -> int:
+        return delay_of_slots(self.delays, self.seed, self._slot(src),
+                              self._slot(dst), tick)
+
+
+def link_windows_of(model: FaultModel, endpoints: Sequence[Endpoint]
+                    ) -> Optional[List[LinkWindow]]:
+    """A model's link rules in ``LinkWindow`` normal form (slots follow
+    ``endpoints`` order), or None when no window set reproduces them
+    exactly (probabilistic drops)."""
+    slot_of = {e: i for i, e in enumerate(endpoints)}
+
+    def slots(es) -> FrozenSet[int]:
+        return frozenset(slot_of[e] for e in es if e in slot_of)
+
+    if isinstance(model, ComposedFault):
+        out: List[LinkWindow] = []
+        for m in model.models:
+            sub = link_windows_of(m, endpoints)
+            if sub is None:
+                return None
+            out += sub
+        return out
+    if isinstance(model, LinkWindowFault):
+        return list(model.windows)
+    if isinstance(model, OneWayPartitionFault):
+        return [LinkWindow(src_slots=slots(model.from_set),
+                           dst_slots=slots(model.to_set),
+                           start_tick=model.start_tick,
+                           end_tick=min(model.end_tick, NEVER_TICK))]
+    if isinstance(model, FlipFlopFault):
+        t = slots(model.targets)
+        others = frozenset(range(len(endpoints))) - t
+        return [LinkWindow(src_slots=others, dst_slots=t,
+                           start_tick=model.start_tick,
+                           period_ticks=model.period_ticks,
+                           two_way=not model.one_way)]
+    if isinstance(model, CrashFault) or type(model) is FaultModel:
+        return []
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Seeded Bernoulli drops
+# ---------------------------------------------------------------------------
+
+_P_SCALE = float(1 << 32)
+
+
+def _bernoulli(seed: int, src_uid: int, dst_uid: int, tick: int,
+               p: float) -> bool:
+    h = hashing.hash64(
+        src_uid ^ hashing.hash64(dst_uid, seed=tick & hashing.MASK64),
+        seed=seed ^ 0xD809F)
+    return (h >> 32) < int(p * _P_SCALE)
+
+
+def _bernoulli_matrix(seed: int, uids: np.ndarray, tick: int,
+                      p: float) -> np.ndarray:
+    """bool[n, n] of drop decisions; [s, d] is ``_bernoulli(s, d)``."""
+    uids = uids.astype(np.uint64)
+    th = hashing.hash64_np(uids, tick & hashing.MASK64)
+    h = hashing.hash64_np(uids[:, None] ^ th[None, :], seed ^ 0xD809F)
+    return (h >> np.uint64(32)) < np.uint64(int(p * _P_SCALE))

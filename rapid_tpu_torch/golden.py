@@ -706,11 +706,23 @@ class Folds(NamedTuple):
 
 
 def port_folds() -> Folds:
+    from rapid_tpu_torch.engine.receiver import receiver_run_payload
     from rapid_tpu_torch.telemetry import lineage, metrics, schema
 
-    return Folds(metrics, lineage, schema,
-                 lambda final, log, n: metrics.receiver_metrics(log, n),
+    def receiver_metrics(final, log, n):
+        final, log = _tensor_tree(final), _tensor_tree(log)
+        return receiver_run_payload(final, log, n, len(log.tick)).metrics()
+
+    return Folds(metrics, lineage, schema, receiver_metrics,
                  schedule_from_json)
+
+
+def _tensor_tree(nt):
+    """A NamedTuple of host arrays or tensors as one of tensors (host
+    arrays shared, not copied)."""
+    import torch
+
+    return type(nt)(*[torch.as_tensor(x) for x in nt])
 
 
 def log_columns(rec: dict):

@@ -173,6 +173,18 @@ def hash64_limbs(hi, lo, seed: int = 0):
     return splitmix64_limbs(hi ^ ((s >> 32) & MASK32), lo ^ (s & MASK32))
 
 
+def hash64_np(values: np.ndarray, seed: int) -> np.ndarray:
+    """uint64 ``hash64(v, seed)`` of every uint64 in ``values`` (any
+    shape), by the limb math on CPU tensors."""
+    hi, lo = np_to_limbs(np.asarray(values).reshape(-1))
+    h_hi, h_lo = hash64_limbs(torch.from_numpy(hi.astype(np.int64)),
+                              torch.from_numpy(lo.astype(np.int64)),
+                              seed=seed)
+    out = (h_hi.numpy().astype(np.uint64) << np.uint64(32)) \
+        | h_lo.numpy().astype(np.uint64)
+    return out.reshape(np.shape(values))
+
+
 def hash64_limbs_dynseed(hi, lo, seed_hi, seed_lo):
     """``hash64_limbs`` with the seed as limb tensors (a tick, a rule seed);
     matches ``hash64(x, seed)`` bit for bit."""

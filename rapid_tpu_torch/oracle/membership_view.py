@@ -1,6 +1,7 @@
-"""K-ring membership view, the host mirror the churn planner replays.
+"""K-ring membership view of the host oracle and the churn planner.
 
-Own copy of the reference oracle's ``MembershipView``: K rings, each
+Own copy of the reference oracle's ``MembershipView`` and
+``Configuration`` (the snapshot a joiner is streamed): K rings, each
 ordering the members by ``(hash64(uid, seed=k), uid, endpoint)``;
 observers are ring successors, subjects ring predecessors, and a
 joiner's expected observers (its gatekeepers) the predecessors of its
@@ -19,7 +20,6 @@ import bisect
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.identity import SEED_MEMBER, id_fingerprint, uid_of
@@ -45,17 +45,6 @@ def configuration_id(id_fp_sum: int, member_fp_sum: int) -> int:
         & MASK64)
 
 
-def _hash64_all(values: np.ndarray, seed: int) -> List[int]:
-    """``hashing.hash64(v, seed)`` of every uint64 in ``values``."""
-    hi, lo = hashing.np_to_limbs(values)
-    h_hi, h_lo = hashing.hash64_limbs(torch.from_numpy(hi.astype(np.int64)),
-                                      torch.from_numpy(lo.astype(np.int64)),
-                                      seed=seed)
-    out = (h_hi.numpy().astype(np.uint64) << np.uint64(32)) \
-        | h_lo.numpy().astype(np.uint64)
-    return out.tolist()
-
-
 class NodeAlreadyInRingError(RuntimeError):
     pass
 
@@ -66,6 +55,30 @@ class NodeNotInRingError(RuntimeError):
 
 class UUIDAlreadySeenError(RuntimeError):
     pass
+
+
+class Configuration:
+    """A snapshot sufficient to bootstrap an identical view: what a
+    joiner receives. A view snapshotting itself passes its running
+    fingerprint sums; one built from a response recomputes them."""
+
+    def __init__(self, node_ids: Sequence[NodeId],
+                 endpoints: Sequence[Endpoint],
+                 id_fp_sum: Optional[int] = None,
+                 member_fp_sum: Optional[int] = None):
+        self.node_ids: Tuple[NodeId, ...] = tuple(node_ids)
+        self.endpoints: Tuple[Endpoint, ...] = tuple(endpoints)
+        self._id_fp_sum = id_fp_sum
+        self._member_fp_sum = member_fp_sum
+
+    def get_configuration_id(self) -> int:
+        if self._id_fp_sum is None:
+            self._id_fp_sum = sum(
+                id_fingerprint(i) for i in self.node_ids) & MASK64
+        if self._member_fp_sum is None:
+            self._member_fp_sum = sum(
+                member_fingerprint(e) for e in self.endpoints) & MASK64
+        return configuration_id(self._id_fp_sum, self._member_fp_sum)
 
 
 class MembershipView:
@@ -87,10 +100,12 @@ class MembershipView:
         uid_list = uids.tolist()
         # ring[k] is a sorted list of (ring_key, uid, Endpoint)
         self._rings: List[List[Tuple[int, int, Endpoint]]] = [
-            sorted(zip(_hash64_all(uids, ring), uid_list, endpoints))
+            sorted(zip(hashing.hash64_np(uids, ring).tolist(), uid_list,
+                       endpoints))
             for ring in range(k)]
         self._all_nodes: Dict[Endpoint, None] = dict.fromkeys(endpoints)
-        self._member_fp_sum = sum(_hash64_all(uids, SEED_MEMBER)) & MASK64
+        self._member_fp_sum = sum(
+            hashing.hash64_np(uids, SEED_MEMBER).tolist()) & MASK64
 
     # -- internal helpers ---------------------------------------------------
 
@@ -188,8 +203,17 @@ class MembershipView:
             return []
         return [self._neighbor(k, node, -1) for k in range(self.K)]
 
+    def get_ring_numbers(self, observer: Endpoint,
+                         subject: Endpoint) -> List[int]:
+        """The rings ``k`` on which ``subject`` is ``observer``'s subject."""
+        subjects = self.get_subjects_of(observer)
+        return [k for k, s in enumerate(subjects) if s == subject]
+
     def is_host_present(self, endpoint: Endpoint) -> bool:
         return endpoint in self._all_nodes
+
+    def is_identifier_present(self, node_id: NodeId) -> bool:
+        return node_id in self._identifiers_seen
 
     def get_ring(self, k: int) -> List[Endpoint]:
         return [e for _, _, e in self._rings[k]]
@@ -199,6 +223,15 @@ class MembershipView:
 
     def get_current_configuration_id(self) -> int:
         return configuration_id(self._id_fp_sum, self._member_fp_sum)
+
+    def get_configuration(self) -> Configuration:
+        """The snapshot, with the running sums handed over."""
+        return Configuration(
+            sorted(self._identifiers_seen, key=lambda i: (i.high, i.low)),
+            self.get_ring(0),
+            id_fp_sum=self._id_fp_sum,
+            member_fp_sum=self._member_fp_sum,
+        )
 
     def ring0_sort_key(self, endpoint: Endpoint):
         """Ring-0 hash order, the consistent order of endpoint lists."""

@@ -9,8 +9,7 @@ fleets) or numpy columns, reads the fields it needs to the host in one
 transfer (``metrics.host_log``), then works in numpy as the reference
 does.
 
-- ``metrics``: ``TickMetrics``, ``engine_metrics`` (and
-  ``receiver_metrics`` for the per-receiver engine), ``summarize``,
+- ``metrics``: ``TickMetrics``, ``engine_metrics``, ``summarize``,
   ``fleet_summaries``, ``merge_summaries``, the campaign distributions;
 - ``lineage``: phase-attributed view-change spans;
 - ``slo``: rolling SLO windows and the view-change folds that feed them;

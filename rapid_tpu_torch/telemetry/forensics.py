@@ -1,10 +1,14 @@
 """First-divergence reports, as the reference's forensics builds them.
 
-Own copies of ``Divergence``, ``DivergenceReport``, ``DivergenceError``
-and ``build_report``: a located divergence (tick, field, our value, the
-reference side's value) with the trailing context records before it,
-rendered as an ``AssertionError`` message and optionally written as a
-JSONL artifact (context records first, the divergence record last).
+Own copies of ``Divergence``, ``DivergenceReport``, ``DivergenceError``,
+the finders and ``build_report``: a located divergence (tick, field, our
+value, the reference side's value) with the trailing context records
+before it, rendered as an ``AssertionError`` message and optionally
+written as a JSONL artifact (context records first, the divergence
+record last). The finders (``events_divergence``,
+``counters_divergence``, ``scalar_divergence``) return ``Divergence``
+records; ``earliest`` picks the one with the smallest tick, list order
+breaking ties.
 """
 from __future__ import annotations
 
@@ -12,6 +16,9 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
+
+#: Event fields compared in order; the first mismatch names the field.
+_EVENT_FIELDS = ("tick", "kind", "slots", "config_id")
 
 
 def _jsonable(v):
@@ -82,6 +89,58 @@ class DivergenceError(AssertionError):
         if artifact:
             msg += f"\nforensics artifact: {artifact}"
         super().__init__(msg)
+
+
+def events_divergence(engine_events: Sequence, oracle_events: Sequence,
+                      prefix: str = "events") -> Optional[Divergence]:
+    """First field-level mismatch between two ViewEvent streams."""
+    for i, (ev, ov) in enumerate(zip(engine_events, oracle_events)):
+        for f in _EVENT_FIELDS:
+            evf, ovf = getattr(ev, f), getattr(ov, f)
+            if evf != ovf:
+                return Divergence(min(ev.tick, ov.tick),
+                                  f"{prefix}[{i}].{f}", evf, ovf)
+    if len(engine_events) != len(oracle_events):
+        i = min(len(engine_events), len(oracle_events))
+        longer = engine_events if len(engine_events) > len(oracle_events) \
+            else oracle_events
+        return Divergence(longer[i].tick, f"{prefix}.length",
+                          len(engine_events), len(oracle_events))
+    return None
+
+
+def counters_divergence(engine_counters: Sequence[Dict[str, int]],
+                        oracle_counters: Sequence[Dict[str, int]],
+                        start_tick: int = 0) -> Optional[Divergence]:
+    """First per-tick counter mismatch (tick = start_tick + 1 + i)."""
+    for i, (eng, orc) in enumerate(zip(engine_counters, oracle_counters)):
+        for key in sorted(set(eng) | set(orc)):
+            ev, ov = eng.get(key), orc.get(key)
+            if ev != ov:
+                return Divergence(start_tick + 1 + i, f"counters.{key}",
+                                  ev, ov)
+    return None
+
+
+def scalar_divergence(name: str, engine_value, oracle_value,
+                      tick: int) -> Optional[Divergence]:
+    """End-of-run scalar comparison (config ids, final memberships)."""
+    if engine_value != oracle_value:
+        return Divergence(tick, name, engine_value, oracle_value)
+    return None
+
+
+def earliest(candidates: Sequence[Optional[Divergence]]
+             ) -> Optional[Divergence]:
+    """The divergence with the smallest tick; list order breaks ties."""
+    found = [d for d in candidates if d is not None]
+    if not found:
+        return None
+    best = found[0]
+    for d in found[1:]:
+        if d.tick < best.tick:
+            best = d
+    return best
 
 
 def build_report(div: Divergence,

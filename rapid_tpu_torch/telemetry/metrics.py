@@ -6,10 +6,10 @@ logs per-tick sender and recipient *factors* (``StepLog``) that
 ``engine_metrics`` normalizes them, with the log's end-of-tick gauges,
 into ``TickMetrics``, the record ``summarize`` folds into the per-run
 ``RunSummary`` the benchmarks embed in their payloads. The per-receiver
-engine counts its messages directly (``ReceiverStepLog``);
-``receiver_metrics`` gives its rows as the reference's
-``AdversaryRun.metrics`` does. ``oracle_metrics`` normalizes a host
-referee's counter dicts.
+engine counts its messages directly (``ReceiverStepLog``); its rows come
+from ``engine.receiver.receiver_run_payload(...).metrics()``, as in the
+reference. ``oracle_metrics`` normalizes a host referee's counter
+dicts.
 
 Counter fields (``COUNTER_FIELDS``) are observable on every source;
 gauges read ``UNOBSERVED`` where a source does not observe them.
@@ -155,39 +155,6 @@ def engine_metrics(logs) -> List[TickMetrics]:
             decide=bool(logs.decide_now[i]),
         ))
     return out
-
-
-#: ``ReceiverStepLog`` fields ``receiver_metrics`` reads.
-_RECEIVER_FIELDS = ("tick", "sent", "delivered", "dropped", "probes_sent",
-                    "probes_failed", "partitioned_edges", "link_dropped",
-                    "fv_sent", "p1a_sent", "p1b_sent", "p2a_sent",
-                    "p2b_sent", "announce", "decide")
-
-
-def receiver_metrics(logs, n: int) -> List[TickMetrics]:
-    """One per-receiver run's ``ReceiverStepLog`` (``[T]`` and ``[T, C]``
-    fields) as TickMetrics, as the reference's ``AdversaryRun.metrics``
-    gives them for its first ``n`` slots: the exact counters, the fault
-    context, the per-phase sends, and a tick announces (decides) when any
-    of those slots does."""
-    logs = host_log(logs, _RECEIVER_FIELDS)
-    ann = logs.announce[:, :n].any(axis=1)
-    dec = logs.decide[:, :n].any(axis=1)
-    return [TickMetrics(
-        tick=int(logs.tick[i]), source="engine",
-        sent=int(logs.sent[i]), delivered=int(logs.delivered[i]),
-        dropped=int(logs.dropped[i]), timeouts=0,
-        probes_sent=int(logs.probes_sent[i]),
-        probes_failed=int(logs.probes_failed[i]),
-        partitioned_edges=int(logs.partitioned_edges[i]),
-        link_dropped=int(logs.link_dropped[i]),
-        px_fast_vote_sent=int(logs.fv_sent[i]),
-        px_phase1a_sent=int(logs.p1a_sent[i]),
-        px_phase1b_sent=int(logs.p1b_sent[i]),
-        px_phase2a_sent=int(logs.p2a_sent[i]),
-        px_phase2b_sent=int(logs.p2b_sent[i]),
-        announce=bool(ann[i]), decide=bool(dec[i]))
-        for i in range(len(logs.tick))]
 
 
 def oracle_metrics(per_tick_counters: Sequence[Dict[str, int]],

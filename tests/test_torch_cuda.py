@@ -223,3 +223,44 @@ def test_telemetry_folds_card_logs_as_cpu_logs(card):
     assert records[0] == records[1]
     assert records[0]["errors"] == []
     assert records[0]["summary"]["decisions"] == 1
+
+
+@pytest.mark.parametrize("rx_kernel", ["xla", "packed"])
+def test_receiver_differential_on_card(card, rx_kernel):
+    """The referee holds the card's per-receiver run at N=64, and the card's
+    result equals the CPU's field by field. The scenario is
+    ``chip_smoke.half_delay_schedule``: slot 63 crashes at tick 11, and
+    the first half's alert batches and votes arrive 2-3 ticks late."""
+    from rapid_tpu_torch.convert import plain
+    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.faults import AdversarySchedule, DelayRule
+
+    settings = Settings(rx_kernel=rx_kernel)
+    schedule = AdversarySchedule(
+        n=64, crashes=((63, 11),), seed=41,
+        delays=(DelayRule(src_slots=frozenset(range(32)),
+                          dst_slots=frozenset(range(64)), delay_ticks=2,
+                          jitter_ticks=1),))
+    before = (rx_account.deliver_launches, rx_account.launches)
+    on_card = diff.run_receiver_differential(schedule, 200, settings,
+                                             device=card)
+    launched = (rx_account.deliver_launches - before[0],
+                rx_account.launches - before[1])
+    on_card.assert_identical()
+    assert launched == (6 * 200, 0)
+    on_cpu = diff.run_receiver_differential(schedule, 200, settings,
+                                            device="cpu")
+    assert plain(on_card) == plain(on_cpu)
+
+
+def test_shared_differential_on_card(card):
+    from rapid_tpu_torch.convert import plain
+    from rapid_tpu_torch.engine import diff
+
+    on_card = diff.run_differential(64, {3: 5, 17: 5, 40: 7}, 130,
+                                    device=card)
+    on_card.assert_identical()
+    assert [e.slots for e in on_card.engine_events] == [(3, 17, 40)] * 2
+    on_cpu = diff.run_differential(64, {3: 5, 17: 5, 40: 7}, 130,
+                                   device="cpu")
+    assert plain(on_card) == plain(on_cpu)

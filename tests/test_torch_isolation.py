@@ -39,12 +39,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "rapid_tpu_torch.engine.churn" in result["modules"]
     assert "rapid_tpu_torch.telemetry.metrics" in result["modules"]
     assert "rapid_tpu_torch.telemetry.lineage" in result["modules"]
+    for name in ("events", "engine.adversary", "engine.diff",
+                 "variants.oracle", "oracle.interfaces", "oracle.metadata",
+                 "oracle.failure_detector", "oracle.testkit", "oracle.paxos",
+                 "oracle.service", "oracle.simulation", "oracle.cluster"):
+        assert f"rapid_tpu_torch.{name}" in result["modules"], name
 
 
 def _entry_points():
     from rapid_tpu_torch import golden
     from rapid_tpu_torch.convert import from_reference
-    from rapid_tpu_torch.engine import churn, paxos, receiver, state, step
+    from rapid_tpu_torch.engine import churn, diff, paxos, receiver, state, step
     from rapid_tpu_torch.faults import crash_window_delay_schedule
     from rapid_tpu_torch.identity import default_identities
     from rapid_tpu_torch.settings import Settings
@@ -67,6 +72,18 @@ def _entry_points():
             paxos.empty_fallback_schedule(8)),
         "SharedScenario.boot": lambda: golden.SHARED[
             "shared_n1000_churn"].boot(),
+        "run_differential": lambda: diff.run_differential(8, {2: 3}, 10),
+        "run_churn_differential": lambda: diff.run_churn_differential(
+            8, 9, 10, joins={8: 2}),
+        "run_fallback_differential": lambda: diff.run_fallback_differential(
+            8, [[0], [1]], {s: (6, s % 2) for s in range(8)},
+            {s: 10 + s for s in range(8)}, 10),
+        "run_variant_differential": lambda: diff.run_variant_differential(
+            8, {2: 3}, 10, "ring"),
+        "run_receiver_differential": lambda: diff.run_receiver_differential(
+            crash_window_delay_schedule(16), 10, settings),
+        "run_lineage_differential": lambda: diff.run_lineage_differential(
+            "steady", 8, 10),
         "simulate": lambda: step.simulate(
             state.init_state(uids, id_fp_sum, settings, device="cpu"),
             state.crash_faults([5] * 8, device="cpu"), 1, settings),

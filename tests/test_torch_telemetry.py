@@ -9,7 +9,7 @@ The same runs through both packages, each folded by its own telemetry:
   ``TickMetrics`` rows, ``RunSummary`` blocks, JSONL bytes and Perfetto
   JSON (the wall-clock track's times dropped);
 - the per-receiver engine at N=16 (``crash_window_delay_schedule``):
-  ``receiver_metrics`` equal to the reference's ``AdversaryRun.metrics``;
+  ``receiver_run_payload(...).metrics()`` equal to the reference's;
 - a shared fleet of three N=16 members: ``fleet_summaries``,
   ``merge_summaries`` and ``summary_distributions``;
 - the SLO windows and both view-change folds fed the same streams in
@@ -209,9 +209,9 @@ def test_receiver_metrics_equal_the_reference():
                                        ticks).metrics()
     pmember = receiver.lower_receiver_schedule(sched, Settings(),
                                                device="cpu")
-    _, logs = receiver.receiver_simulate(pmember.state, pmember.faults,
-                                         ticks, Settings())
-    got = metrics.receiver_metrics(logs, 16)
+    final, logs = receiver.receiver_simulate(pmember.state, pmember.faults,
+                                             ticks, Settings())
+    got = receiver.receiver_run_payload(final, logs, 16, ticks).metrics()
     assert [m.as_dict() for m in got] == [m.as_dict() for m in want]
     assert metrics.summarize(got).as_dict() == \
         ref_metrics.summarize(want).as_dict()
