@@ -93,15 +93,16 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``rx_deliver``'s launches (720 for a per-receiver pool, none for a
     shared one), counted from 0 around each pool's run;
 18. scaling: pools 0 and 3 at F in {1, 16, 64, 256} (prefixes of the same
-    members), 40 ticks, in turns, up then down, each run's logs equal to
-    phase 17's for those members and ticks, printing ms per member-tick;
+    members), 40 ticks, each F once from small to large, each run's
+    logs equal to phase 17's for those members and ticks, printing ms
+    per member-tick;
     and member 0 through the one-cluster entry points (``simulate``,
     ``receiver_simulate``), 120 ticks, equal to its entry;
 19. the per-receiver carry layouts at the main path's width: phase 4's
     run under ``Settings()`` (``rx_kernel="xla"``, the dense carry) and
-    under ``"packed"``, in turns with ``"pallas"`` (xla, packed, pallas,
-    pallas, packed, xla), every run equal to phase 4's (logs and final
-    state), ``rx_deliver`` 960 launches and ``rx_account`` none each;
+    under ``"packed"`` and ``"pallas"``, one run each, every run equal
+    to phase 4's (logs and final state), ``rx_deliver`` 960 launches and
+    ``rx_account`` none each;
     prints ms/tick, host reads/tick and peak memory per layout, and
     kernels per tick over ticks 106-120 under ``torch.profiler``;
 20. phase 5's N=4096 partition under ``"xla"``, in turns with
@@ -142,7 +143,33 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``assert_identical``: a crash burst, joins and leaves, a joiner whose
     first node-id draw collides (the identifier redraw), a contested
     instance decided by the classic round, and the burst under "ring" and
-    "hier"; prints the oracle's host seconds and the engine's ms/tick.
+    "hier"; prints the oracle's host seconds and the engine's ms/tick;
+25. the slice's main path, a campaign at full width:
+    ``campaign.run_campaign`` at ``benchmarks/campaign_4096.json``'s
+    configuration (4,096 clusters of N=32, 120 ticks, seed 0, dispatches
+    of 256, 16 churn slots, every kind at weight 1, a 16-row recorder,
+    the dense carry): 18 dispatches in 4 pools, ``rx_deliver`` launched
+    7,920 times (6 a tick of 11 per-receiver dispatches); the payload
+    equal to ``rapid_tpu_torch/testdata/campaign_4096_reference.json``
+    (the reference's payload without its wall keys) in every field, its
+    ``campaign`` block equal to the committed file's on every key the
+    file has but ``per_receiver.capacity_cap`` (4,096 since the file was
+    written), ``bench_compare``'s exact fields (``exact_errors``, a copy
+    of them) clean against the golden file, and the port's schema
+    validators clean; prints the wall, the six stage sums, device-busy
+    and host-blocked seconds, clusters/s, µs per member-tick per pool and
+    the peak memory;
+26. replay: every triage exemplar of ``benchmarks/campaign_4096.json``
+    (12) through ``replay.replay_member``, each verified (``match`` and
+    ``recorder_match``) with its lineage spans equal to phase 25's
+    exemplar's; the one of ``campaign_rx4096.json`` (N=4096, 8 ticks, the
+    packed carry); and ``oracle=True`` on 5:0 and 7:58, each verdict the
+    reference's (``REPLAY_ORACLE_VERDICTS``);
+27. the other committed payloads: a campaign at ``baseline.json``'s
+    ``fleet`` configuration, clean on the exact fields against that
+    entry, and ``run_tournament(["rapid", "ring"])`` at
+    ``campaign_tournament.json``'s configuration, its whole ``campaign``
+    block equal to the file's.
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -156,7 +183,9 @@ the same for fleets.
 
 ``rx_deliver``'s entry of the ``kernels`` line carries its launches on
 phase 4's run under each layout (``launches_by_layout``) and on each of
-phase 23's runs (``referee_launches``). The line
+phase 23's runs (``referee_launches``), phase 25's campaign
+(``campaign_launches``), phase 26's replays (``replay_launches``) and
+phase 27's runs (``committed_launches``). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -1131,7 +1160,7 @@ def single_member_run(pool, member: dict, device) -> tuple:
     else:
         dense, logs = receiver.receiver_simulate(one.state, one.faults,
                                                  ticks, settings)
-        final = golden.final_view(dense)
+        final = receiver.receiver_final_fields(dense)
         rec = None
     end.record()
     end.synchronize()
@@ -1144,7 +1173,7 @@ def single_member_run(pool, member: dict, device) -> tuple:
 
 def phase_fleet_scaling(device, full: dict) -> dict:
     """Phase 18: pools 0 and 3 at F in ``SCALE_F`` (prefixes of the same
-    members) for ``SCALE_TICKS`` ticks, in turns (up, then down), each
+    members) for ``SCALE_TICKS`` ticks, each F once, each
     run's logs equal to the first F members' first ticks of phase 17's
     run (``full``), and member 0 through the one-cluster path, equal to
     its golden entry."""
@@ -1158,7 +1187,7 @@ def phase_fleet_scaling(device, full: dict) -> dict:
         inputs = golden.pool_inputs(want)
         runs = {f: [] for f in SCALE_F}
         reads = {}
-        for f in SCALE_F + SCALE_F[::-1]:
+        for f in SCALE_F:
             res, stats = fleet_run(pool, inputs[:f], device, SCALE_TICKS)
             ref_logs = full[pool_id][1]
             for name, got in zip(res[1]._fields, res[1]):
@@ -1177,7 +1206,7 @@ def phase_fleet_scaling(device, full: dict) -> dict:
                         "host_reads_per_tick": reads,
                         "single_member_ms_per_tick": single_ms}
         log(f"phase 18: pool {pool_id}, {SCALE_TICKS} ticks, ms per "
-            f"member-tick by F (in turns, up then down): "
+            f"member-tick by F: "
             f"{ {f: [round(t, 5) for t in v] for f, v in runs.items()} }, "
             f"host reads/tick {reads}, every run's logs equal to phase "
             f"17's; member 0 alone through the one-cluster path, 120 "
@@ -1224,7 +1253,7 @@ def layout_run(member, settings, ticks: int, rx_account, want, label):
 
 
 def phase_layouts(rx_account, device, keep: dict) -> dict:
-    """Phase 19: phase 4's run under each carry layout, in turns, every
+    """Phase 19: phase 4's run under each carry layout, one run each, every
     run equal to phase 4's; then each layout's kernels per tick over
     ticks 106-120 under ``torch.profiler``."""
     from rapid_tpu_torch import profile, tick_time
@@ -1242,7 +1271,7 @@ def phase_layouts(rx_account, device, keep: dict) -> dict:
         raise AssertionError("Settings() did not lower a dense member")
     runs = {k: [] for k in LAYOUTS}
     launches = {}
-    for k in LAYOUTS + LAYOUTS[::-1]:
+    for k in LAYOUTS:
         _, _, stats = layout_run(members[k], settings[k], ticks, rx_account,
                                  keep["main"], f"phase 19 {k}")
         runs[k].append(stats)
@@ -1378,6 +1407,7 @@ def phase_telemetry(keep: dict, pool_outputs: dict) -> dict:
     import tempfile
 
     from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import receiver
     from rapid_tpu_torch.settings import Settings
     from rapid_tpu_torch.telemetry import trace
 
@@ -1408,7 +1438,7 @@ def phase_telemetry(keep: dict, pool_outputs: dict) -> dict:
         members = golden.pool_inputs(golden.load(pool.path))
         res = pool_outputs[pool_id]
         finals = (None if pool.mode == "shared"
-                  else golden.final_view(res[0]))
+                  else receiver.receiver_final_fields(res[0]))
         held(f"fleet_pool{pool_id}", lambda: golden.pool_telemetry(
             folds, pool, members, res[1], finals))
     log(f"phase 22: the port's folds of phases 7, 9, 10, 14 (N=1024 "
@@ -1716,6 +1746,337 @@ def phase_referee_shared(rx_account, device) -> dict:
     return out
 
 
+# --- phases 25-27: campaigns, replay, the committed payloads -------------
+
+#: ``rx_deliver`` launches of the 4,096-cluster campaign: 11 per-receiver
+#: dispatches of 120 ticks, 6 launches a tick.
+CAMPAIGN_LAUNCHES = 11 * 120 * 6
+#: The reference's ``replay_member(..., oracle=True)`` verdicts on
+#: ``benchmarks/campaign_4096.json``'s exemplars 5:0 (contested,
+#: ``run_adversarial_differential``) and 7:58 (delay,
+#: ``run_receiver_differential``); ``tests/test_torch_replay.py`` backs
+#: them with the reference.
+REPLAY_ORACLE_VERDICTS = {"5:0": True, "7:58": True}
+
+#: A copy of ``scripts/bench_compare.py``'s exact checks (that script
+#: imports the reference): config keys, run-level protocol counts, the
+#: telemetry's protocol keys, the whole ``campaign`` block and the
+#: structural keys of ``dispatch_timeline``.
+EXACT_CONFIG_KEYS = ("n", "ticks", "k", "clusters", "fleet_size", "capacity",
+                     "chunk_ticks")
+EXACT_RUN_KEYS = (
+    "announcements", "decisions", "final_members", "crashed_nodes",
+    "churn_bursts", "burst_size", "contested_instances",
+    "ticks_to_first_decide", "messages_per_view_change",
+    "events_injected", "joins", "leaves", "bursts", "chunks",
+    "traffic", "ticks_to_view_change", "lineage", "checkpoint")
+EXACT_TELEMETRY_KEYS = (
+    "announcements", "decisions", "ticks_to_first_announce",
+    "ticks_to_first_decide", "messages_per_view_change", "total_sent",
+    "total_delivered", "total_dropped", "total_timeouts",
+    "total_probes_sent", "total_probes_failed", "invariant_violations",
+    "fallback_phase_sent", "view_changes", "max_partitioned_edges",
+    "total_link_dropped")
+EXACT_DISPATCH_KEYS = ("index", "mode", "pool_id", "pool_shape", "members",
+                       "pad_members", "fleet_size", "kinds", "compiled",
+                       "padding")
+
+
+def exact_errors(current: dict, baseline: dict, where: str) -> list:
+    """The errors ``bench_compare.compare_run`` reports on ``current``
+    against ``baseline`` (its warnings on rates left out)."""
+    errors = []
+    for key in EXACT_CONFIG_KEYS:
+        if current.get(key) != baseline.get(key):
+            errors.append(
+                f"{where}.{key}: config mismatch (current "
+                f"{current.get(key)!r} vs baseline {baseline.get(key)!r}) "
+                f"— regenerate the baseline with --update-baseline")
+            return errors
+    for key in EXACT_RUN_KEYS:
+        if key not in current and key not in baseline:
+            continue
+        if current.get(key) != baseline.get(key):
+            errors.append(f"{where}.{key}: {current.get(key)!r} != "
+                          f"baseline {baseline.get(key)!r}")
+    cur_tel = current.get("telemetry") or {}
+    base_tel = baseline.get("telemetry") or {}
+    for key in EXACT_TELEMETRY_KEYS:
+        if cur_tel.get(key) != base_tel.get(key):
+            errors.append(f"{where}.telemetry.{key}: {cur_tel.get(key)!r} "
+                          f"!= baseline {base_tel.get(key)!r}")
+    if "campaign" in current or "campaign" in baseline:
+        cur_c = current.get("campaign") or {}
+        base_c = baseline.get("campaign") or {}
+        for key in sorted(set(cur_c) | set(base_c)):
+            if cur_c.get(key) != base_c.get(key):
+                errors.append(f"{where}.campaign.{key}: "
+                              f"{cur_c.get(key)!r} != baseline "
+                              f"{base_c.get(key)!r}")
+    if "dispatch_timeline" in current or "dispatch_timeline" in baseline:
+        cur_t = current.get("dispatch_timeline") or []
+        base_t = baseline.get("dispatch_timeline") or []
+        if len(cur_t) != len(base_t):
+            errors.append(
+                f"{where}.dispatch_timeline: {len(cur_t)} dispatch "
+                f"record(s) != baseline {len(base_t)}")
+        for i, (cur_d, base_d) in enumerate(zip(cur_t, base_t)):
+            for key in EXACT_DISPATCH_KEYS:
+                if cur_d.get(key) != base_d.get(key):
+                    errors.append(
+                        f"{where}.dispatch_timeline[{i}].{key}: "
+                        f"{cur_d.get(key)!r} != baseline "
+                        f"{base_d.get(key)!r}")
+    return errors
+
+
+def committed_errors(want, got, path: str = "", skip=()) -> list:
+    """Paths where ``got`` differs from ``want`` on the keys ``want`` has
+    (recursively, lists element by element), but ``skip``."""
+    if path in skip:
+        return []
+    if isinstance(want, dict):
+        if not isinstance(got, dict):
+            return [path]
+        return [e for k, v in want.items()
+                for e in committed_errors(v, got.get(k), f"{path}.{k}",
+                                          skip)]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [path]
+        return [e for i, (a, b) in enumerate(zip(want, got))
+                for e in committed_errors(a, b, f"{path}[{i}]", skip)]
+    return [] if json.dumps(want) == json.dumps(got) else [path]
+
+
+def committed(name: str) -> dict:
+    """A committed payload of ``benchmarks/``."""
+    from pathlib import Path
+
+    return json.loads((Path(__file__).resolve().parent / "benchmarks"
+                       / name).read_text())
+
+
+def campaign_stats(payload: dict) -> dict:
+    """The walls of a campaign payload: stage sums, the observatory split,
+    throughput, µs per member-tick per pool (dispatch walls and execute
+    stages) and the allocator's peak."""
+    timeline = payload["dispatch_timeline"]
+    stages = {s: sum(r["stages"][s] for r in timeline)
+              for s in timeline[0]["stages"]}
+    ticks = payload["ticks"]
+    pools = {}
+    for r in timeline:
+        row = pools.setdefault(r["pool_id"], {"mode": r["mode"],
+                                              "members": 0, "wall_s": 0.0,
+                                              "execute_s": 0.0})
+        row["members"] += r["members"]
+        row["wall_s"] += r["wall_s"]
+        row["execute_s"] += r["stages"]["execute"]
+    for row in pools.values():
+        member_ticks = row["members"] * ticks
+        row["us_per_member_tick"] = row["wall_s"] / member_ticks * 1e6
+        row["execute_us_per_member_tick"] = \
+            row["execute_s"] / member_ticks * 1e6
+    obs = payload["observatory"]
+    peaks = [r["memory"]["device_peak_bytes"] for r in timeline]
+    return {"wall_s": payload["wall_s"], "stages_s": stages,
+            "device_busy_s": obs["device_busy_s"],
+            "host_blocked_s": obs["host_blocked_s"],
+            "compile_s": obs["compile_s"],
+            "clusters_per_sec": payload["clusters_per_sec"],
+            "peak_in_flight": obs["pipeline"]["peak_in_flight"],
+            "pools": pools, "peak_bytes": max(peaks),
+            "compile": obs["compile"]["pools"]}
+
+
+def print_campaign(phase: int, label: str, stats: dict) -> None:
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in stats["stages_s"].items())
+    pools = "; ".join(
+        f"pool {pid} ({row['mode']}, {row['members']} members) "
+        f"{row['us_per_member_tick']:.2f} us/member-tick "
+        f"({row['execute_us_per_member_tick']:.2f} executing)"
+        for pid, row in stats["pools"].items())
+    log(f"phase {phase}: {label}: wall {stats['wall_s']:.3f} s, stage sums "
+        f"(s) {stages}; device-busy {stats['device_busy_s']:.3f} s, "
+        f"host-blocked {stats['host_blocked_s']:.3f} s, compile "
+        f"{stats['compile_s']:.3f} s, {stats['clusters_per_sec']:.2f} "
+        f"clusters/s, {stats['peak_in_flight']} dispatches in flight at "
+        f"most; {pools}; peak {stats['peak_bytes'] / 2**20:.1f} MiB")
+
+
+def phase_campaign(rx_account, device) -> tuple:
+    """Phase 25, the slice's main path: ``run_campaign`` at
+    ``benchmarks/campaign_4096.json``'s configuration on the card, held to
+    ``testdata/campaign_4096_reference.json`` in every non-wall field, to
+    the committed file's ``campaign`` block on its keys (but
+    ``per_receiver.capacity_cap``, raised since it was written) and to
+    the golden file on ``bench_compare``'s exact fields; ``rx_deliver``
+    launched 6 times a tick of every per-receiver dispatch."""
+    from rapid_tpu_torch import campaign, golden
+    from rapid_tpu_torch.telemetry import schema
+
+    cfg = campaign.CampaignConfig(**golden.CAMPAIGN_4096)
+    zero_counts(rx_account)
+    start = time.perf_counter()
+    payload = campaign.run_campaign(cfg, device=device)
+    seconds = time.perf_counter() - start
+    launches = (rx_account.deliver_launches, rx_account.launches)
+    if launches != (CAMPAIGN_LAUNCHES, 0):
+        raise AssertionError(f"phase 25 launched (rx_deliver, rx_account) "
+                             f"{launches}, want {(CAMPAIGN_LAUNCHES, 0)}")
+    errors = schema.validate_bench_payload(payload)
+    if errors:
+        raise AssertionError(f"phase 25 payload fails the schema: "
+                             f"{errors[:5]}")
+    want = golden.load(golden.CAMPAIGN_PATH)
+    got = golden.campaign_record(payload)
+    diff_ = golden.differences(got, want)
+    if diff_:
+        raise AssertionError(f"phase 25 differs from the reference's "
+                             f"payload in {diff_[:8]}")
+    file_campaign = committed("campaign_4096.json")["campaign"]
+    cap = ".per_receiver.capacity_cap"
+    diff_ = committed_errors(file_campaign, got["campaign"], skip=(cap,))
+    if diff_ or got["campaign"]["per_receiver"]["capacity_cap"] != 4096:
+        raise AssertionError(f"phase 25 differs from "
+                             f"benchmarks/campaign_4096.json in {diff_[:8]}")
+    errors = exact_errors(got, want, "campaign_4096")
+    if errors:
+        raise AssertionError(f"phase 25 exact fields: {errors[:5]}")
+    stats = campaign_stats(payload)
+    stats.update(seconds=seconds, deliver_launches=launches[0],
+                 account_launches=launches[1])
+    log(f"phase 25: run_campaign at campaign_4096.json's configuration "
+        f"({payload['clusters']} clusters, N={payload['n']}, "
+        f"{payload['ticks']} ticks, {payload['dispatches']} dispatches) "
+        f"equals the reference's payload in every non-wall field, the "
+        f"committed campaign block on its keys (capacity_cap 4096) and "
+        f"bench_compare's exact fields; schema v{payload['schema_version']}"
+        f" clean; rx_deliver {launches[0]} launches, rx_account "
+        f"{launches[1]}; {seconds:.1f} s in all")
+    print_campaign(25, "campaign_4096", stats)
+    return payload, stats
+
+
+def phase_replay(rx_account, device, payload: dict) -> dict:
+    """Phase 26: every exemplar of ``benchmarks/campaign_4096.json``
+    through ``replay_member`` (verified, its lineage equal to the card
+    campaign's exemplar), the one of ``campaign_rx4096.json`` (N=4096,
+    packed), and ``--oracle`` on 5:0 and 7:58 with the reference's
+    verdicts."""
+    from rapid_tpu_torch import replay
+
+    out = {}
+    zero_counts(rx_account)
+    lineage_by_ref = {
+        (ex["dispatch"], ex["member_index"]): ex["lineage"]
+        for block in payload["campaign"]["triage"]["classes"].values()
+        for ex in block["exemplars"]}
+    for name in ("campaign_4096.json", "campaign_rx4096.json"):
+        file_payload = committed(name)
+        refs = sorted({(ex["dispatch"], ex["member_index"])
+                       for block in file_payload["campaign"]["triage"]
+                       ["classes"].values()
+                       for ex in block["exemplars"]
+                       if ex["expected"] is not None})
+        for d, j in refs:
+            start = time.perf_counter()
+            rec = replay.replay_member(file_payload, d, j, lineage=True,
+                                       device=device)
+            seconds = time.perf_counter() - start
+            recorder_ok = (rec["recorder_match"] is True
+                           or file_payload["campaign"]["flight_recorder"]
+                           == 0)
+            lineage_ok = (name != "campaign_4096.json"
+                          or rec["lineage"] == lineage_by_ref[(d, j)])
+            if rec["match"] is not True or not recorder_ok \
+                    or not lineage_ok:
+                raise AssertionError(
+                    f"phase 26: {name} {d}:{j} replays with match "
+                    f"{rec['match']}, recorder_match "
+                    f"{rec['recorder_match']}, lineage "
+                    f"{'equal' if lineage_ok else 'different'}: "
+                    f"{rec['mismatches']}")
+            out[f"{name}:{d}:{j}"] = {"kind": rec["kind"],
+                                      "mode": rec["mode"],
+                                      "seconds": seconds}
+            log(f"phase 26: {name} exemplar {d}:{j} ({rec['kind']}, "
+                f"{rec['mode']}) replays verified: match True, "
+                f"recorder_match {rec['recorder_match']}"
+                + (", lineage equal to phase 25's"
+                   if name == "campaign_4096.json" else "")
+                + f"; {seconds:.2f} s")
+    file_payload = committed("campaign_4096.json")
+    for ref, verdict in REPLAY_ORACLE_VERDICTS.items():
+        d, j = map(int, ref.split(":"))
+        start = time.perf_counter()
+        rec = replay.replay_member(file_payload, d, j, oracle=True,
+                                   device=device)
+        seconds = time.perf_counter() - start
+        if rec["oracle"]["run"] is not True \
+                or rec["oracle"]["passed"] is not verdict:
+            raise AssertionError(f"phase 26: --oracle on {ref} gave "
+                                 f"{rec['oracle']}, the reference "
+                                 f"{verdict}")
+        out[f"oracle:{ref}"] = {"passed": verdict, "seconds": seconds}
+        log(f"phase 26: --oracle on {ref} ({rec['kind']}, {rec['mode']}): "
+            f"passed {verdict}, as the reference's; {seconds:.2f} s")
+    out["deliver_launches"] = rx_account.deliver_launches
+    out["account_launches"] = rx_account.launches
+    return out
+
+
+def phase_committed(rx_account, device) -> dict:
+    """Phase 27: a campaign at ``baseline.json``'s ``fleet`` configuration
+    against that entry's exact fields, and ``run_tournament(["rapid",
+    "ring"])`` at ``campaign_tournament.json``'s against its whole
+    ``campaign`` block and exact fields."""
+    from rapid_tpu_torch import campaign
+    from rapid_tpu_torch.faults import ScenarioWeights
+
+    out = {}
+    want = committed("baseline.json")["fleet"]
+    zero_counts(rx_account)
+    cfg = campaign.CampaignConfig(clusters=128, n=64, ticks=120, seed=0,
+                                  fleet_size=64)
+    payload = campaign.run_campaign(cfg, device=device)
+    errors = exact_errors(json.loads(json.dumps(payload)), want, "fleet")
+    if errors:
+        raise AssertionError(f"phase 27 fleet: {errors[:5]}")
+    out["fleet"] = campaign_stats(payload)
+    out["fleet"]["deliver_launches"] = rx_account.deliver_launches
+    log(f"phase 27: baseline.json's fleet entry reproduced on every exact "
+        f"field ({payload['dispatches']} dispatches, "
+        f"{rx_account.deliver_launches} rx_deliver launches)")
+    print_campaign(27, "fleet", out["fleet"])
+    want = committed("campaign_tournament.json")
+    camp = want["campaign"]
+    cfg = campaign.CampaignConfig(
+        clusters=camp["clusters"], n=camp["n"], ticks=camp["ticks"],
+        seed=camp["seed"], fleet_size=camp["fleet_size"],
+        headroom=camp["headroom"], weights=ScenarioWeights(**camp["weights"]))
+    zero_counts(rx_account)
+    start = time.perf_counter()
+    payload = campaign.run_tournament(cfg, ["rapid", "ring"], device=device)
+    seconds = time.perf_counter() - start
+    got = json.loads(json.dumps(payload))
+    errors = exact_errors(got, want, "tournament")
+    if got["campaign"] != camp or errors:
+        raise AssertionError(
+            f"phase 27 tournament differs from campaign_tournament.json: "
+            f"{committed_errors(camp, got['campaign'])[:8]} {errors[:5]}")
+    out["tournament"] = campaign_stats(payload)
+    out["tournament"].update(seconds=seconds,
+                             deliver_launches=rx_account.deliver_launches)
+    log(f"phase 27: run_tournament(rapid, ring) equals "
+        f"campaign_tournament.json's campaign block and exact fields; "
+        f"{seconds:.1f} s for both variants, "
+        f"{rx_account.deliver_launches} rx_deliver launches")
+    print_campaign(27, "tournament (rapid)", out["tournament"])
+    return out
+
+
 def planned_child() -> dict:
     """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
     files; any failure there fails this process."""
@@ -1834,6 +2195,10 @@ def main() -> int:
     referee_rx = phase_referee_receiver(rx_account, device, keep)
     del keep
     referee_shared = phase_referee_shared(rx_account, device)
+    campaign_payload, campaign_run = phase_campaign(rx_account, device)
+    replays = phase_replay(rx_account, device, campaign_payload)
+    del campaign_payload
+    committed_runs = phase_committed(rx_account, device)
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -1860,6 +2225,10 @@ def main() -> int:
                                  for pid, run in dense_fleets.items()},
         "referee_launches": {k: v["deliver_launches"]
                              for k, v in referee_rx.items()},
+        "campaign_launches": campaign_run["deliver_launches"],
+        "replay_launches": replays["deliver_launches"],
+        "committed_launches": {k: v["deliver_launches"]
+                               for k, v in committed_runs.items()},
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -1883,7 +2252,9 @@ def main() -> int:
                     "fleet_deliver": fleet_times, "layouts": layouts,
                     "wide_dense": wide_dense, "dense_fleets": dense_fleets,
                     "telemetry": telemetry, "referee_receiver": referee_rx,
-                    "referee_shared": referee_shared, "card": card}))
+                    "referee_shared": referee_shared,
+                    "campaign": campaign_run, "replay": replays,
+                    "committed": committed_runs, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

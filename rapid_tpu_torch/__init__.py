@@ -37,8 +37,21 @@ engine::
     res = engine.diff.run_receiver_differential(schedule, 160, settings)
     res.assert_identical()
 
+Campaigns (``campaign``) sample thousands of seeded fault scenarios,
+run them as pools of fleets on either engine and fold them into the
+reference's payload (distributions, triage, lineage, tournaments across
+protocol variants); ``replay`` re-runs any member of a payload alone::
+
+    payload = run_campaign(CampaignConfig(clusters=4096, n=32, ticks=120,
+                                          fleet_size=256))
+    record = replay_member(payload, dispatch, member_index, oracle=True)
+
 This package imports ``torch``, ``numpy`` and the standard library only.
 """
+from rapid_tpu_torch.campaign import (CampaignConfig, run_campaign,
+                                      run_tournament)
+from rapid_tpu_torch.replay import replay_member
 from rapid_tpu_torch.settings import Settings
 
-__all__ = ["Settings"]
+__all__ = ["CampaignConfig", "Settings", "replay_member", "run_campaign",
+           "run_tournament"]

@@ -427,21 +427,34 @@ def _tree_bytes(tree) -> int:
     return total
 
 
+def _meta_state(capacity: int, k: int, n_draws: int,
+                ring_depth: int) -> ReceiverState:
+    """A dense ``ReceiverState`` of meta tensors (no memory allocated),
+    in the port's dtypes."""
+    shapes = receiver_field_shapes(capacity, k, n_draws, ring_depth)
+    dtype = lambda name, item: (torch.bool if item == 1 else torch.int64
+                                if is_limb_field(name) else torch.int32)
+    return ReceiverState(**{
+        name: torch.empty(shape, dtype=dtype(name, item), device="meta")
+        for name, (shape, item) in shapes.items()})
+
+
+def dense_state_bytes(capacity: int, k: int, n_draws: int = 4,
+                      ring_depth: int = 4) -> int:
+    """Bytes of one dense ``ReceiverState`` in the reference's layout."""
+    return _tree_bytes(_meta_state(capacity, k, n_draws, ring_depth))
+
+
 @functools.lru_cache(maxsize=None)
 def _state_bytes(capacity: int, settings: Settings) -> Tuple[int, int]:
     """``(dense_bytes, bundle_bytes)`` of one member at ``capacity``: the
     dense ``ReceiverState`` and the packed carry plus its delay table,
     from the shapes ``pack_receiver_state`` produces on meta tensors (no
     memory is allocated)."""
-    from rapid_tpu_torch.engine import rx_packed
+    from rapid_tpu_torch.engine import receiver, rx_packed
 
-    shapes = receiver_field_shapes(capacity, settings.K,
-                                   ring_depth=settings.delivery_ring_depth)
-    dtype = lambda name, item: (torch.bool if item == 1 else torch.int64
-                                if is_limb_field(name) else torch.int32)
-    dense = ReceiverState(**{
-        name: torch.empty(shape, dtype=dtype(name, item), device="meta")
-        for name, (shape, item) in shapes.items()})
+    dense = _meta_state(capacity, settings.K, receiver.N_DRAWS,
+                        settings.delivery_ring_depth)
     packed = rx_packed.pack_receiver_state(dense, settings)
     table = dense.delay_table
     return (_tree_bytes(dense),

@@ -1024,6 +1024,16 @@ def receiver_final_view(final):
     return rx_packed.final_view(final)
 
 
+def receiver_final_fields(final):
+    """Just the host-read fields of finals of either layout, one member
+    or a fleet: an ``rx_packed.ReceiverFinalView``."""
+    from rapid_tpu_torch.engine import rx_packed
+
+    view = receiver_final_view(final)
+    return rx_packed.ReceiverFinalView(*[
+        getattr(view, f) for f in rx_packed.ReceiverFinalView._fields])
+
+
 # --- host-side extraction ------------------------------------------------
 
 def _np(x) -> np.ndarray:
@@ -1089,6 +1099,16 @@ def receiver_phase_counters(logs) -> List[dict]:
     return [{f"{p}_{kind}": int(a[i]) for p, s, d in arrs
              for kind, a in (("sent", s), ("delivered", d))}
             for i in range(n_ticks)]
+
+
+def receiver_state_bytes(capacity: int, k: int, n_draws: int = N_DRAWS,
+                         ring_depth: int = 4) -> int:
+    """Exact per-member bytes of one dense ``ReceiverState`` in the
+    reference's layout (32-bit limbs, 1-byte bools): the count
+    ``fleet.check_receiver_budget`` gates on."""
+    from rapid_tpu_torch.engine import fleet
+
+    return fleet.dense_state_bytes(capacity, k, n_draws, ring_depth)
 
 
 def receiver_config_ids(rs: ReceiverState) -> List[int]:

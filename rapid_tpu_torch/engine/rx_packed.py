@@ -210,6 +210,15 @@ def final_view(ps: PackedReceiverState) -> ReceiverFinalView:
                              flags=ps.flags)
 
 
+def bundle_state_bytes(capacity: int, settings: Settings) -> int:
+    """Exact per-member bytes of the packed carry plus its delay table,
+    in the reference's layout (the count ``fleet.check_receiver_budget``
+    gates on)."""
+    from rapid_tpu_torch.engine import fleet
+
+    return fleet._state_bytes(capacity, settings)[1]
+
+
 def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings):
     """The tick loop of a stacked fleet (member axis first on every
     leaf): unpack, ``receiver.fleet_step``, repack, once per tick, each

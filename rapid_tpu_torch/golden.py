@@ -449,21 +449,19 @@ FLEET_POOLS = {p.pool_id: p for p in (
 
 
 def member_seed(idx: int, seed: int = 0) -> int:
-    """A campaign member's scenario seed (the reference's
-    ``campaign._member_seed``)."""
-    from rapid_tpu_torch import hashing
+    """A campaign member's scenario seed (``campaign._member_seed``)."""
+    from rapid_tpu_torch import campaign
 
-    return hashing.hash64(idx, seed=seed & hashing.MASK64) & 0x7FFFFFFF
+    return campaign._member_seed(campaign.CampaignConfig(seed=seed), idx)
 
 
 def churn_params(seed: int, headroom: int) -> Dict[str, int]:
     """The campaign's churn draw for a member that wants churn:
-    ``synthetic_churn_schedule``'s ``burst`` and ``start``."""
-    import random
+    ``synthetic_churn_schedule``'s ``burst`` and ``start``
+    (``campaign._churn_draw``)."""
+    from rapid_tpu_torch import campaign
 
-    rng = random.Random(seed ^ 0xC4B0)
-    burst = min(headroom, rng.choice((2, 4, 8)))
-    return {"burst": burst, "start": rng.randint(5, 25)}
+    return campaign._churn_draw(seed, headroom)
 
 
 def schedule_json(schedule) -> dict:
@@ -644,21 +642,13 @@ def pool_record(pool: FleetPool, members: List[dict], logs, finals,
     }
 
 
-def final_view(finals):
-    """The host-read fields of per-receiver finals of either layout (the
-    fields of ``rx_packed.ReceiverFinalView``)."""
-    from rapid_tpu_torch.engine import receiver, rx_packed
-
-    view = receiver.receiver_final_view(finals)
-    return rx_packed.ReceiverFinalView(*[
-        getattr(view, f) for f in rx_packed.ReceiverFinalView._fields])
-
-
 def fleet_run_record(pool: FleetPool, members: List[dict], out) -> dict:
     """``pool_record`` of a port run (``run_pool``'s outputs)."""
     from rapid_tpu_torch.convert import to_numpy
+    from rapid_tpu_torch.engine import receiver
 
-    finals = out[0] if pool.mode == "shared" else final_view(out[0])
+    finals = out[0] if pool.mode == "shared" \
+        else receiver.receiver_final_fields(out[0])
     return pool_record(pool, members, to_numpy(out[1]), to_numpy(finals),
                        to_numpy(out[2]) if len(out) > 2 else None)
 
@@ -676,6 +666,41 @@ def pool_head(want: dict, count: int) -> dict:
     out = dict(want, members=want["members"][:count])
     out.pop("log_field_sha256")
     out.pop("final_field_sha256")
+    return out
+
+
+# --- the committed campaigns ----------------------------------------------
+
+#: ``benchmarks/campaign_4096.json``'s configuration (``CampaignConfig``
+#: keywords): 4,096 clusters of N=32, 120 ticks, seed 0, dispatches of
+#: 256, 16 dormant churn slots, the default weights, a 16-row recorder.
+CAMPAIGN_4096 = {"clusters": 4096, "n": 32, "ticks": 120, "seed": 0,
+                 "fleet_size": 256, "headroom": 16, "flight_recorder": 16}
+
+#: The reference's payload at ``CAMPAIGN_4096`` without its wall keys.
+CAMPAIGN_PATH = TESTDATA / "campaign_4096_reference.json"
+
+#: Machine-dependent keys of a campaign payload, left out of every
+#: comparison (the reference's ``tests/test_campaign.py``).
+CAMPAIGN_WALL_KEYS = ("boot_s", "wall_s", "fold_s", "compile_s",
+                      "device_busy_s", "host_blocked_s", "spot_check_s",
+                      "total_s", "ticks_per_sec", "rounds_per_sec",
+                      "clusters_per_sec", "platform", "observatory")
+
+#: Machine-dependent keys of one ``dispatch_timeline`` record.
+DISPATCH_WALL_KEYS = ("stages", "wall_s", "clusters_per_sec",
+                      "host_blocked_frac", "memory")
+
+
+def campaign_record(payload: dict) -> dict:
+    """A campaign payload of either package after a JSON round trip,
+    without its wall keys."""
+    out = json.loads(json.dumps(payload))
+    for key in CAMPAIGN_WALL_KEYS:
+        out.pop(key, None)
+    for rec in out.get("dispatch_timeline", []):
+        for key in DISPATCH_WALL_KEYS:
+            rec.pop(key, None)
     return out
 
 
@@ -777,7 +802,8 @@ def pool_telemetry(folds: Folds, pool: FleetPool, members: List[dict],
     with their critical paths where its schedule has delays), the merged
     summary, the distributions and the lineage summary of every span.
     ``logs`` is the fleet's member-major log, ``finals`` the
-    per-receiver finals' host-read fields (``final_view``)."""
+    per-receiver finals' host-read fields
+    (``receiver.receiver_final_fields``)."""
     lin = folds.lineage
     if pool.mode == "shared":
         summaries = folds.metrics.fleet_summaries(logs)

@@ -3,20 +3,22 @@
 Own copy of the validators of the reference's ``telemetry.schema`` that
 cover the port's payloads: per-run telemetry blocks
 (``metrics.RunSummary.as_dict``), flight-recorder payloads, lineage spans
-and summaries, SLO windows, and single-run, sweep and suite bench
-payloads. Each validator returns a list of violations, empty when the
-payload is well formed; the constants pin the field names and fold
-semantics the folds and the recorder write.
+and summaries, SLO windows, single-run, sweep and suite bench payloads,
+and campaign payloads with their triage, tournament, dispatch
+timeline, observatory and ``--progress`` heartbeat records. Each
+validator returns a list of violations, empty when the payload is well
+formed; the constants pin the field names and fold semantics the folds,
+the recorder and the campaign write.
 
-Not here yet: the validators of the campaign, dispatch timeline,
-progress, streaming, checkpoint, load-sweep, status and kernel-profile
-payloads, which wait for the modules that write them (``ROADMAP.md``
-Queue 1 items 5-7); ``validate_run_payload`` and
-``validate_bench_payload`` raise ``NotImplementedError`` on such a
+Not here yet: the validators of the streaming, checkpoint, load-sweep,
+status and kernel-profile payloads, which wait for the modules that
+write them (``ROADMAP.md`` Queue 1 items 6-7); ``validate_run_payload``
+and ``validate_bench_payload`` raise ``NotImplementedError`` on such a
 payload rather than pass it unchecked.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List
 
 _NUM = (int, float)
@@ -193,6 +195,332 @@ SLO_WINDOW_SPEC = {
     "metrics": (dict,),
 }
 
+#: Protocol variants a campaign or replay payload may record
+#: (``rapid_tpu_torch.variants.VARIANTS``, repeated so this module
+#: imports nothing; a test pins the two equal).
+PROTOCOL_VARIANTS = ("rapid", "ring", "hier")
+
+#: Fleet-campaign block embedded in a fleet run payload under
+#: ``"campaign"`` (``rapid_tpu_torch.campaign.run_campaign``). Schema v8 adds
+#: the replay identity (``n``/``ticks``/``headroom``/``weights``/
+#: ``flight_recorder`` — together with ``seed``/``clusters``/
+#: ``fleet_size``/``per_receiver.enabled`` they reconstruct every
+#: sampled schedule and the dispatch plan bit-exactly, which is what
+#: ``python -m rapid_tpu_torch.replay`` consumes) and the ``triage`` block.
+#: Schema v11 adds ``protocol_variant`` (the wire protocol every member
+#: ran — replay re-derives the variant from this field alone) and the
+#: optional ``tournament`` block (present only on A/B tournament runs,
+#: ``campaign.run_tournament``).
+CAMPAIGN_SPEC = {
+    "seed": (int,),
+    "protocol_variant": (str,),
+    "clusters": (int,),
+    "n": (int,),
+    "ticks": (int,),
+    "headroom": (int,),
+    "weights": (dict,),
+    "flight_recorder": (int,),
+    "fleet_size": (int,),
+    "dispatches": (int,),
+    "scenario_kinds": (dict,),
+    "pools": (list,),
+    "per_receiver": (dict,),
+    "spot_checks": (dict,),
+    "distributions": (dict,),
+    "delay_regimes": (dict,),
+    "triage": (dict,),
+    "lineage": (dict,),
+}
+
+#: Anomaly classes of the campaign triage block (schema v8), in the
+#: order ``campaign._triage`` reports them. Every class key must be
+#: present in ``triage.classes`` even when its count is zero — absence
+#: would be indistinguishable from "classifier never ran".
+TRIAGE_CLASSES = ("no_decide_by_deadline", "slow_decide",
+                  "invariant_violations", "envelope_flags",
+                  "excess_fallback", "spot_failures")
+
+#: Top-level ``campaign.triage`` block (schema v8). Every value is a
+#: seed-deterministic fold — no wall-clock fields — so bench_compare's
+#: exact campaign diff gates the whole block. ``recorder`` is null when
+#: the campaign ran without ``--flight-recorder``.
+TRIAGE_SPEC = {
+    "clusters": (int,),
+    "flagged_members": (int,),
+    "thresholds": (dict,),
+    "recorder": (dict, type(None)),
+    "classes": (dict,),
+}
+
+#: One anomaly class: total flagged members, per-scenario-kind counts,
+#: and up to ``campaign.MAX_TRIAGE_EXEMPLARS`` exemplar refs.
+TRIAGE_CLASS_SPEC = {
+    "count": (int,),
+    "by_kind": (dict,),
+    "exemplars": (list,),
+}
+
+#: One triage exemplar: the ``(dispatch, member_index)`` ref is the
+#: ``--member D:I`` handle ``rapid_tpu_torch.replay`` takes; ``expected`` is
+#: the bit-identity contract the replay must reproduce (null only for
+#: forced spot-check schedules that never ran in the fleet, ref
+#: ``(-1, -1)``); ``recorder`` is the member's extracted flight-recorder
+#: ring (null when the campaign ran without one).
+TRIAGE_EXEMPLAR_SPEC = {
+    "dispatch": (int,),
+    "member_index": (int,),
+    "member": (int,),
+    "kind": (str,),
+    "mode": (str,),
+    "seed": (int,),
+    "expected": (dict, type(None)),
+    "recorder": (dict, type(None)),
+    # Schema v12: the member's lineage span list (null for forced
+    # spot-check refs that never ran in the fleet).
+    "lineage": (list, type(None)),
+}
+
+#: The exemplar ``expected`` block (``campaign._expected_block``): the
+#: per-member fold fields a replay must match bit-for-bit.
+TRIAGE_EXPECTED_SPEC = {
+    "ticks_to_first_announce": _OPT_INT,
+    "ticks_to_first_decide": _OPT_INT,
+    "announcements": (int,),
+    "decisions": (int,),
+    "invariant_violations": (int,),
+    "counter_totals": (dict,),
+    "fallback_phase_sent": (dict,),
+    "config_ids": (list,),
+    "flags": (int,),
+}
+
+#: One kind-homogeneous dispatch pool of a campaign plan (schema v7):
+#: members bucketed by shape signature before stacking, so padding is
+#: per-pool-tight and each pool compiles one executable. ``shape`` is
+#: the pool's stacking maxima in the padding key space
+#: (DISPATCH_PADDING_SPEC keys).
+CAMPAIGN_POOL_SPEC = {
+    "pool_id": (int,),
+    "mode": (str,),
+    "members": (int,),
+    "dispatches": (int,),
+    "fleet_size": (int,),
+    "kinds": (dict,),
+    "shape": (dict,),
+}
+
+#: A/B tournament block (schema v11) under ``campaign.tournament``,
+#: present only when the payload came from ``campaign.run_tournament``:
+#: every sampled member ran once per listed variant over identical
+#: schedules/identities. All fields are seed-deterministic, so
+#: ``scripts/bench_compare.py``'s exact campaign diff gates the block.
+TOURNAMENT_SPEC = {
+    "variants": (list,),
+    "clusters": (int,),
+    "per_variant": (dict,),
+    "win_loss": (dict,),
+}
+
+#: One per-variant tournament row: decide counts, classic-fallback
+#: member count, total wire messages, and the nearest-rank
+#: decide-tick tail (one DISTRIBUTION_SPEC block).
+TOURNAMENT_VARIANT_SPEC = {
+    "decided": (int,),
+    "fallback_members": (int,),
+    "total_messages": (int,),
+    "decide_ticks": (dict,),
+    # Schema v12: per-variant lineage summary — the phase-duration
+    # tails that show *where* a variant pays its latency.
+    "lineage": (dict,),
+}
+
+#: Delay-regime keys the ``delay_regimes`` block may carry (schema v6):
+#: the latency-family scenario kinds plus the delay-free rest of the
+#: campaign. Each value is one DISTRIBUTION_SPEC block over that
+#: regime's per-member ticks-to-first-decide.
+DELAY_REGIMES = ("delay", "jitter", "slow_asym", "no_delay")
+
+#: Per-receiver dispatch block of a campaign payload (schema v4): how
+#: many members ran device-exact under link faults and the measured
+#: quadratic budget that gated them (``receiver.receiver_state_bytes``).
+PER_RECEIVER_SPEC = {
+    "enabled": (bool,),
+    "members": (int,),
+    "dispatches": (int,),
+    "fleet_size": (int,),
+    "capacity": (int,),
+    "capacity_cap": (int,),
+    "ring_depth": (int,),
+    "member_state_bytes": (int,),
+    "kinds": (dict,),
+}
+
+SPOT_CHECK_SPEC = {
+    "requested": (int,),
+    "run": (int,),
+    "passed": (int,),
+    "failed": (int,),
+    "max_failures": (int,),
+    "members": (list,),
+}
+
+#: One spot-check member record (schema v4 adds the graceful-degradation
+#: fields: mode, pass/fail, forensics artifact path, first-line error).
+SPOT_MEMBER_SPEC = {
+    "member": (int,),
+    "kind": (str,),
+    "seed": (int,),
+    "mode": (str,),
+    "passed": (bool,),
+    "artifact": (str, type(None)),
+    "error": (str, type(None)),
+}
+
+#: Distribution keys every campaign payload must carry.
+CAMPAIGN_DISTRIBUTIONS = ("ticks_to_first_decide", "total_sent",
+                          "messages_per_view_change", "decisions")
+
+#: The required ``campaign.lineage`` block: the fleet-wide summary plus
+#: per-scenario-kind and per-delay-regime breakdowns (each value one
+#: LINEAGE_SUMMARY_SPEC block).
+CAMPAIGN_LINEAGE_SPEC = dict(LINEAGE_SUMMARY_SPEC,
+                             by_kind=(dict,), by_regime=(dict,))
+
+#: Per-dispatch stage keys of the campaign dispatch observatory (schema
+#: v5), in pipeline order. ``sample``/``lower`` are the host costs
+#: attributed to the dispatch's members, ``stack`` the padding+stack of
+#: the batched pytree, ``compile`` the one-time work of a pool's first
+#: dispatch (0.0 on later dispatches of the pool; in the port the kernel
+#: build and the boot caches), ``execute`` the fenced device dispatch,
+#: ``fold`` the per-member summary fold.
+DISPATCH_STAGES = ("sample", "lower", "stack", "compile", "execute",
+                   "fold")
+
+#: One ``dispatch_timeline`` record (schema v5). ``wall_s`` is the sum
+#: of the stage walls by construction; ``clusters_per_sec`` is null when
+#: the dispatch wall is below the measurable floor. ``host_blocked_frac``
+#: is the fraction of the dispatch wall the host spent off-device
+#: (everything but ``execute``) — the per-dispatch double-buffering
+#: headroom signal.
+DISPATCH_RECORD_SPEC = {
+    "index": (int,),
+    "mode": (str,),
+    "pool_id": (int,),
+    "pool_shape": (dict,),
+    "members": (int,),
+    "pad_members": (int,),
+    "fleet_size": (int,),
+    "kinds": (dict,),
+    "compiled": (bool,),
+    "stages": (dict,),
+    "wall_s": _NUM,
+    "clusters_per_sec": (int, float, type(None)),
+    "host_blocked_frac": (int, float, type(None)),
+    "padding": (dict,),
+    "memory": (dict,),
+}
+
+#: Padding waste of one dispatch: inert rows added by ``stack_members``
+#: / ``stack_receiver_members`` to reach the campaign-global maxima
+#: (link-window rows, fallback instance rows, fallback pid rows,
+#: provably-inert delay rules), summed over the fleet axis.
+DISPATCH_PADDING_SPEC = {
+    "window_rows": (int,),
+    "fallback_instances": (int,),
+    "fallback_pids": (int,),
+    "delay_rules": (int,),
+}
+
+#: Device-memory watermark after one dispatch. ``live_buffer_bytes`` is
+#: ``torch.cuda.memory_allocated()`` (process-wide, so it is a watermark,
+#: not an attribution; 0 on the CPU); ``device_peak_bytes`` is
+#: ``torch.cuda.max_memory_allocated()`` and null on the CPU.
+DISPATCH_MEMORY_SPEC = {
+    "live_buffer_bytes": (int,),
+    "device_peak_bytes": _OPT_INT,
+}
+
+#: One compile record of a pool's first dispatch. The reference fills it
+#: from its ahead-of-time compile and XLA's memory analysis; the port
+#: compiles nothing ahead of time, so ``lower_s`` is 0.0, ``compile_s``
+#: the dispatch's one-time work, ``argument_bytes`` the stacked fleet's
+#: tensor bytes, ``output_bytes`` those of its finals, logs and recorder,
+#: and ``peak_bytes``/``temp_bytes`` come from
+#: ``torch.cuda.max_memory_allocated`` over the dispatch (0 on the CPU).
+AOT_COMPILE_SPEC = {
+    "lower_s": _NUM,
+    "compile_s": _NUM,
+    "argument_bytes": (int,),
+    "output_bytes": (int,),
+    "temp_bytes": (int,),
+    "peak_bytes": (int,),
+}
+
+#: Top-level ``observatory`` block of a campaign payload (schema v5):
+#: where the campaign wall actually went. ``device_busy_s`` is the
+#: fenced execute total, ``compile_s`` the one-time compile cost,
+#: ``host_blocked_s`` everything else (sample/lower/stack/fold/glue);
+#: ``overlap_headroom_s`` = min(host_blocked_s, device_busy_s) is the
+#: wall a perfect double-buffer could hide. ``compile`` carries one
+#: AOT_COMPILE_SPEC record per dispatch mode (null when the mode never
+#: dispatched).
+OBSERVATORY_SPEC = {
+    "host_blocked_s": _NUM,
+    "device_busy_s": _NUM,
+    "compile_s": _NUM,
+    "host_blocked_frac": (int, float, type(None)),
+    "device_busy_frac": (int, float, type(None)),
+    "overlap_headroom_s": _NUM,
+    "min_measurable_wall_s": _NUM,
+    "compile": (dict,),
+    "pipeline": (dict,),
+}
+
+#: Dispatch-pipeline block of the observatory (schema v7): whether the
+#: double-buffered loop ran, its configured in-flight depth, and the
+#: depth it actually reached (``peak_in_flight == 1`` under
+#: ``--no-pipeline`` or when the plan has a single dispatch).
+PIPELINE_SPEC = {
+    "enabled": (bool,),
+    "max_in_flight": (int,),
+    "peak_in_flight": (int,),
+}
+
+#: One ``record: "dispatch"`` heartbeat line of a ``--progress`` JSONL
+#: stream (schema v7 adds the pool identity and the live pipeline
+#: depth *after* this dispatch retired; schema v8 adds ``anomalies`` —
+#: the running per-class anomaly counts over the members retired so
+#: far, so a long campaign's heartbeats show trouble as it accumulates,
+#: not at the final fold).
+PROGRESS_DISPATCH_SPEC = {
+    "record": (str,),
+    "index": (int,),
+    "mode": (str,),
+    "pool_id": (int,),
+    "pool_shape": (dict,),
+    "in_flight_dispatches": (int,),
+    "clusters_done": (int,),
+    "clusters_total": (int,),
+    "stages": (dict,),
+    "spot_failures": (int,),
+    "anomalies": (dict,),
+    # Schema v9: per-dispatch throughput, same null-below-the-floor rate
+    # convention as the streaming records.
+    "ticks_per_sec": (int, float, type(None)),
+    "events_per_sec": (int, float, type(None)),
+}
+
+#: Relative slack allowed between a campaign payload's ``wall_s`` and
+#: the sum of its per-dispatch stage walls (timer granularity + loop
+#: glue); only enforced once the wall is comfortably measurable. The
+#: floor sits at a quarter second: with memoized boot state (schema v7)
+#: a micro-campaign's true stage work is a few tens of milliseconds, so
+#: below this floor loop glue — not instrumentation drift — dominates
+#: the residual.
+STAGE_SUM_TOLERANCE = 0.10
+_STAGE_SUM_MIN_WALL_S = 0.25
+
+
 def _check(obj: Dict, spec: Dict, where: str) -> List[str]:
     errors = []
     if not isinstance(obj, dict):
@@ -293,6 +621,296 @@ def validate_lineage_summary(block, where: str = "lineage") -> List[str]:
     return errors
 
 
+def validate_campaign_lineage(block, where: str = "campaign.lineage"
+                              ) -> List[str]:
+    """Validate the required ``campaign.lineage`` block: the fleet-wide
+    summary plus ``by_kind``/``by_regime`` breakdown summaries."""
+    errors = validate_lineage_summary(block, where)
+    if not isinstance(block, dict):
+        return errors
+    errors += _check(block, {"by_kind": (dict,), "by_regime": (dict,)},
+                     where)
+    for group in ("by_kind", "by_regime"):
+        sub = block.get(group)
+        if not isinstance(sub, dict):
+            continue
+        for key, summary in sub.items():
+            errors += validate_lineage_summary(summary,
+                                               f"{where}.{group}.{key}")
+        if group == "by_regime":
+            for key in sub:
+                if key not in DELAY_REGIMES:
+                    errors.append(f"{where}.by_regime.{key}: unknown "
+                                  f"regime (expected one of "
+                                  f"{'/'.join(DELAY_REGIMES)})")
+    return errors
+
+
+def validate_triage(block, where: str = "triage") -> List[str]:
+    """Validate a campaign ``triage`` block (schema v8)."""
+    errors = _check(block, TRIAGE_SPEC, where)
+    if not isinstance(block, dict):
+        return errors
+    classes = block.get("classes")
+    if not isinstance(classes, dict):
+        return errors
+    for name in TRIAGE_CLASSES:
+        if name not in classes:
+            errors.append(f"{where}.classes.{name}: missing")
+    for name, cls in classes.items():
+        cw = f"{where}.classes.{name}"
+        if name not in TRIAGE_CLASSES:
+            errors.append(f"{cw}: unknown class (expected one of "
+                          f"{'/'.join(TRIAGE_CLASSES)})")
+        errors += _check(cls, TRIAGE_CLASS_SPEC, cw)
+        if not isinstance(cls, dict):
+            continue
+        for i, ex in enumerate(cls.get("exemplars") or []):
+            ew = f"{cw}.exemplars[{i}]"
+            errors += _check(ex, TRIAGE_EXEMPLAR_SPEC, ew)
+            if not isinstance(ex, dict):
+                continue
+            if isinstance(ex.get("expected"), dict):
+                errors += _check(ex["expected"], TRIAGE_EXPECTED_SPEC,
+                                 f"{ew}.expected")
+            if isinstance(ex.get("recorder"), dict):
+                errors += validate_flight_recorder(ex["recorder"],
+                                                   f"{ew}.recorder")
+            if isinstance(ex.get("lineage"), list):
+                for j, span in enumerate(ex["lineage"]):
+                    errors += validate_lineage_span(
+                        span, f"{ew}.lineage[{j}]")
+    return errors
+
+
+def validate_tournament(block, where: str = "tournament") -> List[str]:
+    """Validate one ``campaign.tournament`` A/B block (schema v11)."""
+    errors = _check(block, TOURNAMENT_SPEC, where)
+    if not isinstance(block, dict):
+        return errors
+    raw = block.get("variants")
+    names = [v for v in raw if isinstance(v, str)] \
+        if isinstance(raw, list) else []
+    for v in names:
+        if v not in PROTOCOL_VARIANTS:
+            errors.append(f"{where}.variants: {v!r} is not one of "
+                          f"{'/'.join(PROTOCOL_VARIANTS)}")
+    per = block.get("per_variant")
+    if isinstance(per, dict):
+        for v in names:
+            if v not in per:
+                errors.append(f"{where}.per_variant.{v}: missing")
+        for v, row in per.items():
+            vw = f"{where}.per_variant.{v}"
+            if v not in names:
+                errors.append(f"{vw}: names no tournament variant")
+            errors += _check(row, TOURNAMENT_VARIANT_SPEC, vw)
+            if isinstance(row, dict) \
+                    and isinstance(row.get("decide_ticks"), dict):
+                errors += _check(row["decide_ticks"], DISTRIBUTION_SPEC,
+                                 f"{vw}.decide_ticks")
+            if isinstance(row, dict) \
+                    and isinstance(row.get("lineage"), dict):
+                errors += validate_lineage_summary(row["lineage"],
+                                                   f"{vw}.lineage")
+    wl = block.get("win_loss")
+    if isinstance(wl, dict):
+        for kind, row in wl.items():
+            kw = f"{where}.win_loss.{kind}"
+            if not isinstance(row, dict):
+                errors.append(f"{kw}: expected an object, "
+                              f"got {type(row).__name__}")
+                continue
+            for key in names + ["tie"]:
+                if key not in row:
+                    errors.append(f"{kw}.{key}: missing")
+            for key, count in row.items():
+                if not isinstance(count, int) or isinstance(count, bool):
+                    errors.append(f"{kw}.{key}: expected int, "
+                                  f"got {type(count).__name__}")
+    return errors
+
+
+def validate_campaign(block, where: str = "campaign") -> List[str]:
+    errors = _check(block, CAMPAIGN_SPEC, where)
+    if not isinstance(block, dict):
+        return errors
+    pv = block.get("protocol_variant")
+    if isinstance(pv, str) and pv not in PROTOCOL_VARIANTS:
+        errors.append(f"{where}.protocol_variant: {pv!r} is not one of "
+                      f"{'/'.join(PROTOCOL_VARIANTS)}")
+    if "tournament" in block:
+        errors += validate_tournament(block["tournament"],
+                                      f"{where}.tournament")
+    kinds = block.get("scenario_kinds")
+    if isinstance(kinds, dict):
+        for kind, count in kinds.items():
+            if not isinstance(count, int) or isinstance(count, bool):
+                errors.append(f"{where}.scenario_kinds.{kind}: expected "
+                              f"int, got {type(count).__name__}")
+    pools = block.get("pools")
+    if isinstance(pools, list):
+        for i, pool in enumerate(pools):
+            pw = f"{where}.pools[{i}]"
+            errors += _check(pool, CAMPAIGN_POOL_SPEC, pw)
+            if not isinstance(pool, dict):
+                continue
+            if isinstance(pool.get("pool_id"), int) \
+                    and pool["pool_id"] != i:
+                errors.append(f"{pw}.pool_id: expected {i}, "
+                              f"got {pool['pool_id']}")
+            if pool.get("mode") not in ("shared", "per_receiver", None):
+                errors.append(f"{pw}.mode: expected 'shared' or "
+                              f"'per_receiver', got {pool['mode']!r}")
+            if isinstance(pool.get("shape"), dict):
+                errors += _check(pool["shape"], DISPATCH_PADDING_SPEC,
+                                 f"{pw}.shape")
+    if isinstance(block.get("per_receiver"), dict):
+        errors += _check(block["per_receiver"], PER_RECEIVER_SPEC,
+                         f"{where}.per_receiver")
+    if isinstance(block.get("spot_checks"), dict):
+        errors += _check(block["spot_checks"], SPOT_CHECK_SPEC,
+                         f"{where}.spot_checks")
+        for i, m in enumerate(block["spot_checks"].get("members") or []):
+            errors += _check(m, SPOT_MEMBER_SPEC,
+                             f"{where}.spot_checks.members[{i}]")
+    dists = block.get("distributions")
+    if isinstance(dists, dict):
+        for key in CAMPAIGN_DISTRIBUTIONS:
+            if key not in dists:
+                errors.append(f"{where}.distributions.{key}: missing")
+            else:
+                errors += _check(dists[key], DISTRIBUTION_SPEC,
+                                 f"{where}.distributions.{key}")
+    regimes = block.get("delay_regimes")
+    if isinstance(regimes, dict):
+        for key, dist in regimes.items():
+            if key not in DELAY_REGIMES:
+                errors.append(f"{where}.delay_regimes.{key}: unknown "
+                              f"regime (expected one of "
+                              f"{'/'.join(DELAY_REGIMES)})")
+            errors += _check(dist, DISTRIBUTION_SPEC,
+                             f"{where}.delay_regimes.{key}")
+    if "triage" in block:
+        errors += validate_triage(block["triage"], f"{where}.triage")
+    if isinstance(block.get("lineage"), dict):
+        errors += validate_campaign_lineage(block["lineage"],
+                                            f"{where}.lineage")
+    return errors
+
+
+def validate_dispatch_timeline(timeline, where: str = "dispatch_timeline"
+                               ) -> List[str]:
+    """Validate one campaign's per-dispatch timeline (schema v5)."""
+    errors: List[str] = []
+    if not isinstance(timeline, list):
+        return [f"{where}: expected a list, "
+                f"got {type(timeline).__name__}"]
+    for i, rec in enumerate(timeline):
+        rw = f"{where}[{i}]"
+        errors += _check(rec, DISPATCH_RECORD_SPEC, rw)
+        if not isinstance(rec, dict):
+            continue
+        if isinstance(rec.get("index"), int) and rec["index"] != i:
+            errors.append(f"{rw}.index: expected {i}, got {rec['index']}")
+        if rec.get("mode") not in ("shared", "per_receiver", None):
+            errors.append(f"{rw}.mode: expected 'shared' or "
+                          f"'per_receiver', got {rec['mode']!r}")
+        stages = rec.get("stages")
+        if isinstance(stages, dict):
+            errors += _check(stages,
+                             {s: _NUM for s in DISPATCH_STAGES},
+                             f"{rw}.stages")
+            extra = set(stages) - set(DISPATCH_STAGES)
+            for s in sorted(extra):
+                errors.append(f"{rw}.stages.{s}: unknown stage")
+        if isinstance(rec.get("padding"), dict):
+            errors += _check(rec["padding"], DISPATCH_PADDING_SPEC,
+                             f"{rw}.padding")
+        if isinstance(rec.get("pool_shape"), dict):
+            errors += _check(rec["pool_shape"], DISPATCH_PADDING_SPEC,
+                             f"{rw}.pool_shape")
+        if isinstance(rec.get("memory"), dict):
+            errors += _check(rec["memory"], DISPATCH_MEMORY_SPEC,
+                             f"{rw}.memory")
+    return errors
+
+
+def validate_observatory(block, where: str = "observatory") -> List[str]:
+    errors = _check(block, OBSERVATORY_SPEC, where)
+    if not isinstance(block, dict):
+        return errors
+    compile_block = block.get("compile")
+    if isinstance(compile_block, dict):
+        for mode in ("shared", "per_receiver"):
+            if mode not in compile_block:
+                errors.append(f"{where}.compile.{mode}: missing")
+                continue
+            entry = compile_block[mode]
+            if entry is not None:  # null == that mode never dispatched
+                errors += _check(entry, AOT_COMPILE_SPEC,
+                                 f"{where}.compile.{mode}")
+        # Schema v7: the per-pool compile ledger — one record per
+        # (mode, shape-bucket) executable the campaign actually built.
+        pools = compile_block.get("pools")
+        if pools is None:
+            errors.append(f"{where}.compile.pools: missing")
+        elif not isinstance(pools, list):
+            errors.append(f"{where}.compile.pools: expected list, "
+                          f"got {type(pools).__name__}")
+        else:
+            for i, entry in enumerate(pools):
+                errors += _check(entry, dict(AOT_COMPILE_SPEC,
+                                             pool_id=(int,), mode=(str,)),
+                                 f"{where}.compile.pools[{i}]")
+    pipeline = block.get("pipeline")
+    if isinstance(pipeline, dict):
+        errors += _check(pipeline, PIPELINE_SPEC, f"{where}.pipeline")
+    return errors
+
+
+def validate_progress_stream(lines, where: str = "progress") -> List[str]:
+    """Validate the ``record: "dispatch"`` lines of a ``--progress``
+    JSONL heartbeat stream (schema v7). Non-dispatch records (campaign
+    summary, spot checks) pass through unchecked — their shapes belong
+    to their own producers."""
+    errors: List[str] = []
+    saw_dispatch = False
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError as e:
+            errors.append(f"{where}[{i}]: not JSON ({e})")
+            continue
+        if not isinstance(rec, dict) or rec.get("record") != "dispatch":
+            continue
+        saw_dispatch = True
+        rw = f"{where}[{i}]"
+        errors += _check(rec, PROGRESS_DISPATCH_SPEC, rw)
+        if isinstance(rec.get("pool_shape"), dict):
+            errors += _check(rec["pool_shape"], DISPATCH_PADDING_SPEC,
+                             f"{rw}.pool_shape")
+        if isinstance(rec.get("stages"), dict):
+            errors += _check(rec["stages"],
+                             {s: _NUM for s in DISPATCH_STAGES},
+                             f"{rw}.stages")
+        anomalies = rec.get("anomalies")
+        if isinstance(anomalies, dict):
+            for name, count in anomalies.items():
+                if name not in TRIAGE_CLASSES:
+                    errors.append(f"{rw}.anomalies.{name}: unknown "
+                                  f"triage class")
+                if not isinstance(count, int) or isinstance(count, bool):
+                    errors.append(f"{rw}.anomalies.{name}: expected int, "
+                                  f"got {type(count).__name__}")
+    if not saw_dispatch:
+        errors.append(f"{where}: no dispatch heartbeat records")
+    return errors
+
+
 def validate_slo_window(block, where: str = "slo") -> List[str]:
     """Validate one rolling ``slo`` window block (schema v10): both
     metrics present, each count vector exactly one bucket per edge and
@@ -332,18 +950,59 @@ def validate_slo_window(block, where: str = "slo") -> List[str]:
 
 def validate_run_payload(payload, where: str = "payload") -> List[str]:
     """One single-run bench payload: ``RUN_SPEC`` and its telemetry
-    block. Streaming and campaign payloads are not validated here yet
-    (``NotImplementedError``)."""
-    if isinstance(payload, dict) and (payload.get("scenario") == "streaming"
-                                      or "campaign" in payload):
+    block, and for a campaign payload its ``campaign`` block, dispatch
+    timeline and observatory with the stage-sum check. Streaming
+    payloads are not validated here yet (``NotImplementedError``)."""
+    if isinstance(payload, dict) and payload.get("scenario") == "streaming":
         raise NotImplementedError(
-            f"{where}: streaming and campaign payloads wait for ROADMAP.md "
-            f"Queue 1 items 5-6")
+            f"{where}: streaming payloads wait for ROADMAP.md Queue 1 "
+            f"item 6")
     errors = _check(payload, RUN_SPEC, where)
     if isinstance(payload, dict) and isinstance(payload.get("telemetry"),
                                                 dict):
         errors += validate_telemetry(payload["telemetry"],
                                      f"{where}.telemetry")
+    if isinstance(payload, dict) and "campaign" in payload:
+        errors += validate_campaign(payload["campaign"], f"{where}.campaign")
+        # Schema v5: a campaign payload must carry the dispatch
+        # observatory — the per-dispatch timeline, the host/device wall
+        # accounting, and the fleet throughput figure.
+        for key, types in (("dispatch_timeline", (list,)),
+                           ("observatory", (dict,)),
+                           ("clusters_per_sec", (int, float, type(None)))):
+            if key not in payload:
+                errors.append(f"{where}.{key}: missing")
+            elif not isinstance(payload[key], types):
+                errors.append(f"{where}.{key}: expected "
+                              f"{'/'.join(t.__name__ for t in types)}, "
+                              f"got {type(payload[key]).__name__}")
+        errors += validate_dispatch_timeline(
+            payload.get("dispatch_timeline") or [],
+            f"{where}.dispatch_timeline")
+        if isinstance(payload.get("observatory"), dict):
+            errors += validate_observatory(payload["observatory"],
+                                           f"{where}.observatory")
+        # Semantic cross-check: the per-stage walls must account for the
+        # campaign wall (within tolerance) — a timeline that doesn't sum
+        # to the wall it claims to explain is instrumentation drift.
+        wall = payload.get("wall_s")
+        timeline = payload.get("dispatch_timeline")
+        if isinstance(wall, (int, float)) and not isinstance(wall, bool) \
+                and isinstance(timeline, list) \
+                and wall >= _STAGE_SUM_MIN_WALL_S:
+            stage_sum = 0.0
+            for rec in timeline:
+                if isinstance(rec, dict) and isinstance(rec.get("stages"),
+                                                        dict):
+                    stage_sum += sum(
+                        v for v in rec["stages"].values()
+                        if isinstance(v, (int, float))
+                        and not isinstance(v, bool))
+            if abs(wall - stage_sum) > STAGE_SUM_TOLERANCE * wall:
+                errors.append(
+                    f"{where}.dispatch_timeline: stage walls sum to "
+                    f"{stage_sum:.3f}s, outside ±"
+                    f"{STAGE_SUM_TOLERANCE * 100:.0f}% of wall_s={wall:.3f}s")
     return errors
 
 

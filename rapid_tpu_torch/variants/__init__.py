@@ -5,3 +5,6 @@
 decides a fast round by seeded groups' quorums. Both change the logged
 message factors. ``engine.step`` dispatches on the setting.
 """
+
+#: Every protocol variant a campaign member may run.
+VARIANTS = ("rapid", "ring", "hier")

@@ -264,3 +264,39 @@ def test_shared_differential_on_card(card):
     on_cpu = diff.run_differential(64, {3: 5, 17: 5, 40: 7}, 130,
                                    device="cpu")
     assert plain(on_card) == plain(on_cpu)
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_campaign_on_card_equals_cpu(card, pipeline):
+    """A campaign straddling both modes (crash and partition members,
+    spot checks with a forced contested member, a recorder) gives the
+    same payload on the card as on the CPU in every non-wall field, and
+    the card's per-receiver dispatches go through ``rx_deliver``; its
+    exemplars replay verified on the card."""
+    import dataclasses
+
+    from rapid_tpu_torch import campaign, golden, replay
+    from rapid_tpu_torch.faults import SCENARIO_KINDS, ScenarioWeights
+
+    cfg = campaign.CampaignConfig(
+        clusters=4, n=16, ticks=60, seed=1, fleet_size=2, headroom=8,
+        spot_checks=2, flight_recorder=8, pipeline=pipeline,
+        weights=ScenarioWeights(**{k: float(k in ("crash", "partition"))
+                                   for k in SCENARIO_KINDS}))
+    before = rx_account.deliver_launches
+    on_card = campaign.run_campaign(cfg, device=card)
+    launched = rx_account.deliver_launches - before
+    on_cpu = campaign.run_campaign(dataclasses.replace(cfg, pipeline=True),
+                                   device="cpu")
+    assert golden.campaign_record(on_card) == golden.campaign_record(on_cpu)
+    assert on_card["platform"] == "gpu"
+    rx = on_card["campaign"]["per_receiver"]
+    # The per-receiver dispatches, and the spot check's engine run.
+    assert launched == 6 * cfg.ticks * (rx["dispatches"] + 1)
+    for block in on_card["campaign"]["triage"]["classes"].values():
+        for ex in block["exemplars"]:
+            rec = replay.replay_member(on_card, ex["dispatch"],
+                                       ex["member_index"], lineage=True,
+                                       device=card)
+            assert (rec["match"], rec["recorder_match"],
+                    rec["lineage_match"]) == (True, True, True)

@@ -42,12 +42,13 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     for name in ("events", "engine.adversary", "engine.diff",
                  "variants.oracle", "oracle.interfaces", "oracle.metadata",
                  "oracle.failure_detector", "oracle.testkit", "oracle.paxos",
-                 "oracle.service", "oracle.simulation", "oracle.cluster"):
+                 "oracle.service", "oracle.simulation", "oracle.cluster",
+                 "campaign", "replay", "variants"):
         assert f"rapid_tpu_torch.{name}" in result["modules"], name
 
 
 def _entry_points():
-    from rapid_tpu_torch import golden
+    from rapid_tpu_torch import campaign, golden, replay
     from rapid_tpu_torch.convert import from_reference
     from rapid_tpu_torch.engine import churn, diff, paxos, receiver, state, step
     from rapid_tpu_torch.faults import crash_window_delay_schedule
@@ -84,6 +85,14 @@ def _entry_points():
             crash_window_delay_schedule(16), 10, settings),
         "run_lineage_differential": lambda: diff.run_lineage_differential(
             "steady", 8, 10),
+        "run_campaign": lambda: campaign.run_campaign(
+            campaign.CampaignConfig(clusters=2, n=8, ticks=10,
+                                    fleet_size=2)),
+        "run_tournament": lambda: campaign.run_tournament(
+            campaign.CampaignConfig(clusters=2, n=8, ticks=10,
+                                    fleet_size=2), ["rapid", "ring"]),
+        "replay_member": lambda: replay.replay_member(
+            golden.load(golden.CAMPAIGN_PATH), 0, 1),
         "simulate": lambda: step.simulate(
             state.init_state(uids, id_fp_sum, settings, device="cpu"),
             state.crash_faults([5] * 8, device="cpu"), 1, settings),

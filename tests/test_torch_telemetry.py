@@ -44,7 +44,7 @@ from rapid_tpu.telemetry import schema as ref_schema
 from rapid_tpu.telemetry import slo as ref_slo
 from rapid_tpu.telemetry import trace as ref_trace
 
-from rapid_tpu_torch import faults, golden
+from rapid_tpu_torch import campaign, faults, golden, variants
 from rapid_tpu_torch.convert import from_reference
 from rapid_tpu_torch.engine import fleet, receiver, step
 from rapid_tpu_torch.engine.state import I32_MAX
@@ -357,8 +357,11 @@ def test_validators_reject_what_the_reference_rejects():
     block["metrics"]["bogus"] = {}
     assert schema.validate_slo_window(block) == \
         ref_schema.validate_slo_window(block) != []
-    with pytest.raises(NotImplementedError, match="items 5-6"):
-        schema.validate_run_payload(dict(good, campaign={}))
+    campaign = dict(good, campaign={})
+    assert schema.validate_run_payload(campaign) == \
+        ref_schema.validate_run_payload(campaign) != []
+    with pytest.raises(NotImplementedError, match="item 6"):
+        schema.validate_run_payload(dict(good, scenario="streaming"))
 
 
 def test_schema_constants_equal_the_reference():
@@ -368,7 +371,18 @@ def test_schema_constants_equal_the_reference():
                  "DISTRIBUTION_SPEC", "LINEAGE_DURATION_NAMES",
                  "LINEAGE_MILESTONE_NAMES", "LINEAGE_SPAN_SPEC",
                  "LINEAGE_CRITICAL_PATH_SPEC", "LINEAGE_SUMMARY_SPEC",
-                 "SLO_METRIC_NAMES", "SLO_METRIC_SPEC", "SLO_WINDOW_SPEC"):
+                 "SLO_METRIC_NAMES", "SLO_METRIC_SPEC", "SLO_WINDOW_SPEC",
+                 "PROTOCOL_VARIANTS", "CAMPAIGN_SPEC", "TRIAGE_CLASSES",
+                 "TRIAGE_SPEC", "TRIAGE_CLASS_SPEC", "TRIAGE_EXEMPLAR_SPEC",
+                 "TRIAGE_EXPECTED_SPEC", "CAMPAIGN_POOL_SPEC",
+                 "TOURNAMENT_SPEC", "TOURNAMENT_VARIANT_SPEC",
+                 "DELAY_REGIMES", "PER_RECEIVER_SPEC", "SPOT_CHECK_SPEC",
+                 "SPOT_MEMBER_SPEC", "CAMPAIGN_DISTRIBUTIONS",
+                 "CAMPAIGN_LINEAGE_SPEC", "DISPATCH_STAGES",
+                 "DISPATCH_RECORD_SPEC", "DISPATCH_PADDING_SPEC",
+                 "DISPATCH_MEMORY_SPEC", "AOT_COMPILE_SPEC",
+                 "OBSERVATORY_SPEC", "PIPELINE_SPEC",
+                 "PROGRESS_DISPATCH_SPEC", "STAGE_SUM_TOLERANCE"):
         assert getattr(schema, name) == getattr(ref_schema, name), name
     assert set(schema.GAUGE_SEMANTICS) | {"source", "n_ticks",
                                            "messages_per_view_change",
@@ -376,6 +390,8 @@ def test_schema_constants_equal_the_reference():
         set(schema.TELEMETRY_SPEC)
     assert slo.DEFAULT_BUCKET_EDGES == ref_slo.DEFAULT_BUCKET_EDGES
     assert metrics.COUNTER_FIELDS == ref_metrics.COUNTER_FIELDS
+    assert schema.PROTOCOL_VARIANTS == variants.VARIANTS
+    assert schema.TRIAGE_CLASSES == campaign.TRIAGE_CLASSES
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +461,8 @@ def test_port_pool_folds_equal_the_golden_members(pool_id):
     pool = golden.FLEET_POOLS[pool_id]
     members = golden.pool_inputs(golden.load(pool.path), head)
     out = golden.run_pool(pool, members, device="cpu")
-    finals = None if pool.mode == "shared" else golden.final_view(out[0])
+    finals = (None if pool.mode == "shared"
+              else receiver.receiver_final_fields(out[0]))
     got = json.loads(golden.dumps(golden.pool_telemetry(
         golden.port_folds(), pool, members, out[1], finals)))
     want = golden.load(golden.TELEMETRY_PATH)["entries"][
