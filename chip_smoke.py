@@ -25,11 +25,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    in and to the run with the packed composition (``account`` around
    ``rx_account``) swapped in. Then, through ``rapid_tpu_torch.tick_time``,
    the default (``rx_deliver``) and the composed path in turns on this
-   card (a warm-up run each, then default, composed, composed,
-   default; every run equal to the first and launching only
-   its own kernel), ms per tick each; the host's µs per delivery call
-   inside a tick for each path; and kernels per tick of each path over
-   ticks 106-120 under ``torch.profiler``;
+   card (default, composed, composed, default, the runs above their
+   warm-up; every run equal to the first and launching only its own
+   kernel), ms per tick each; the host's µs per delivery call inside a
+   tick for each path; and kernels per tick of each path over ticks
+   106-113 (``PROFILE_TICKS``) under ``torch.profiler``;
 5. N=4096, 8 ticks with one partition window: peak memory and time per
    tick;
 6. the shared-state engine (``init_state`` then ``simulate``) at N=1,000,
@@ -67,7 +67,8 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``shared_n100k_crash_rec64.json`` (ring rows and stamps too), and on
     phase 4's N=1024 receiver run, equal to ``rx_n1024_recorder.json``,
     with ``rx_deliver`` launched 6 times a tick and ``rx_account`` never;
-    each in turns with the recorder off, every run equal to the first;
+    the shared run in turns with the recorder off, the receiver run then
+    once without it and once more with it, every run equal to the first;
 15. churn planned by the port's ``plan_churn`` (in a child process run
     as ``chip_smoke.py --planned`` under the ``PYTHONHASHSEED`` the golden
     files were made with): N=100,000 with two 16-slot join and two leave
@@ -89,7 +90,7 @@ Phases, in order; any failure exits non-zero before the result lines:
     lowered by the port from the file's schedules, stacked to the file's
     shape and run 120 ticks, equal to the file for every member; prints
     ms per tick and per member-tick, host reads per tick, kernels per
-    tick over ticks 1-10 under ``torch.profiler``, peak memory and
+    tick over ticks 1-5 under ``torch.profiler``, peak memory and
     ``rx_deliver``'s launches (720 for a per-receiver pool, none for a
     shared one), counted from 0 around each pool's run;
 18. scaling: pools 0 and 3 at F in {1, 16, 64, 256} (prefixes of the same
@@ -100,18 +101,18 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``receiver_simulate``), 120 ticks, equal to its entry;
 19. the per-receiver carry layouts at the main path's width: phase 4's
     run under ``Settings()`` (``rx_kernel="xla"``, the dense carry) and
-    under ``"packed"`` and ``"pallas"``, one run each, every run equal
-    to phase 4's (logs and final state), ``rx_deliver`` 960 launches and
-    ``rx_account`` none each;
+    under ``"packed"``, one run each, every run equal to phase 4's (logs
+    and final state), ``rx_deliver`` 960 launches and ``rx_account``
+    none each (phase 4 itself runs ``"pallas"``, the packed code);
     prints ms/tick, host reads/tick and peak memory per layout, and
-    kernels per tick over ticks 106-120 under ``torch.profiler``;
+    kernels per tick over ticks 106-113 under ``torch.profiler``;
 20. phase 5's N=4096 partition under ``"xla"``, in turns with
     ``"pallas"`` (xla, pallas, pallas, xla), phase 5's checks on each
     run and the two layouts' runs equal; ms/tick and peak memory each;
 21. dense fleets: pools 2 and 3 of phase 17 lowered under ``"xla"``,
     F=256, 120 ticks, equal to their golden files for every member,
     ``rx_deliver`` 720 launches a pool; ms/tick, µs per member-tick,
-    kernels per tick over ticks 1-10 and peak memory beside phase 17's
+    kernels per tick over ticks 1-5 and peak memory beside phase 17's
     packed runs;
 22. telemetry of the card's logs: the port's folds
     (``rapid_tpu_torch.telemetry``) of phases 7, 9 and 10, of phase 14's
@@ -169,7 +170,43 @@ Phases, in order; any failure exits non-zero before the result lines:
     ``fleet`` configuration, clean on the exact fields against that
     entry, and ``run_tournament(["rapid", "ring"])`` at
     ``campaign_tournament.json``'s configuration, its whole ``campaign``
-    block equal to the file's.
+    block equal to the file's;
+28. checkpoints from the reference: each of
+    ``rapid_tpu_torch/testdata/checkpoints/{engine,receiver_dense,
+    receiver_packed}`` (written by the reference's ``save_checkpoint``:
+    the soak after 2 chunks, the two-zone N=64 member after 6 chunks of
+    16, each with an 8-row recorder) restored on the card, continued one
+    chunk, saved, loaded and continued again, equal to
+    ``continuations.json`` (the reference's uninterrupted run: a SHA-256
+    of every log and final-state field, the recorder's rows and stamps,
+    the traffic state); every manifest valid; a version, statics and
+    leaf-table mismatch raise the reference's errors and messages;
+29. the soak at ``benchmarks/soak.json``'s configuration (N=24 in 96
+    slots, chunks of 512, the reference CLI's traffic, recorder 8, SLO
+    window 8), ``SOAK_CHUNKS`` chunks with the round trip at
+    ``SOAK_VERIFY_AT``: every chunk record equal to the file's on its
+    keys but the walls, the round trip's block all true, the stream
+    valid, the watermark gate (``steady_max <= 1.10 * first``) held;
+    prints ms per tick, ticks/s, and the host's dispatch and fence
+    seconds against the card's busy share under ``torch.profiler``;
+30. the per-receiver soak at ``benchmarks/rx_soak.json``'s
+    configuration (N=1024, "packed", 12 chunks of 16, the round trip at
+    tick 96): every record and the summary equal to the file's (896
+    decisions), ``rx_deliver`` launched 1,248 times (6 a tick over the
+    208 ticks run) and ``rx_account`` never; then the same under
+    ``Settings()`` (the dense carry), every record equal to the packed
+    run's, the same launches; ms per tick and peak memory per layout;
+31. a resident shared engine at N=100,000 in 100,096 slots, the soak's
+    traffic, 6 chunks of 256 with the round trip at chunk 3, equal to
+    ``rapid_tpu_torch/testdata/stream_n100k.json`` (every record, the
+    summary, a SHA-256 of every final-state field); ms per tick and peak
+    memory beside phase 7's;
+32. the pinned servo (``--target-rate 40 --pinned-tps 1000`` at the
+    soak's configuration, 8 chunks) with a status file and socket
+    attached: every record, servo blocks included, equal to
+    ``rapid_tpu_torch/testdata/stream_servo.json``; one snapshot a chunk,
+    each valid; ``read_status`` answers and ``watch`` streams every
+    frame.
 
 Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -184,8 +221,10 @@ the same for fleets.
 ``rx_deliver``'s entry of the ``kernels`` line carries its launches on
 phase 4's run under each layout (``launches_by_layout``) and on each of
 phase 23's runs (``referee_launches``), phase 25's campaign
-(``campaign_launches``), phase 26's replays (``replay_launches``) and
-phase 27's runs (``committed_launches``). The line
+(``campaign_launches``), phase 26's replays (``replay_launches``),
+phase 27's runs (``committed_launches``), phase 28's receiver
+continuations (``checkpoint_launches``) and phase 30's soaks per layout
+(``stream_launches``). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -209,11 +248,11 @@ PHASE_SLOT = 3
 FLEET_WIDTHS = (13, 32, 48, 1024)   # phase 16: rx_deliver over a member axis
 FLEET_F = (1, 4, 256)              # members (256 only at C <= 48)
 FLEET_MEMBERS = 256                # the campaign's dispatch size
-FLEET_PROFILE_TICKS = 10           # phase 17's profiled window
+FLEET_PROFILE_TICKS = 5            # phases 17 and 21: the profiled window
 SCALE_F = (1, 16, 64, 256)         # phase 18's fleet sizes ...
 SCALE_TICKS = 40                   # ... and ticks
 TURN_ROUNDS = 1                # rounds of default, composed, composed, default
-LAYOUTS = ("xla", "packed", "pallas")   # phase 19's carry layouts
+PROFILE_TICKS = 8               # phases 4 and 19: ticks 106-113 profiled
 SLOW_N, SLOW_TICKS = 64, 400   # phase 23's slow-voter scenario
 HALF_DELAY_TICKS = 200         # phase 23's half_delay scenario
 SHARED_REFEREE_N = 256         # phase 24: the widest oracle-cluster runs
@@ -490,7 +529,7 @@ def phase_main(rx_account, settings, device, keep: dict) -> dict:
 
     zero_counts(rx_account)
     turns = tick_time.in_turns(member, settings, tick_time.PATHS,
-                               TURN_ROUNDS, check)
+                               TURN_ROUNDS, check, warm=False)
     log("phase 4: in turns (default is rx_deliver, composed the packed "
         "composition around rx_account), every run equal to the first")
     for name, runs in turns.items():
@@ -504,7 +543,8 @@ def phase_main(rx_account, settings, device, keep: dict) -> dict:
         log(f"phase 4: {name} path, {c['calls']} delivery calls in "
             f"{ticks} ticks, {c['host_us_per_call']:.1f} us of host time "
             f"per call inside the tick")
-    windows = tick_time.windows(member, settings, tick_time.PATHS)
+    windows = tick_time.windows(member, settings, tick_time.PATHS,
+                                PROFILE_TICKS)
     for name, w in windows.items():
         log(f"phase 4: {name} path, ticks {w['from_tick'] + 1}-"
             f"{w['from_tick'] + w['ticks']} under torch.profiler: "
@@ -812,7 +852,7 @@ def receiver_recorder_runs(rx_account, device, keep: dict) -> dict:
     recorder, equal to ``rx_n1024_recorder.json`` (counters, events,
     config ids, ring rows and stamps), ``rx_deliver`` 6 times a tick and
     ``rx_account`` never, the final state and logs equal to the run
-    without the recorder; then both in turns."""
+    without the recorder; then one run without it and one with it."""
     import torch
     from rapid_tpu_torch import device as device_mod
     from rapid_tpu_torch import golden
@@ -829,7 +869,7 @@ def receiver_recorder_runs(rx_account, device, keep: dict) -> dict:
     want = golden.load(run.path)
     first = {}
     times = {"off": [], "on": []}
-    for which in ("on",) + ("off", "on", "on", "off") * TURN_ROUNDS:
+    for which in ("on", "off", "on"):
         settings = on if which == "on" else off
         zero_counts(rx_account)
         torch.cuda.synchronize()
@@ -1252,10 +1292,12 @@ def layout_run(member, settings, ticks: int, rx_account, want, label):
     return final, logs, stats
 
 
-def phase_layouts(rx_account, device, keep: dict) -> dict:
-    """Phase 19: phase 4's run under each carry layout, one run each, every
-    run equal to phase 4's; then each layout's kernels per tick over
-    ticks 106-120 under ``torch.profiler``."""
+def phase_layouts(rx_account, device, keep: dict, main_run: dict) -> dict:
+    """Phase 19: phase 4's run under the dense and the packed carry, one
+    run each, every run equal to phase 4's; then each one's kernels per
+    tick over ticks 106-113 under ``torch.profiler``. Phase 4 runs
+    ``"pallas"``, which shares the packed code: its entry is phase 4's
+    run and window."""
     from rapid_tpu_torch import profile, tick_time
     from rapid_tpu_torch.engine import receiver, rx_packed
     from rapid_tpu_torch.faults import crash_window_delay_schedule
@@ -1263,22 +1305,20 @@ def phase_layouts(rx_account, device, keep: dict) -> dict:
 
     n, ticks = tick_time.N, tick_time.TICKS
     schedule = crash_window_delay_schedule(n)
-    settings = {k: Settings(rx_kernel=k) for k in LAYOUTS}
+    layouts = ("xla", "packed")
+    settings = {k: Settings(rx_kernel=k) for k in layouts}
     members = {k: receiver.lower_receiver_schedule(schedule, settings[k],
                                                    device=device)
-               for k in LAYOUTS}
+               for k in layouts}
     if not isinstance(members["xla"].state, receiver.ReceiverState):
         raise AssertionError("Settings() did not lower a dense member")
-    runs = {k: [] for k in LAYOUTS}
-    launches = {}
-    for k in LAYOUTS:
-        _, _, stats = layout_run(members[k], settings[k], ticks, rx_account,
-                                 keep["main"], f"phase 19 {k}")
-        runs[k].append(stats)
-        launches[k] = stats["launches"][0]
+    runs = {}
+    for k in layouts:
+        _, _, runs[k] = layout_run(members[k], settings[k], ticks,
+                                   rx_account, keep["main"], f"phase 19 {k}")
     zero_counts(rx_account)
     windows = {}
-    for k in LAYOUTS:
+    for k in layouts:
         state = tick_time.timed(members[k], settings[k],
                                 ticks=tick_time.WINDOW_FROM)[0]
         if k != "xla":
@@ -1286,30 +1326,31 @@ def phase_layouts(rx_account, device, keep: dict) -> dict:
         windows[k] = profile.profile_window(
             lambda k=k, state=state: tick_time.timed(
                 members[k], settings[k], None, state,
-                tick_time.WINDOW_TICKS)[1].decide,
-            tick_time.WINDOW_TICKS, 5, {"layout": k})
+                PROFILE_TICKS)[1].decide, PROFILE_TICKS, 5, {"layout": k})
     zero_counts(rx_account)
     out = {}
-    for k in LAYOUTS:
-        ms = [r["ms_per_tick"] for r in runs[k]]
-        w = windows[k]
-        out[k] = {"ms_per_tick": ms, "mean_ms_per_tick": sum(ms) / len(ms),
-                  "host_reads_per_tick": runs[k][0]["host_reads_per_tick"],
-                  "peak_mib": max(r["peak_mib"] for r in runs[k]),
-                  "run_peak_mib": max(r["run_peak_mib"] for r in runs[k]),
-                  "deliver_launches": launches[k], "window": w}
-        o = out[k]
+    for k in layouts:
+        r, w = runs[k], windows[k]
+        out[k] = {"ms_per_tick": r["ms_per_tick"],
+                  "host_reads_per_tick": r["host_reads_per_tick"],
+                  "peak_mib": r["peak_mib"],
+                  "run_peak_mib": r["run_peak_mib"],
+                  "deliver_launches": r["launches"][0], "window": w}
         log(f"phase 19: N={n} x {ticks} ticks under rx_kernel={k!r} equals "
-            f"phase 4's run: ms/tick in run order "
-            f"{[round(t, 3) for t in ms]} (mean "
-            f"{o['mean_ms_per_tick']:.3f}), "
-            f"{o['host_reads_per_tick']:.3f} host reads/tick, peak "
-            f"{o['peak_mib']:.1f} MiB ({o['run_peak_mib']:.1f} above "
-            f"the run's start), {launches[k]} rx_deliver launches, 0 "
-            f"rx_account; ticks 106-120 under torch.profiler: "
-            f"{w['device_kernels_per_tick']:.1f} kernels/tick, "
-            f"{w['aten_ops_per_tick']:.1f} aten ops/tick, "
+            f"phase 4's run: {r['ms_per_tick']:.3f} ms/tick, "
+            f"{r['host_reads_per_tick']:.3f} host reads/tick, peak "
+            f"{r['peak_mib']:.1f} MiB ({r['run_peak_mib']:.1f} above "
+            f"the run's start), {r['launches'][0]} rx_deliver launches, 0 "
+            f"rx_account; ticks 106-{105 + PROFILE_TICKS} under "
+            f"torch.profiler: {w['device_kernels_per_tick']:.1f} "
+            f"kernels/tick, {w['aten_ops_per_tick']:.1f} aten ops/tick, "
             f"{w['device_busy_ms_per_tick']:.3f} ms/tick device-busy")
+    out["pallas"] = {"ms_per_tick": main_run["ms_per_tick"],
+                     "deliver_launches": main_run["deliver_launches"],
+                     "window": main_run["profile"]["default"]}
+    log(f"phase 19: rx_kernel='pallas' is phase 4's run "
+        f"({main_run['ms_per_tick']:.3f} ms/tick, "
+        f"{main_run['deliver_launches']} rx_deliver launches)")
     return out
 
 
@@ -2077,6 +2118,414 @@ def phase_committed(rx_account, device) -> dict:
     return out
 
 
+# --- the streaming service (phases 28-32) ---------------------------------
+
+#: Phase 29's depth: chunks of the soak, and the chunk of its round trip
+#: (``benchmarks/soak.json`` runs 200 with the round trip at 100; the
+#: whole soak runs through ``python -m rapid_tpu_torch.service --soak``).
+SOAK_CHUNKS = 24
+SOAK_VERIFY_AT = 12
+
+#: Phase 30: ``benchmarks/rx_soak.json``'s configuration.
+RX_SOAK = {"n": 1024, "chunk": 16, "chunks": 12, "verify_at": 6,
+           "horizon": 192, "recorder": 8, "slo_window": 8, "seed": 0}
+RX_SOAK_LAUNCHES = 6 * 16 * (12 + 1)   # the round trip runs two chunks
+
+#: The reference's messages of the three checkpoint refusals (phase 28).
+CHECKPOINT_REFUSALS = {
+    "version": ("CheckpointVersionError",
+                "checkpoint was saved as version 99 but this build reads "
+                "version 1; re-save with a matching build (no cross-version "
+                "migration is defined)"),
+    "statics": ("CheckpointCompatError",
+                "checkpoint statics do not match the restoring Settings "
+                "(rx_kernel: saved='packed' expected='pallas'); restore "
+                "with the Settings the run was saved under"),
+    "leaves": ("CheckpointError",
+               "checkpoint leaf table does not match arrays.npz (missing "
+               "from npz: [], undeclared: ['recorder.ring'])"),
+}
+
+
+def stream_stats(stream, ticks_run: int) -> dict:
+    """Timing of a resident run: wall ms per tick and ticks/s over the
+    ticks it ran (a round trip runs two chunks), the first dispatch's
+    one-time work, and per chunk summed: the host's dispatch seconds (the
+    tick loop enqueues the chunk's kernels and reads the card on every
+    branch), its wait on the chunk's fence, and the CUDA-event span of
+    the chunk's device work."""
+    t = stream.timing
+    wall = sum(r["wall_s"] for r in stream.chunk_records)
+    return {"ticks_run": ticks_run, "wall_s": wall,
+            "ms_per_tick": wall * 1e3 / ticks_run,
+            "ticks_per_sec": ticks_run / wall,
+            "compile_s": stream.compile_s,
+            "dispatch_s": sum(r["dispatch_s"] for r in t),
+            "fence_s": sum(r["fence_s"] for r in t),
+            "device_span_s": sum(r["device_s"] for r in t)}
+
+
+def busy_window(run, ticks: int, label: str) -> dict:
+    """``profile.profile_window`` of ``run`` (``ticks`` ticks): the card's
+    busy share of a chunk's wall."""
+    from rapid_tpu_torch import profile
+
+    w = profile.profile_window(run, ticks, 5, {"window": label})
+    w["busy_share"] = (w["device_busy_ms_per_tick"]
+                       / w["wall_ms_per_tick"])
+    return w
+
+
+def print_stream(phase: int, label: str, st: dict, w: dict) -> None:
+    busy = st["wall_s"] * w["busy_share"]
+    log(f"phase {phase}: {label}: {st['ms_per_tick']:.4f} ms/tick, "
+        f"{st['ticks_per_sec']:.1f} ticks/s over {st['ticks_run']} ticks "
+        f"({st['wall_s']:.3f} s); host dispatch {st['dispatch_s']:.3f} s, "
+        f"fence waits {st['fence_s']:.3f} s, device spans "
+        f"{st['device_span_s']:.3f} s; one-time work "
+        f"{st['compile_s']:.4f} s; under torch.profiler "
+        f"{w['wall_ms_per_tick']:.4f} ms/tick wall, "
+        f"{w['device_busy_ms_per_tick']:.4f} device-busy "
+        f"({100 * w['busy_share']:.1f} %), "
+        f"{w['device_kernels_per_tick']:.1f} kernels/tick: device-busy "
+        f"about {busy:.2f} s, host-blocked about {st['wall_s'] - busy:.2f} "
+        f"s of the wall")
+
+
+def phase_checkpoints(rx_account, device) -> dict:
+    """Phase 28: each committed reference checkpoint restored on the
+    card, continued one chunk, saved, loaded and continued again, equal
+    to ``continuations.json``; the manifests validate; a version, statics
+    or leaf-table mismatch raises the reference's error."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.service import checkpoint
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry import schema
+
+    svc = golden.PortService(device)
+    want = golden.load(golden.CHECKPOINT_PATH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family in golden.CHECKPOINT_FAMILIES:
+            zero_counts(rx_account)
+            start = time.perf_counter()
+            got = golden.continue_checkpoint(svc, family,
+                                             golden.CHECKPOINT_DIR / family,
+                                             Path(tmp) / family)
+            seconds = time.perf_counter() - start
+            diffs = golden.differences(got, want[family])
+            if diffs:
+                raise AssertionError(f"phase 28 {family}: {diffs[:8]}")
+            errors = []
+            for where in (golden.CHECKPOINT_DIR / family, Path(tmp) / family):
+                manifest = json.loads((where / "manifest.json").read_text())
+                errors += schema.validate_checkpoint_manifest(manifest)
+            launches = (rx_account.deliver_launches, rx_account.launches)
+            ticks = 2 * (golden.SOAK["chunk"] if family == "engine"
+                         else golden.RX_CHECKPOINT["chunk"])
+            expect = (0 if family == "engine" else 6 * ticks, 0)
+            if errors or launches != expect:
+                raise AssertionError(f"phase 28 {family}: {errors[:4]}, "
+                                     f"launches {launches} want {expect}")
+            out[family] = {"seconds": seconds, "ticks": ticks,
+                           "deliver_launches": launches[0],
+                           "decides": [c["decides"]
+                                       for c in got["continuations"]]}
+            log(f"phase 28: the reference's {family} checkpoint (tick "
+                f"{got['tick']}) restored on the card and continued "
+                f"{ticks} ticks across a save and load: equal to the "
+                f"reference's run (logs, final state, recorder"
+                f"{', traffic' if family == 'engine' else ''}); decides "
+                f"{out[family]['decides']}; {seconds:.2f} s; "
+                f"{launches[0]} rx_deliver launches; manifests valid")
+        src = golden.CHECKPOINT_DIR / "receiver_packed"
+        packed = Settings(rx_kernel="packed", flight_recorder_window=8)
+        for how, (error, message) in CHECKPOINT_REFUSALS.items():
+            path = Path(tmp) / f"bad_{how}"
+            shutil.copytree(src, path)
+            manifest = json.loads((path / "manifest.json").read_text())
+            settings = packed
+            if how == "version":
+                manifest["checkpoint_version"] = 99
+            elif how == "statics":
+                settings = packed.with_(rx_kernel="pallas")
+            else:
+                manifest["leaves"] = [leaf for leaf in manifest["leaves"]
+                                      if leaf["name"] != "recorder.ring"]
+            (path / "manifest.json").write_text(json.dumps(manifest))
+            try:
+                checkpoint.load_checkpoint(str(path), settings,
+                                           device=device)
+            except checkpoint.CheckpointError as exc:
+                if type(exc).__name__ != error or str(exc) != message:
+                    raise AssertionError(f"phase 28 {how}: {exc!r}")
+            else:
+                raise AssertionError(f"phase 28 {how}: no error")
+        log(f"phase 28: a version, statics and leaf-table mismatch raise "
+            f"{', '.join(e for e, _ in CHECKPOINT_REFUSALS.values())} with "
+            f"the reference's messages")
+    return out
+
+
+def phase_soak(rx_account, device) -> dict:
+    """Phase 29: the soak at ``soak.json``'s configuration for
+    ``SOAK_CHUNKS`` chunks with its round trip at ``SOAK_VERIFY_AT``,
+    every chunk record equal to the file's; the stream validates and the
+    watermark gate holds."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine.step import simulate_chunk
+    from rapid_tpu_torch.telemetry import schema
+
+    svc = golden.PortService(device)
+    zero_counts(rx_account)
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = Path(tmp) / "soak.jsonl"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = golden.boot_soak(svc, sink=str(sink))
+        golden.run_stream(eng, SOAK_CHUNKS, SOAK_VERIFY_AT, Path(tmp) / "ck")
+        summary = eng.summary()
+        eng.close()
+        lines = sink.read_text().splitlines()
+    errors = (golden.soak_errors(eng.chunk_records)
+              + schema.validate_streaming_stream(lines))
+    marks = summary["live_buffer_bytes"]
+    block = eng.chunk_records[SOAK_VERIFY_AT]["checkpoint"]
+    if errors or marks["steady_max"] > 1.10 * marks["first"] or \
+            not all(v for k, v in block.items() if k.endswith("identical")):
+        raise AssertionError(f"phase 29: {errors[:6]} {marks} {block}")
+    if (rx_account.deliver_launches, rx_account.launches) != (0, 0):
+        raise AssertionError("phase 29 launched a delivery kernel")
+    chunk = golden.SOAK["chunk"]
+    st = stream_stats(eng, (SOAK_CHUNKS + 1) * chunk)
+    st.update(peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+              watermark=marks, events=summary["events_injected"],
+              decisions=summary["decisions"])
+    inert = eng._inert_schedule
+    w = busy_window(lambda: simulate_chunk(
+        eng.state, eng._faults, 64, eng.settings, churn=inert,
+        device=device)[1].decide_now, 64, "soak")
+    st["window"] = w
+    log(f"phase 29: the soak (N=24 in 96 slots, chunks of {chunk}), "
+        f"{SOAK_CHUNKS} chunks with the round trip at chunk "
+        f"{SOAK_VERIFY_AT} (tick {block['tick']}, all identical): every "
+        f"chunk record equals soak.json's ({summary['events_injected']} "
+        f"events, {summary['decisions']} decisions); stream valid; "
+        f"watermark {marks} (steady_max <= 1.10 first); peak "
+        f"{st['peak_mib']:.1f} MiB")
+    print_stream(29, "soak", st, w)
+    return st
+
+
+def phase_rx_soak(rx_account, device) -> dict:
+    """Phase 30: the per-receiver soak at ``rx_soak.json``'s
+    configuration under "packed", every record equal to the file's, 1,248
+    ``rx_deliver`` launches; then under ``Settings()`` (the dense carry),
+    every record equal to the packed run's, the same launches."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine.receiver import receiver_simulate_chunk
+    from rapid_tpu_torch.service import boot_resident_receiver
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry.slo import SloWindows
+
+    want = committed("rx_soak.json")
+    c = RX_SOAK
+    out, first = {}, None
+    strip = lambda r: {k: v for k, v in r.items()
+                       if k not in golden.STREAM_WALL_KEYS}
+    for layout in ("packed", "xla"):
+        settings = Settings(rx_kernel=layout,
+                            flight_recorder_window=c["recorder"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts(rx_account)
+        rx = boot_resident_receiver(
+            settings, c["n"], seed=c["seed"], horizon_ticks=c["horizon"],
+            chunk_ticks=c["chunk"], slo=SloWindows(c["slo_window"]),
+            device=device)
+        with tempfile.TemporaryDirectory() as tmp:
+            golden.run_stream(rx, c["chunks"], c["verify_at"],
+                              Path(tmp) / "ck")
+        summary = rx.summary()
+        launches = (rx_account.deliver_launches, rx_account.launches)
+        records = [strip(r) for r in rx.chunk_records]
+        errors = []
+        for got, ref in zip(records, want["chunks"]):
+            errors += [f"chunk {ref['index']}: {k}" for k in ref
+                       if k not in golden.SOAK_SKIP_KEYS
+                       and got.get(k) != ref[k]]
+        errors += [f"summary: {k}" for k in want["summary"]
+                   if k not in golden.SOAK_SKIP_KEYS + ("schema_version",)
+                   and summary.get(k) != want["summary"][k]]
+        if summary["checkpoint"] != want["summary"]["checkpoint"]:
+            errors.append(f"checkpoint {summary['checkpoint']}")
+        if first is not None and records != first:
+            errors.append("records differ from the packed run's")
+        if errors or launches != (RX_SOAK_LAUNCHES, 0):
+            raise AssertionError(f"phase 30 {layout}: {errors[:8]}, "
+                                 f"launches {launches}")
+        first = first or records
+        st = stream_stats(rx, RX_SOAK_LAUNCHES // 6)
+        st.update(peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  run_peak_mib=(torch.cuda.max_memory_allocated() - base)
+                  / 2**20, deliver_launches=launches[0],
+                  decisions=summary["decisions"],
+                  watermark=summary["live_buffer_bytes"])
+        log(f"phase 30: rx_soak.json's per-receiver soak (N={c['n']}, "
+            f"{c['chunks']} chunks of {c['chunk']}, round trip at tick "
+            f"{summary['checkpoint']['tick']}) under rx_kernel={layout!r}: "
+            f"every record equals the file's ({summary['decisions']} "
+            f"decisions); {launches[0]} rx_deliver launches, 0 rx_account;"
+            f" peak {st['peak_mib']:.1f} MiB ({st['run_peak_mib']:.1f} "
+            f"above the run's start); watermark {st['watermark']}")
+        zero_counts(rx_account)
+        carry, faults = rx.carry, rx._faults
+        w = busy_window(lambda: receiver_simulate_chunk(
+            carry, faults, 4, settings)[1].decide, 4, f"rx_soak {layout}")
+        zero_counts(rx_account)
+        st["window"] = w
+        print_stream(30, f"rx_soak {layout}", st, w)
+        out[layout] = st
+        del rx, carry, faults
+    return out
+
+
+def phase_stream_n100k(rx_account, device, phase7: dict) -> dict:
+    """Phase 31: a resident shared engine at N=100,000 (phase 9's 100,096
+    slots), the soak's traffic, 6 chunks of 256 with the round trip at
+    chunk 3, equal to ``stream_n100k.json``: every record, the summary
+    and a SHA-256 of every final-state field."""
+    import tempfile
+
+    import torch
+
+    from rapid_tpu_torch import golden
+
+    svc = golden.PortService(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(rx_account)
+    keep = {}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = golden.n100k_stream_record(svc, tmp, keep)
+    seconds = time.perf_counter() - start
+    diffs = golden.differences(got, golden.load(golden.STREAM_N100K_PATH))
+    if diffs or rx_account.deliver_launches:
+        raise AssertionError(f"phase 31: {diffs[:8]}")
+    eng = keep["engine"]
+    cfg = golden.STREAM_N100K
+    st = stream_stats(eng, (cfg["chunks"] + 1) * cfg["chunk"])
+    st.update(seconds=seconds,
+              peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+              run_peak_mib=(torch.cuda.max_memory_allocated() - base)
+              / 2**20, decisions=got["summary"]["decisions"],
+              watermark=eng._watermark_block())
+    log(f"phase 31: the resident shared engine at N=100,000 (100,096 "
+        f"slots), 6 chunks of 256 with the round trip at chunk 3: every "
+        f"record, the summary and every final-state field's SHA-256 equal "
+        f"stream_n100k.json ({st['decisions']} decisions); {seconds:.1f} s "
+        f"with the boot; peak {st['peak_mib']:.1f} MiB "
+        f"({st['run_peak_mib']:.1f} above the start) beside phase 7's "
+        f"{phase7['ms_per_tick']:.4f} ms/tick and "
+        f"{phase7['peak_bytes'] / 2**20:.1f} MiB")
+    from rapid_tpu_torch.engine.step import simulate_chunk
+
+    w = busy_window(lambda: simulate_chunk(
+        eng.state, eng._faults, 16, eng.settings, churn=eng._inert_schedule,
+        device=device)[1].decide_now, 16, "n100k")
+    st["window"] = w
+    print_stream(31, "N=100,000 resident", st, w)
+    return st
+
+
+def phase_servo_status(rx_account, device) -> dict:
+    """Phase 32: the pinned servo stream (``--target-rate 40
+    --pinned-tps 1000`` at the soak's configuration, 8 chunks) with a
+    status file and socket attached: every record equals
+    ``stream_servo.json``; a snapshot a chunk, each valid; ``read_status``
+    answers over the socket and ``watch`` streams every later frame."""
+    import socket
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.service import StatusPublisher, read_status
+    from rapid_tpu_torch.telemetry import schema
+
+    svc = golden.PortService(device)
+    cfg = golden.SERVO_STREAM
+    zero_counts(rx_account)
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = str(Path(tmp) / "status.sock")
+        status = StatusPublisher(file_path=str(Path(tmp) / "status.json"),
+                                 socket_path=sock)
+        frames, ready = [], threading.Event()
+
+        def watch():
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sk:
+                sk.settimeout(120)
+                sk.connect(sock)
+                sk.sendall(b"watch\n")
+                ready.set()
+                with sk.makefile("r") as fh:
+                    for line in fh:
+                        frames.append(json.loads(line))
+                        if len(frames) == cfg["chunks"]:
+                            return
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        ready.wait(30)
+        time.sleep(0.2)
+        servo = svc.service.LoadServo(svc.service.ServoConfig(
+            target_events_per_sec=cfg["target_rate"],
+            pinned_ticks_per_sec=cfg["pinned_tps"]))
+        eng = golden.boot_soak(svc, cfg, servo=servo, status=status,
+                               closed_loop=True)
+        golden.run_stream(eng, cfg["chunks"], cfg["verify_at"],
+                          Path(tmp) / "ck")
+        watcher.join(60)
+        snap = read_status(sock)[0]
+        on_file = json.loads((Path(tmp) / "status.json").read_text())
+        got = golden.stream_record(eng)
+        eng.close()
+    diffs = golden.differences(got, golden.load(golden.SERVO_PATH))
+    errors = [e for f in frames + [snap, on_file]
+              for e in schema.validate_status_snapshot(f)]
+    ticks = [f["tick"] for f in frames]
+    want_ticks = [golden.SOAK["chunk"] * (i + 1)
+                  for i in range(cfg["chunks"])]
+    if diffs or errors or ticks != want_ticks or \
+            snap["tick"] != on_file["tick"] != want_ticks[-1]:
+        raise AssertionError(f"phase 32: {diffs[:6]} {errors[:4]} {ticks}")
+    rates = sorted({c["servo"]["rate_per_ktick"] for c in got["chunks"]})
+    log(f"phase 32: the pinned servo stream ({cfg['chunks']} chunks, rate "
+        f"{rates} events/ktick, {got['summary']['events_injected']} "
+        f"events) equals stream_servo.json, servo blocks included; "
+        f"{len(frames)} status frames over watch at ticks {ticks}, each "
+        f"valid, read_status and the file at tick {snap['tick']}")
+    return {"frames": len(frames), "events": got["summary"]["events_injected"],
+            "rates": rates}
+
+
 def planned_child() -> dict:
     """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
     files; any failure there fails this process."""
@@ -2187,7 +2636,7 @@ def main() -> int:
     scaling = phase_fleet_scaling(device, pool_outputs)
     for pool_id in (1, 3):
         del pool_outputs[pool_id]
-    layouts = phase_layouts(rx_account, device, keep)
+    layouts = phase_layouts(rx_account, device, keep, main_run)
     wide_dense = phase_wide_dense(rx_account, device)
     dense_fleets = phase_dense_fleets(device, fleet_pools)
     telemetry = phase_telemetry(keep, pool_outputs)
@@ -2199,6 +2648,12 @@ def main() -> int:
     replays = phase_replay(rx_account, device, campaign_payload)
     del campaign_payload
     committed_runs = phase_committed(rx_account, device)
+    stream = {"checkpoints": phase_checkpoints(rx_account, device),
+              "soak": phase_soak(rx_account, device),
+              "rx_soak": phase_rx_soak(rx_account, device),
+              "n100k": phase_stream_n100k(rx_account, device,
+                                          shared["n100k_crash"]),
+              "servo_status": phase_servo_status(rx_account, device)}
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -2229,6 +2684,11 @@ def main() -> int:
         "replay_launches": replays["deliver_launches"],
         "committed_launches": {k: v["deliver_launches"]
                                for k, v in committed_runs.items()},
+        "stream_launches": {k: v["deliver_launches"]
+                            for k, v in stream["rx_soak"].items()},
+        "checkpoint_launches": {
+            k: v["deliver_launches"]
+            for k, v in stream["checkpoints"].items()},
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -2254,7 +2714,8 @@ def main() -> int:
                     "telemetry": telemetry, "referee_receiver": referee_rx,
                     "referee_shared": referee_shared,
                     "campaign": campaign_run, "replay": replays,
-                    "committed": committed_runs, "card": card}))
+                    "committed": committed_runs, "stream": stream,
+                    "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,14 @@ of a reference schedule, ``fault_model_from_reference`` the port's
 ``FaultModel`` of any of the reference's fault models, and ``plain`` turns
 a result of either package (a differential's result, an ``AdversaryRun``,
 view events, metrics rows, lineage spans) into plain Python values, so
-the two compare with ``==`` field by field. Only duck typing by class
-name is used: this module imports nothing of the reference.
+the two compare with ``==`` field by field. The streaming service's
+state crosses as well: ``checkpoint_from_reference`` gives the port's
+``service.checkpoint.Checkpoint`` of a reference ``Checkpoint`` (every
+part carried by ``from_reference``), ``traffic_from_reference`` and
+``servo_from_reference`` the port's ``TrafficGenerator`` and
+``LoadServo`` of the reference's (or of their ``state_dict``s). Only duck
+typing by class name is used: this module imports nothing of the
+reference.
 """
 from __future__ import annotations
 
@@ -106,6 +112,46 @@ def to_numpy(nt):
                                     delay_table=_leaf_to("delay_table",
                                                          nt.delay_table))
     return type(nt)(**{f: _leaf_to(f, getattr(nt, f)) for f in nt._fields})
+
+
+# ---------------------------------------------------------------------------
+# the streaming service's checkpoints and host state
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_from_reference(cp, device="cuda"):
+    """The port's ``Checkpoint`` of a reference ``Checkpoint``: the same
+    family, tick, host blob and manifest, every part on ``device``."""
+    from rapid_tpu_torch.service.checkpoint import Checkpoint
+
+    dev = resolve_device(device)
+    parts = {name: (_leaf_from(name, part, dev)
+                    if not hasattr(part, "_fields")
+                    else from_reference(part, dev))
+             for name, part in cp.parts.items()}
+    return Checkpoint(family=cp.family, tick=int(cp.tick), parts=parts,
+                      host=cp.host, manifest=cp.manifest)
+
+
+def _state_dict(obj) -> dict:
+    return obj if isinstance(obj, dict) else obj.state_dict()
+
+
+def traffic_from_reference(generator, settings):
+    """The port's ``TrafficGenerator`` in the state of a reference
+    generator (or of its ``state_dict``), under the port's ``settings``:
+    it draws on from the same point of the same PCG64 stream."""
+    from rapid_tpu_torch.service.traffic import TrafficGenerator
+
+    return TrafficGenerator.from_state(_state_dict(generator), settings)
+
+
+def servo_from_reference(servo):
+    """The port's ``LoadServo`` in the state of a reference servo (or of
+    its ``state_dict``)."""
+    from rapid_tpu_torch.service.servo import LoadServo
+
+    return LoadServo.from_state(_state_dict(servo))
 
 
 # ---------------------------------------------------------------------------

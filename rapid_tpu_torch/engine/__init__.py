@@ -42,7 +42,7 @@ from rapid_tpu_torch.engine.state import (
     link_faults, state_config_id)
 from rapid_tpu_torch.engine.invariants import (
     InvariantViolationError, check_run)
-from rapid_tpu_torch.engine.step import simulate
+from rapid_tpu_torch.engine.step import simulate, simulate_chunk
 
 __all__ = ["ChurnEnvelopeError", "ChurnPlan", "ChurnSchedule",
            "EngineFaults", "EngineState", "FallbackEnvelopeError",
@@ -50,5 +50,5 @@ __all__ = ["ChurnEnvelopeError", "ChurnPlan", "ChurnSchedule",
            "ViewEvent", "check_run", "crash_faults", "engine_events",
            "expand_counters", "expand_fallback_counters", "init_state",
            "link_faults", "plan_churn", "plan_fallback", "simulate",
-           "state_config_id", "synthetic_churn_schedule",
+           "simulate_chunk", "state_config_id", "synthetic_churn_schedule",
            "synthetic_contested_schedule"]

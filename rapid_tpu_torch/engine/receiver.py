@@ -24,7 +24,7 @@ sticky ``flags`` bits instead of diverging silently (``check_flags``).
 
 Where the reference lowers to one XLA program, the port runs eagerly:
 the tick loop is a host loop (``receiver_simulate`` over the dense carry,
-``rx_packed.simulate`` over the packed one), the tick is a host
+``rx_packed.simulate_chunk`` over the packed one), the tick is a host
 int, and the data-dependent branch (the topology rebuild after decides)
 reads a 0-d tensor on the host; the cut fixpoint takes one masked pass
 (``cut._invalidate``). Work that
@@ -973,22 +973,50 @@ def receiver_simulate(state, faults: EngineFaults, n_ticks: int,
     ``rx_kernel="xla"`` ``state`` is a dense ``ReceiverState`` and the
     loop carries it as it is (the reference's ``_simulate``); under
     "packed" and "pallas" it is an ``rx_packed.PackedReceiverBundle`` (or
-    a dense boot, packed on entry) and the loop carries the packed layout
-    (``rx_packed.simulate``). The state lies on the device the run
-    should use; the results are the same under every layout, but for
-    the packed layouts' saturation flags."""
+    a dense boot, packed on entry) and the loop carries the packed layout,
+    unpacked at the end (``receiver_simulate_chunk``, one chunk). The
+    state lies on the device the run should use; the results are the
+    same under every layout, but for the packed layouts' saturation
+    flags."""
+    from rapid_tpu_torch.engine import rx_packed
+
+    out = receiver_simulate_chunk(state, faults, n_ticks, settings)
+    if settings.rx_kernel == "xla":
+        return out
+    bundle = out[0]
+    return (rx_packed.unpack_receiver_state(bundle.packed,
+                                            bundle.delay_table, settings),
+            *out[1:])
+
+
+def receiver_simulate_chunk(carry, faults: EngineFaults, n_ticks: int,
+                            settings: Settings, rec=None,
+                            donate: bool = True):
+    """One streaming chunk of the per-receiver loop, layout-preserving.
+
+    Under ``rx_kernel="xla"`` the carry is a dense ``ReceiverState`` and
+    the final comes back dense (``_dense_loop``); under "packed" and
+    "pallas" it is an ``rx_packed.PackedReceiverBundle`` (a dense boot is
+    packed on entry, as ``rx_packed.as_bundle`` does) and the final comes
+    back as a bundle (``rx_packed.simulate_chunk``), so the service feeds
+    it back as it is. Returns ``(final, logs)``, or ``(final, logs, rec)``
+    with a recorder window, folding into ``rec`` when given (every chunk
+    after the first). Chained chunks equal one uninterrupted
+    ``receiver_simulate`` of the summed length. ``donate`` is accepted for
+    the reference's callers; PyTorch has no donation
+    (``step.simulate_chunk``)."""
     from rapid_tpu_torch.engine import recorder, rx_packed
 
-    _require_layout(state, settings)
-    if settings.rx_kernel == "xla":
-        final, logs = _dense_loop(state, faults, n_ticks, settings)
-    else:
-        final, logs = rx_packed.simulate(state, faults, n_ticks, settings)
+    _require_layout(carry, settings)
+    if settings.rx_kernel != "xla":
+        return rx_packed.simulate_chunk(carry, faults, n_ticks, settings,
+                                        rec=rec, donate=donate)
+    final, logs = _dense_loop(carry, faults, n_ticks, settings)
     if settings.flight_recorder_window:
-        rec = recorder.record_receiver_run(
-            recorder.init(settings, device=logs.tick.device), logs,
-            settings)
-        return final, logs, rec
+        if rec is None:
+            rec = recorder.init(settings, device=logs.tick.device)
+        return final, logs, recorder.record_receiver_run(rec, logs,
+                                                         settings)
     return final, logs
 
 

@@ -17,8 +17,9 @@ planes. Between ticks the port carries :class:`PackedReceiverState`:
   clamp-and-flag guard (``receiver.FLAG_PACK_NARROW_SAT``).
 
 ``unpack(pack(rs)) == rs`` bit for bit whenever no saturation flag fires,
-and ``simulate`` runs the dense ``receiver_step`` between unpack and pack,
-so results are those of the dense step. ``fleet_simulate`` does the same
+and ``simulate_chunk`` runs the dense ``receiver_step`` between unpack and
+pack, so results are those of the dense step; its packed final feeds
+the next chunk as it is. ``fleet_simulate`` does the same
 for a stacked fleet and keeps its finals packed (``final_view`` unpacks
 what the host reads); ``dense_fleet_simulate`` is its twin on the dense
 carry (``rx_kernel="xla"``), with no unpack or repack.
@@ -264,14 +265,24 @@ def dense_fleet_simulate(rs, faults, n_ticks: int, settings: Settings):
                                  for col in zip(*logs)])
 
 
-def simulate(state, faults, n_ticks: int, settings: Settings):
-    """The tick loop over the packed carry: unpack, the dense
-    ``receiver_step``, repack, once per tick. ``state`` is a booted dense
-    ``ReceiverState`` or a ``PackedReceiverBundle``; returns the dense
-    final state and the stacked ``ReceiverStepLog``."""
-    from rapid_tpu_torch.engine import receiver as receiver_mod
+def simulate_chunk(bundle, faults, n_ticks: int, settings: Settings,
+                   rec=None, donate: bool = True):
+    """One streaming chunk over the packed carry: unpack, the dense
+    ``receiver_step``, repack, once per tick; bundle in, bundle out.
 
-    bundle = as_bundle(state, settings)
+    Returns ``(PackedReceiverBundle, logs)``, or ``(..., logs, rec)``
+    when the recorder window is nonzero, folding into ``rec`` when given.
+    The packed state crosses the boundary as it is, epoch-delta base and
+    sticky flags included: a dense final repacked on the next entry would
+    rebuild the base, and ``FLAG_EPOCH_DELTA_SAT`` could move. Chained
+    chunks equal one uninterrupted chunk of the summed length.
+    ``donate`` is accepted for the reference's callers; PyTorch has no
+    donation (``step.simulate_chunk``)."""
+    from rapid_tpu_torch.engine import receiver as receiver_mod
+    from rapid_tpu_torch.engine import recorder
+
+    del donate
+    bundle = as_bundle(bundle, settings)
     ps, delay_table = bundle.packed, bundle.delay_table
     t0 = int(ps.tick)
     logs = []
@@ -281,4 +292,10 @@ def simulate(state, faults, n_ticks: int, settings: Settings):
                                               tick=t0 + i)
         ps = pack_receiver_state(nxt, settings)
         logs.append(log)
-    return unpack_receiver_state(ps, delay_table, settings), stack_logs(logs)
+    logs = stack_logs(logs)
+    out = PackedReceiverBundle(packed=ps, delay_table=delay_table)
+    if settings.flight_recorder_window:
+        if rec is None:
+            rec = recorder.init(settings, device=logs.tick.device)
+        return out, logs, recorder.record_receiver_run(rec, logs, settings)
+    return out, logs

@@ -516,6 +516,14 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
     ``churn`` is a ``churn.ChurnSchedule`` and ``fallback`` a
     ``paxos.FallbackSchedule`` of tensors (``convert.from_reference``
     moves a host schedule), or None."""
+    return _simulate(state, faults, n_ticks, settings, churn, fallback,
+                     mesh, device, None)
+
+
+def _simulate(state, faults, n_ticks: int, settings: Settings, churn,
+              fallback, mesh, device, rec):
+    """``simulate``, folding the logs into the recorder ``rec`` when one
+    is given (``simulate_chunk``) and into a fresh one otherwise."""
     require_scope(mesh)
     dev = resolve_device(device)
     placed = [("state", state.member.device),
@@ -535,10 +543,34 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
         logs.append(log)
     logs = stack_logs(logs)
     if settings.flight_recorder_window:
-        rec = recorder.record_run(recorder.init(settings, device=dev), logs,
-                                  settings)
-        return state, logs, rec
+        if rec is None:
+            rec = recorder.init(settings, device=dev)
+        return state, logs, recorder.record_run(rec, logs, settings)
     return state, logs
+
+
+def simulate_chunk(state: EngineState, faults: EngineFaults, n_ticks: int,
+                   settings: Settings, churn=None, fallback=None, mesh=None,
+                   rec=None, donate: bool = True, device="cuda"):
+    """One streaming chunk: ``n_ticks`` steps from an arbitrary carry, as
+    the resident service (``rapid_tpu_torch.service.resident``) chains
+    them. The same as ``simulate``, but the flight recorder resumes from
+    ``rec`` when given (needed for every chunk after the first when
+    ``settings.flight_recorder_window > 0``). Chained chunks equal one
+    uninterrupted ``simulate`` of the summed length: each chunk rebuilds
+    the host's knowledge (``_Host``: the epoch, the member count, the
+    config id, whether votes arrive on its first tick) from the state it
+    is given, as a fresh ``simulate`` does, so a boundary between an
+    announce and its decide changes nothing.
+
+    ``donate`` is accepted so the reference's callers port unchanged.
+    PyTorch has no donation: every step builds new tensors and leaves its
+    inputs intact, so ``donate=False`` needs no copy, and the old carry
+    is freed when the caller drops it (the service's live-buffer
+    watermark holds that)."""
+    del donate
+    return _simulate(state, faults, n_ticks, settings, churn, fallback,
+                     mesh, device, rec)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,14 @@ columns), ``lineage_from_recorder`` of the N=1024 receiver recorder, and
 ``fleet_summaries``/``merge_summaries``/``summary_distributions`` with
 the members' spans of fleet pools 0 and 2; each with the verdict of the
 schema's validators (``telemetry_record``).
+``testdata/checkpoints/`` holds one checkpoint of each family written by
+the reference's ``save_checkpoint`` (``write_checkpoint``) and
+``continuations.json`` its uninterrupted run on from each, two chunks
+with a save and load between (``continue_checkpoint``);
+``testdata/stream_n100k.json`` the reference's resident shared engine at
+N=100,000 and ``testdata/stream_servo.json`` its pinned load servo
+stream (``stream_record``), run through ``PortService`` or its reference
+twin in the tests, so both packages run the same service code here.
 CPU tests regenerate the files from the reference and hold the port's CPU
 runs to them; ``chip_smoke.py`` compares the port's runs on the card
 against them.
@@ -846,3 +854,330 @@ def pool_telemetry(folds: Folds, pool: FleetPool, members: List[dict],
 def telemetry_record(entries: Dict[str, dict]) -> dict:
     """The telemetry file's JSON-ready form."""
     return {"schema_version": 12, "entries": dict(sorted(entries.items()))}
+
+
+# --- the streaming service ------------------------------------------------
+
+#: ``benchmarks/soak.json``'s configuration: the reference CLI's
+#: ``--soak`` defaults (``rapid_tpu/service/__main__.py``).
+SOAK = {"n": 24, "capacity": 96, "chunk": 512, "seed": 0, "rate": 20.0,
+        "leave_rate": 2.0, "leave_burst": 4, "diurnal": 0.3,
+        "diurnal_period": 4096, "recorder": 8, "slo_window": 8}
+
+#: Machine-dependent keys of a chunk record or a stream summary, left out
+#: of every comparison.
+STREAM_WALL_KEYS = ("wall_s", "compile_s", "ticks_per_sec",
+                    "events_per_sec", "live_buffer_bytes")
+
+#: The keys a soak's chunk records are held to ``benchmarks/soak.json``'s
+#: without: the walls, and the checkpoint block (checked on its own).
+SOAK_SKIP_KEYS = STREAM_WALL_KEYS + ("checkpoint",)
+
+#: One checkpoint of each family, written by the reference's
+#: ``save_checkpoint``; ``continuations.json`` holds the reference's
+#: continuation from each (``checkpoint_record``).
+CHECKPOINT_DIR = TESTDATA / "checkpoints"
+CHECKPOINT_PATH = CHECKPOINT_DIR / "continuations.json"
+CHECKPOINT_FAMILIES = ("engine", "receiver_dense", "receiver_packed")
+ENGINE_CHECKPOINT_CHUNKS = 2   # the soak's chunks before the save
+#: The receiver checkpoints: the two-zone deployment at N=64 in chunks of
+#: 16 (``rx_soak.json``'s horizon and chunk), saved after 6 chunks (tick
+#: 96); the second continuation decides.
+RX_CHECKPOINT = {"n": 64, "seed": 0, "horizon": 192, "chunk": 16,
+                 "chunks": 6, "recorder": 8}
+
+#: A resident shared engine at full width: N=100,000 in phase 9's slot
+#: count, the soak's traffic rates, 6 chunks of 256 with the round trip
+#: at chunk 3.
+STREAM_N100K = dict(SOAK, n=100_000, capacity=100_096, chunk=256,
+                    chunks=6, verify_at=3)
+STREAM_N100K_PATH = TESTDATA / "stream_n100k.json"
+
+#: The pinned servo stream: the soak's configuration, ``--target-rate
+#: 40 --pinned-tps 1000``, 8 chunks with the round trip at chunk 4 (the
+#: CLI's ``--ticks 4096``).
+SERVO_STREAM = dict(SOAK, target_rate=40.0, pinned_tps=1000.0, chunks=8,
+                    verify_at=4)
+SERVO_PATH = TESTDATA / "stream_servo.json"
+
+
+class PortService:
+    """The port's service entry points in the shape the golden runners
+    below call; tests pass the reference's twin, so both packages run
+    the same code here."""
+
+    def __init__(self, device="cuda"):
+        from rapid_tpu_torch import service
+        from rapid_tpu_torch.convert import to_numpy
+        from rapid_tpu_torch.settings import Settings
+        from rapid_tpu_torch.telemetry.slo import SloWindows
+
+        self.device = device
+        self.service, self.Settings, self.SloWindows = (service, Settings,
+                                                        SloWindows)
+        self._to_numpy = to_numpy
+
+    def boot_resident(self, settings, capacity, n, **kw):
+        return self.service.boot_resident(settings, capacity, n,
+                                          device=self.device, **kw)
+
+    def boot_resident_receiver(self, settings, n, **kw):
+        return self.service.boot_resident_receiver(settings, n,
+                                                   device=self.device, **kw)
+
+    def load_checkpoint(self, path, settings):
+        return self.service.load_checkpoint(str(path), settings,
+                                            device=self.device)
+
+    def engine_faults(self, capacity):
+        from rapid_tpu_torch.engine.state import crash_faults
+
+        return crash_faults([I32_MAX] * capacity, device=self.device)
+
+    def receiver_faults(self, settings):
+        from rapid_tpu_torch.engine.fleet import lower_receiver_schedule
+        from rapid_tpu_torch.faults import two_zone_schedule
+
+        rc = RX_CHECKPOINT
+        sched = two_zone_schedule(rc["n"], rc["seed"], rc["horizon"],
+                                  ring_depth=settings.delivery_ring_depth)
+        return lower_receiver_schedule(sched, settings,
+                                       device=self.device).faults
+
+    def engine_chunk(self, state, faults, n_ticks, settings, schedule, rec):
+        from rapid_tpu_torch.convert import from_reference
+        from rapid_tpu_torch.engine.churn import empty_schedule
+        from rapid_tpu_torch.engine.step import simulate_chunk
+
+        if schedule is None:
+            schedule = empty_schedule(state.member.shape[0])
+        return simulate_chunk(state, faults, n_ticks, settings,
+                              churn=from_reference(schedule, self.device),
+                              rec=rec, device=self.device)
+
+    def receiver_chunk(self, carry, faults, n_ticks, settings, rec):
+        from rapid_tpu_torch.engine.receiver import receiver_simulate_chunk
+
+        return receiver_simulate_chunk(carry, faults, n_ticks, settings,
+                                       rec=rec)
+
+    def to_numpy(self, tree):
+        return self._to_numpy(tree)
+
+    def array(self, name, leaf):
+        from rapid_tpu_torch.convert import _leaf_to
+
+        return _leaf_to(name, leaf)
+
+
+def soak_settings(svc, cfg: dict):
+    return svc.Settings(stream_chunk_ticks=cfg["chunk"],
+                        flight_recorder_window=cfg["recorder"])
+
+
+def boot_soak(svc, cfg: dict = SOAK, *, servo=None, status=None, sink=None,
+              closed_loop=False):
+    """A resident engine at ``cfg`` (``SOAK``'s keys) with the soak's
+    traffic and SLO windows, as the CLI's ``--soak`` boots it."""
+    traffic = svc.service.TrafficConfig(
+        seed=cfg["seed"], join_rate_per_ktick=cfg["rate"],
+        leave_burst_rate_per_ktick=cfg["leave_rate"],
+        leave_burst_size=cfg["leave_burst"],
+        diurnal_amplitude=cfg["diurnal"],
+        diurnal_period_ticks=cfg["diurnal_period"], closed_loop=closed_loop)
+    return svc.boot_resident(
+        soak_settings(svc, cfg), cfg["capacity"], cfg["n"], seed=cfg["seed"],
+        traffic_config=traffic, servo=servo,
+        slo=svc.SloWindows(window_chunks=cfg["slo_window"]), status=status,
+        sink=sink, write_ticks=False)
+
+
+def run_stream(eng, chunks: int, verify_at: int, path) -> None:
+    """``verify_at`` chunks, the round trip through ``path`` (itself a
+    chunk), then the rest of ``chunks``."""
+    eng.run(verify_at)
+    eng.verify_round_trip(str(path))
+    eng.run(chunks - verify_at - 1)
+
+
+def stream_record(eng, final=None, svc=None) -> dict:
+    """A finished stream without its wall keys: every chunk record, the
+    summary (written by this call) and, with ``final``, a SHA-256 of each
+    final-state field."""
+    def strip(rec):
+        return {k: v for k, v in rec.items() if k not in STREAM_WALL_KEYS}
+
+    out = {"chunks": [strip(r) for r in eng.chunk_records],
+           "summary": strip(eng.summary())}
+    if final is not None:
+        out["state_sha256"] = state_digests(svc.to_numpy(final))
+    return json.loads(json.dumps(out))
+
+
+def servo_stream_record(svc, scratch, status=None) -> dict:
+    """``SERVO_STREAM`` run through ``svc`` (its checkpoint under
+    ``scratch``), with ``status`` attached: ``stream_record``."""
+    cfg = SERVO_STREAM
+    servo = svc.service.LoadServo(svc.service.ServoConfig(
+        target_events_per_sec=cfg["target_rate"],
+        pinned_ticks_per_sec=cfg["pinned_tps"]))
+    eng = boot_soak(svc, cfg, servo=servo, status=status, closed_loop=True)
+    run_stream(eng, cfg["chunks"], cfg["verify_at"], Path(scratch) / "servo")
+    out = stream_record(eng)
+    eng.close()
+    return out
+
+
+def n100k_stream_record(svc, scratch, keep=None) -> dict:
+    """``STREAM_N100K`` run through ``svc``: ``stream_record`` with the
+    final state's digests; ``keep`` (a dict) receives the engine."""
+    cfg = STREAM_N100K
+    eng = boot_soak(svc, cfg)
+    run_stream(eng, cfg["chunks"], cfg["verify_at"], Path(scratch) / "n100k")
+    out = stream_record(eng, eng.state, svc)
+    if keep is not None:
+        keep["engine"] = eng
+    return out
+
+
+def soak_errors(records, summary=None) -> List[str]:
+    """Where a soak's chunk records (and summary) differ from
+    ``benchmarks/soak.json``'s on the file's keys (``SOAK_SKIP_KEYS``
+    left out; the summary's ``schema_version`` too, which the reference
+    moved from 11 to 12 since the file was written), and any checkpoint
+    block that is not all true."""
+    committed = json.loads((TESTDATA.parents[1] / "benchmarks"
+                            / "soak.json").read_text())
+    errors = []
+    for got, want in zip(records, committed["chunks"]):
+        for key in want:
+            if key not in SOAK_SKIP_KEYS and got.get(key) != want[key]:
+                errors.append(f"chunk {want['index']}: {key}")
+        block = got.get("checkpoint")
+        if block is not None and not all(
+                v for k, v in block.items() if k.endswith("identical")):
+            errors.append(f"chunk {want['index']}: checkpoint {block}")
+    if len(records) > len(committed["chunks"]):
+        errors.append(f"{len(records)} chunks, the file has "
+                      f"{len(committed['chunks'])}")
+    if summary is not None:
+        for key, want in committed["summary"].items():
+            if key in SOAK_SKIP_KEYS + ("schema_version",):
+                continue
+            if summary.get(key) != want:
+                errors.append(f"summary: {key}")
+        block = summary.get("checkpoint") or {}
+        if block != committed["summary"]["checkpoint"]:
+            errors.append(f"summary: checkpoint {block}")
+    return errors
+
+
+def _tree_np(svc, tree):
+    """A NamedTuple (or packed bundle) as ``{field: numpy}`` in the
+    reference's dtypes; a bundle's packed fields prefixed ``packed.``."""
+    arr = svc.to_numpy(tree)
+    if hasattr(arr, "packed"):
+        out = {f"packed.{f}": np.asarray(getattr(arr.packed, f))
+               for f in arr.packed._fields}
+        out["delay_table"] = np.asarray(arr.delay_table)
+        return out
+    return {f: np.asarray(getattr(arr, f)) for f in arr._fields}
+
+
+def _digests(fields: Dict[str, np.ndarray]) -> Dict[str, str]:
+    return {name: _digest([arr]) for name, arr in sorted(fields.items())}
+
+
+def continuation_record(svc, final, logs, rec) -> dict:
+    """One continuation chunk: a SHA-256 of every log and final-state
+    field (reference dtypes), the recorder's rows and stamps, and the
+    chunk's announce and decide counts."""
+    from rapid_tpu_torch.engine.recorder import recorder_payload
+
+    log_np = _tree_np(svc, logs)
+    announce = log_np.get("announce_now", log_np.get("announce"))
+    decide = log_np.get("decide_now", log_np.get("decide"))
+    return {"ticks": [int(log_np["tick"][0]), int(log_np["tick"][-1])],
+            "announces": int(np.asarray(announce, bool).sum()),
+            "decides": int(np.asarray(decide, bool).sum()),
+            "log_sha256": _digests(log_np),
+            "final_sha256": _digests(_tree_np(svc, final)),
+            "recorder": recorder_payload(svc.to_numpy(rec))}
+
+
+def family_settings(svc, family: str):
+    if family == "engine":
+        return soak_settings(svc, SOAK)
+    kernel = "xla" if family == "receiver_dense" else "packed"
+    return svc.Settings(rx_kernel=kernel,
+                        flight_recorder_window=RX_CHECKPOINT["recorder"])
+
+
+def write_checkpoint(svc, family: str, path) -> None:
+    """The checkpoint of ``family`` that ``CHECKPOINT_DIR`` holds: the
+    soak after ``ENGINE_CHECKPOINT_CHUNKS`` chunks, or the two-zone
+    receiver after ``RX_CHECKPOINT["chunks"]``."""
+    if family == "engine":
+        eng = boot_soak(svc)
+        eng.run(ENGINE_CHECKPOINT_CHUNKS)
+        eng.save(str(path))
+        return
+    rc = RX_CHECKPOINT
+    rx = svc.boot_resident_receiver(
+        family_settings(svc, family), rc["n"], seed=rc["seed"],
+        horizon_ticks=rc["horizon"], chunk_ticks=rc["chunk"])
+    rx.run(rc["chunks"])
+    rx.save(str(path))
+
+
+def continue_checkpoint(svc, family: str, path, scratch) -> dict:
+    """Restore the checkpoint at ``path``, run one chunk, save it under
+    ``scratch``, load that and run one more: the record of both chunks
+    (``continuation_record``) and of what was restored."""
+    settings = family_settings(svc, family)
+    cp = svc.load_checkpoint(path, settings)
+    out = {"family": cp.family, "tick": cp.tick,
+           "leaves": cp.manifest["leaves"],
+           "restored_sha256": {
+               p: _digests(_tree_np(svc, t) if hasattr(t, "_fields")
+                           else {p: svc.array(p, t)})
+               for p, t in sorted(cp.parts.items())},
+           "continuations": []}
+    if family == "engine":
+        gen = svc.service.TrafficGenerator.from_state(cp.host["traffic"],
+                                                      settings)
+        faults = svc.engine_faults(SOAK["capacity"])
+        state, rec = cp.parts["state"], cp.parts["recorder"]
+        for i in range(2):
+            schedule, _ = gen.next_chunk(SOAK["chunk"])
+            state, logs, rec = svc.engine_chunk(state, faults, SOAK["chunk"],
+                                                settings, schedule, rec)
+            out["continuations"].append(dict(
+                continuation_record(svc, state, logs, rec),
+                traffic=gen.state_dict()))
+            if i == 0:
+                svc.service.save_engine(str(scratch), state, settings,
+                                        rec=rec,
+                                        host={"traffic": gen.state_dict()})
+                cp2 = svc.load_checkpoint(scratch, settings)
+                gen = svc.service.TrafficGenerator.from_state(
+                    cp2.host["traffic"], settings)
+                state, rec = cp2.parts["state"], cp2.parts["recorder"]
+        return out
+    faults = svc.receiver_faults(settings)
+    carry = svc.service.restore_receiver_carry(cp, settings)
+    rec, tick = cp.parts["recorder"], cp.tick
+    n = RX_CHECKPOINT["chunk"]
+    for i in range(2):
+        carry, logs, rec = svc.receiver_chunk(carry, faults, n, settings,
+                                              rec)
+        tick += n
+        out["continuations"].append(
+            continuation_record(svc, carry, logs, rec))
+        if i == 0:
+            svc.service.save_receiver(str(scratch), carry, settings,
+                                      tick=tick, rec=rec)
+            cp2 = svc.load_checkpoint(scratch, settings)
+            carry = svc.service.restore_receiver_carry(cp2, settings)
+            rec = cp2.parts["recorder"]
+    return out

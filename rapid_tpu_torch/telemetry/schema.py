@@ -4,17 +4,18 @@ Own copy of the validators of the reference's ``telemetry.schema`` that
 cover the port's payloads: per-run telemetry blocks
 (``metrics.RunSummary.as_dict``), flight-recorder payloads, lineage spans
 and summaries, SLO windows, single-run, sweep and suite bench payloads,
-and campaign payloads with their triage, tournament, dispatch
-timeline, observatory and ``--progress`` heartbeat records. Each
-validator returns a list of violations, empty when the payload is well
-formed; the constants pin the field names and fold semantics the folds,
-the recorder and the campaign write.
+campaign payloads with their triage, tournament, dispatch timeline,
+observatory and ``--progress`` heartbeat records, and the streaming
+service's chunk heartbeats, stream summaries, servo blocks, status
+snapshots, load sweeps and checkpoint manifests. Each validator returns
+a list of violations, empty when the payload is well formed; the
+constants pin the field names and fold semantics the folds, the
+recorder, the campaign and the service write.
 
-Not here yet: the validators of the streaming, checkpoint, load-sweep,
-status and kernel-profile payloads, which wait for the modules that
-write them (``ROADMAP.md`` Queue 1 items 6-7); ``validate_run_payload``
-and ``validate_bench_payload`` raise ``NotImplementedError`` on such a
-payload rather than pass it unchecked.
+Not here: the kernel-profile payload's validator (the reference's
+``telemetry/profile.py`` has no PyTorch form); ``validate_bench_payload``
+raises ``NotImplementedError`` on such a payload rather than pass it
+unchecked.
 """
 from __future__ import annotations
 
@@ -193,6 +194,239 @@ SLO_WINDOW_SPEC = {
     "chunks": (int,),
     "bucket_edges": (list,),
     "metrics": (dict,),
+}
+
+# --- streaming service records (schema v9) --------------------------------
+
+#: The ``TrafficConfig.as_dict()`` block embedded in streaming records.
+TRAFFIC_CONFIG_SPEC = {
+    "seed": (int,),
+    "join_rate_per_ktick": _NUM,
+    "leave_burst_rate_per_ktick": _NUM,
+    "leave_burst_size": (int,),
+    "diurnal_amplitude": _NUM,
+    "diurnal_period_ticks": (int,),
+    "burst_spacing_ticks": (int,),
+    "max_join_burst": (int,),
+    "min_members": (int,),
+    "reuse_slots": (bool,),
+    # Schema v10: closed-loop sampling (one uniform per tick, Poisson by
+    # CDF inversion) — the mode the load servo requires.
+    "closed_loop": (bool,),
+}
+
+#: Per-chunk traffic lowering counts (``TrafficGenerator.next_chunk``
+#: info block).
+STREAM_TRAFFIC_INFO_SPEC = {
+    "bursts": (int,),
+    "joins": (int,),
+    "leaves": (int,),
+    "backlog_joins": (int,),
+    "backlog_leaves": (int,),
+    "n_members": (int,),
+    "events": (int,),
+}
+
+#: The checkpoint-proof block of a save/restore round trip
+#: (``ResidentEngine.verify_round_trip``). Boolean ``*_identical``
+#: fields are the bit-exactness verdicts; the recorder pair is null when
+#: the run has no flight recorder.
+STREAM_CHECKPOINT_SPEC = {
+    "version": (int,),
+    "tick": (int,),
+    "state_identical": (bool,),
+    "recorder_identical": (bool, type(None)),
+    "logs_identical": (bool,),
+    "final_identical": (bool,),
+    "continuation_recorder_identical": (bool, type(None)),
+}
+
+#: One ``record: "chunk"`` heartbeat of the resident-engine JSONL
+#: stream. ``traffic`` is null when no generator is attached;
+#: ``checkpoint`` is non-null only on the chunk that performed a
+#: save/restore round trip.
+STREAM_CHUNK_SPEC = {
+    "record": (str,),
+    "index": (int,),
+    "tick": (int,),
+    "ticks": (int,),
+    "wall_s": _NUM,
+    # Schema v10: chunk 0 splits the one-time trace+compile wall out of
+    # ``wall_s`` (null on every later chunk), so heartbeat rates — and
+    # the servo's control input — measure execution, not the compiler.
+    "compile_s": (int, float, type(None)),
+    "ticks_per_sec": (int, float, type(None)),
+    "events_per_sec": (int, float, type(None)),
+    "announces": (int,),
+    "decides": (int,),
+    "live_buffer_bytes": (int,),
+    "traffic": (dict, type(None)),
+    # Schema v10: null unless a LoadServo / SloWindows is attached.
+    "servo": (dict, type(None)),
+    "slo": (dict, type(None)),
+    # Schema v12: rolling last-window lineage summary (null before the
+    # first folded chunk).
+    "lineage": (dict, type(None)),
+    "checkpoint": (dict, type(None)),
+}
+
+#: Live-buffer watermark block of the stream summary. ``steady_max``
+#: excludes checkpoint-verify chunks (those transiently hold the live
+#: and restored branches side by side) — the flat-memory soak gate
+#: compares it against ``first``.
+STREAM_WATERMARK_SPEC = {
+    "first": _OPT_INT,
+    "max": _OPT_INT,
+    "steady_max": _OPT_INT,
+    "last": _OPT_INT,
+}
+
+#: The final ``record: "stream_summary"`` line of a resident run (also
+#: the ``summary`` block of a committed soak artifact).
+STREAM_SUMMARY_SPEC = {
+    "record": (str,),
+    "schema_version": (int,),
+    "source": (str,),
+    "n": (int,),
+    "capacity": (int,),
+    "ticks": (int,),
+    "chunks": (int,),
+    "chunk_ticks": (int,),
+    "events_injected": (int,),
+    "joins": (int,),
+    "leaves": (int,),
+    "bursts": (int,),
+    "announcements": (int,),
+    "decisions": (int,),
+    "wall_s": _NUM,
+    "compile_s": (int, float, type(None)),
+    "ticks_per_sec": (int, float, type(None)),
+    "events_per_sec": (int, float, type(None)),
+    "ticks_to_view_change": (dict,),
+    "live_buffer_bytes": (dict,),
+    "traffic": (dict, type(None)),
+    # Schema v10: the final servo state ({"config", "final"}) and the
+    # final rolling SLO window; null when not attached.
+    "servo": (dict, type(None)),
+    "slo": (dict, type(None)),
+    # Schema v12: whole-run lineage summary (null when the run folded
+    # no lineage).
+    "lineage": (dict, type(None)),
+    "checkpoint": (dict, type(None)),
+}
+
+# --- streaming observatory records (schema v10) ---------------------------
+
+#: ``service.servo.ServoConfig.as_dict()`` — the control-law constants
+#: a committed sweep is exactly reproducible from.
+SERVO_CONFIG_SPEC = {
+    "target_events_per_sec": _NUM,
+    "initial_ticks_per_sec": _NUM,
+    "pinned_ticks_per_sec": (int, float, type(None)),
+    "gain": _NUM,
+    "rate_quantum_per_ktick": _NUM,
+    "min_rate_per_ktick": _NUM,
+    "max_rate_per_ktick": _NUM,
+    "tps_quantum": _NUM,
+}
+
+#: The per-chunk ``servo`` heartbeat block
+#: (``LoadServo.chunk_block``): ``rate_per_ktick`` is the quantized
+#: rate the chunk actually ran at, ``backlog`` the generator's
+#: offered-minus-applied saturation observable.
+SERVO_CHUNK_SPEC = {
+    "target_events_per_sec": _NUM,
+    "rate_per_ktick": _NUM,
+    "ticks_per_sec_estimate": _NUM,
+    "backlog": (int,),
+    "updates": (int,),
+}
+
+#: One ``record: "status_snapshot"`` line of the live status API
+#: (``service.status``) — the latest chunk-boundary picture, built
+#: purely from already-drained host data.
+STATUS_SNAPSHOT_SPEC = {
+    "record": (str,),
+    "schema_version": (int,),
+    "source": (str,),
+    "tick": (int,),
+    "chunks": (int,),
+    "epoch": (int,),
+    "n_members": (int,),
+    "ticks_per_sec": (int, float, type(None)),
+    "events_per_sec": (int, float, type(None)),
+    "backlog": (int, type(None)),
+    "live_buffer_bytes": (int,),
+    "servo": (dict, type(None)),
+    "slo": (dict, type(None)),
+    # Schema v12: the last chunk's rolling lineage summary.
+    "lineage": (dict, type(None)),
+    "checkpoint": (dict, type(None)),
+    "wall_s": _NUM,
+}
+
+#: One target of a ``record: "load_sweep"`` saturation sweep: the servo
+#: config it ran under, what it achieved, and the stability verdict
+#: (bounded backlog slope over the measured chunks).
+LOAD_SWEEP_RATE_SPEC = {
+    "target_events_per_sec": _NUM,
+    "achieved_events_per_sec": (int, float, type(None)),
+    "rate_per_ktick": _NUM,
+    "ticks_per_sec": (int, float, type(None)),
+    "chunks": (int,),
+    "events": (int,),
+    "backlog_final": (int,),
+    "backlog_slope_per_chunk": _NUM,
+    "stable": (bool,),
+    "servo_config": (dict,),
+    "slo": (dict,),
+}
+
+#: The measured knee: the largest stable target (null when every
+#: target was unstable), with its achieved rate and windowed tail.
+LOAD_SWEEP_KNEE_SPEC = {
+    "target_events_per_sec": (int, float, type(None)),
+    "achieved_events_per_sec": (int, float, type(None)),
+    "ticks_to_view_change_p99": _OPT_INT,
+}
+
+#: The ``record: "load_sweep"`` artifact (``benchmarks/load_sweep.json``,
+#: ``python -m rapid_tpu_torch.service --load-sweep``).
+LOAD_SWEEP_SPEC = {
+    "record": (str,),
+    "schema_version": (int,),
+    "n": (int,),
+    "capacity": (int,),
+    "chunk_ticks": (int,),
+    "chunks_per_rate": (int,),
+    "warmup_chunks": (int,),
+    "seed": (int,),
+    "backlog_slope_threshold": _NUM,
+    "targets": (list,),
+    "rates": (list,),
+    "knee": (dict, type(None)),
+    "wall_s": _NUM,
+}
+
+#: ``service.checkpoint`` manifest (``manifest.json`` inside a
+#: checkpoint directory). ``checkpoint_version`` is the restore
+#: compatibility pin — distinct from the telemetry ``schema_version``
+#: the manifest also stamps.
+CHECKPOINT_MANIFEST_SPEC = {
+    "record": (str,),
+    "checkpoint_version": (int,),
+    "schema_version": (int,),
+    "family": (str,),
+    "tick": (int,),
+    "statics": (dict,),
+    "leaves": (list,),
+    "host": (dict, type(None)),
+}
+
+CHECKPOINT_LEAF_SPEC = {
+    "name": (str,),
+    "dtype": (str,),
+    "shape": (list,),
 }
 
 #: Protocol variants a campaign or replay payload may record
@@ -948,20 +1182,242 @@ def validate_slo_window(block, where: str = "slo") -> List[str]:
     return errors
 
 
+def validate_servo_summary(block, where: str = "servo") -> List[str]:
+    """Validate a summary ``servo`` block ({"config", "final"})."""
+    errors: List[str] = []
+    if not isinstance(block, dict):
+        return [f"{where}: expected an object, got {type(block).__name__}"]
+    errors += _check(block.get("config"), SERVO_CONFIG_SPEC,
+                     f"{where}.config")
+    errors += _check(block.get("final"), SERVO_CHUNK_SPEC,
+                     f"{where}.final")
+    return errors
+
+
+def validate_stream_chunk(rec, where: str = "chunk") -> List[str]:
+    """Validate one ``record: "chunk"`` resident heartbeat."""
+    errors = _check(rec, STREAM_CHUNK_SPEC, where)
+    if not isinstance(rec, dict):
+        return errors
+    if isinstance(rec.get("traffic"), dict):
+        errors += _check(rec["traffic"], STREAM_TRAFFIC_INFO_SPEC,
+                         f"{where}.traffic")
+    if isinstance(rec.get("servo"), dict):
+        errors += _check(rec["servo"], SERVO_CHUNK_SPEC, f"{where}.servo")
+    if isinstance(rec.get("slo"), dict):
+        errors += validate_slo_window(rec["slo"], f"{where}.slo")
+    if isinstance(rec.get("lineage"), dict):
+        errors += validate_lineage_summary(rec["lineage"],
+                                           f"{where}.lineage")
+    if isinstance(rec.get("checkpoint"), dict):
+        errors += _check(rec["checkpoint"], STREAM_CHECKPOINT_SPEC,
+                         f"{where}.checkpoint")
+    return errors
+
+
+def validate_stream_summary(rec, where: str = "stream_summary"
+                            ) -> List[str]:
+    """Validate the final ``record: "stream_summary"`` line."""
+    errors = _check(rec, STREAM_SUMMARY_SPEC, where)
+    if not isinstance(rec, dict):
+        return errors
+    errors += _version_errors(rec)
+    if isinstance(rec.get("ticks_to_view_change"), dict):
+        errors += _check(rec["ticks_to_view_change"], DISTRIBUTION_SPEC,
+                         f"{where}.ticks_to_view_change")
+    if isinstance(rec.get("live_buffer_bytes"), dict):
+        errors += _check(rec["live_buffer_bytes"], STREAM_WATERMARK_SPEC,
+                         f"{where}.live_buffer_bytes")
+    if isinstance(rec.get("traffic"), dict):
+        errors += _check(rec["traffic"], TRAFFIC_CONFIG_SPEC,
+                         f"{where}.traffic")
+    if isinstance(rec.get("servo"), dict):
+        errors += validate_servo_summary(rec["servo"], f"{where}.servo")
+    if isinstance(rec.get("slo"), dict):
+        errors += validate_slo_window(rec["slo"], f"{where}.slo")
+    if isinstance(rec.get("lineage"), dict):
+        errors += validate_lineage_summary(rec["lineage"],
+                                           f"{where}.lineage")
+    if isinstance(rec.get("checkpoint"), dict):
+        errors += _check(rec["checkpoint"], STREAM_CHECKPOINT_SPEC,
+                         f"{where}.checkpoint")
+    return errors
+
+
+def validate_status_snapshot(rec, where: str = "status") -> List[str]:
+    """Validate one live ``record: "status_snapshot"`` line (schema
+    v10) — the status file's content and every socket reply."""
+    errors = _check(rec, STATUS_SNAPSHOT_SPEC, where)
+    if not isinstance(rec, dict):
+        return errors
+    errors += _version_errors(rec)
+    if rec.get("record") != "status_snapshot":
+        errors.append(f"{where}.record: expected 'status_snapshot', "
+                      f"got {rec.get('record')!r}")
+    if isinstance(rec.get("servo"), dict):
+        errors += _check(rec["servo"], SERVO_CHUNK_SPEC, f"{where}.servo")
+    if isinstance(rec.get("slo"), dict):
+        errors += validate_slo_window(rec["slo"], f"{where}.slo")
+    if isinstance(rec.get("lineage"), dict):
+        errors += validate_lineage_summary(rec["lineage"],
+                                           f"{where}.lineage")
+    if isinstance(rec.get("checkpoint"), dict):
+        errors += _check(rec["checkpoint"], STREAM_CHECKPOINT_SPEC,
+                         f"{where}.checkpoint")
+    return errors
+
+
+def validate_load_sweep(payload, where: str = "load_sweep") -> List[str]:
+    """Validate a ``record: "load_sweep"`` saturation-sweep artifact:
+    one rate entry per target (in target order), each with a schema-
+    valid servo config and SLO window, and a knee consistent with the
+    stability verdicts (the largest stable target, or null)."""
+    errors = _check(payload, LOAD_SWEEP_SPEC, where)
+    if not isinstance(payload, dict):
+        return errors
+    errors += _version_errors(payload)
+    if payload.get("record") != "load_sweep":
+        errors.append(f"{where}.record: expected 'load_sweep', "
+                      f"got {payload.get('record')!r}")
+    targets = payload.get("targets")
+    rates = payload.get("rates")
+    if isinstance(targets, list) and isinstance(rates, list) \
+            and len(targets) != len(rates):
+        errors.append(f"{where}.rates: {len(rates)} entries for "
+                      f"{len(targets)} targets")
+    best_stable = None
+    if isinstance(rates, list):
+        for i, rate in enumerate(rates):
+            rw = f"{where}.rates[{i}]"
+            errors += _check(rate, LOAD_SWEEP_RATE_SPEC, rw)
+            if not isinstance(rate, dict):
+                continue
+            if isinstance(targets, list) and i < len(targets) \
+                    and rate.get("target_events_per_sec") != targets[i]:
+                errors.append(
+                    f"{rw}.target_events_per_sec: expected "
+                    f"{targets[i]!r}, got "
+                    f"{rate.get('target_events_per_sec')!r}")
+            if isinstance(rate.get("servo_config"), dict):
+                errors += _check(rate["servo_config"], SERVO_CONFIG_SPEC,
+                                 f"{rw}.servo_config")
+            if isinstance(rate.get("slo"), dict):
+                errors += validate_slo_window(rate["slo"], f"{rw}.slo")
+            if rate.get("stable") is True and isinstance(
+                    rate.get("target_events_per_sec"), (int, float)):
+                t = rate["target_events_per_sec"]
+                if best_stable is None or t > best_stable:
+                    best_stable = t
+    knee = payload.get("knee")
+    if isinstance(knee, dict):
+        errors += _check(knee, LOAD_SWEEP_KNEE_SPEC, f"{where}.knee")
+        if knee.get("target_events_per_sec") != best_stable:
+            errors.append(
+                f"{where}.knee.target_events_per_sec: expected the "
+                f"largest stable target ({best_stable!r}), got "
+                f"{knee.get('target_events_per_sec')!r}")
+    elif knee is None and best_stable is not None:
+        errors.append(f"{where}.knee: null despite stable targets "
+                      f"(largest: {best_stable!r})")
+    return errors
+
+
+def validate_checkpoint_manifest(manifest, where: str = "manifest"
+                                 ) -> List[str]:
+    """Validate a ``service.checkpoint`` ``manifest.json`` payload
+    (structure only — version/statics *compatibility* is the loader's
+    job and raises typed errors there)."""
+    errors = _check(manifest, CHECKPOINT_MANIFEST_SPEC, where)
+    if not isinstance(manifest, dict):
+        return errors
+    for i, leaf in enumerate(manifest.get("leaves") or []):
+        errors += _check(leaf, CHECKPOINT_LEAF_SPEC, f"{where}.leaves[{i}]")
+    return errors
+
+
+def validate_streaming_stream(lines, where: str = "stream") -> List[str]:
+    """Validate a resident-engine JSONL metrics stream: every
+    ``record: "chunk"`` heartbeat, exactly one trailing
+    ``record: "stream_summary"`` line. Tick rows (no ``record`` key)
+    pass through unchecked — their shape is ``TickMetrics.as_dict`` and
+    belongs to the metrics producer."""
+    errors: List[str] = []
+    chunks = 0
+    summaries = 0
+    last_kind = None
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError as e:
+            errors.append(f"{where}[{i}]: not JSON ({e})")
+            continue
+        if not isinstance(rec, dict):
+            errors.append(f"{where}[{i}]: expected an object")
+            continue
+        kind = rec.get("record")
+        last_kind = kind
+        if kind == "chunk":
+            chunks += 1
+            errors += validate_stream_chunk(rec, f"{where}[{i}]")
+        elif kind == "stream_summary":
+            summaries += 1
+            errors += validate_stream_summary(rec, f"{where}[{i}]")
+    if chunks == 0:
+        errors.append(f"{where}: no chunk heartbeat records")
+    if summaries != 1:
+        errors.append(f"{where}: expected exactly one stream_summary "
+                      f"record, found {summaries}")
+    elif last_kind != "stream_summary":
+        errors.append(f"{where}: stream_summary must be the final record")
+    return errors
+
+
+#: Extra required fields of the ``scenario: "streaming"`` bench run
+#: (schema v9) on top of ``RUN_SPEC``.
+STREAMING_RUN_SPEC = {
+    "scenario": (str,),
+    "capacity": (int,),
+    "chunk_ticks": (int,),
+    "chunks": (int,),
+    "events_injected": (int,),
+    "events_per_sec": (int, float, type(None)),
+    "traffic": (dict,),
+    "ticks_to_view_change": (dict,),
+    # Schema v12: whole-run lineage summary.
+    "lineage": (dict, type(None)),
+    "checkpoint": (dict, type(None)),
+}
+
+
 def validate_run_payload(payload, where: str = "payload") -> List[str]:
     """One single-run bench payload: ``RUN_SPEC`` and its telemetry
     block, and for a campaign payload its ``campaign`` block, dispatch
-    timeline and observatory with the stage-sum check. Streaming
-    payloads are not validated here yet (``NotImplementedError``)."""
-    if isinstance(payload, dict) and payload.get("scenario") == "streaming":
-        raise NotImplementedError(
-            f"{where}: streaming payloads wait for ROADMAP.md Queue 1 "
-            f"item 6")
+    timeline and observatory with the stage-sum check, and for a
+    streaming payload its traffic, view-change, lineage and checkpoint
+    blocks."""
     errors = _check(payload, RUN_SPEC, where)
     if isinstance(payload, dict) and isinstance(payload.get("telemetry"),
                                                 dict):
         errors += validate_telemetry(payload["telemetry"],
                                      f"{where}.telemetry")
+    if isinstance(payload, dict) and payload.get("scenario") == "streaming":
+        errors += _check(payload, STREAMING_RUN_SPEC, where)
+        if isinstance(payload.get("traffic"), dict):
+            errors += _check(payload["traffic"], TRAFFIC_CONFIG_SPEC,
+                             f"{where}.traffic")
+        if isinstance(payload.get("ticks_to_view_change"), dict):
+            errors += _check(payload["ticks_to_view_change"],
+                             DISTRIBUTION_SPEC,
+                             f"{where}.ticks_to_view_change")
+        if isinstance(payload.get("lineage"), dict):
+            errors += validate_lineage_summary(payload["lineage"],
+                                               f"{where}.lineage")
+        if isinstance(payload.get("checkpoint"), dict):
+            errors += _check(payload["checkpoint"], STREAM_CHECKPOINT_SPEC,
+                             f"{where}.checkpoint")
     if isinstance(payload, dict) and "campaign" in payload:
         errors += validate_campaign(payload["campaign"], f"{where}.campaign")
         # Schema v5: a campaign payload must carry the dispatch

@@ -14,7 +14,8 @@ Then ticks 106-120 of each path run under ``torch.profiler``
 (``profile.profile_window``): kernels, aten ops and device-busy time per
 tick. Prints the card's name and power limit and one JSON line.
 
-``chip_smoke.py`` phase 4 runs the same loop and window, and ``call_us``.
+``chip_smoke.py`` phase 4 runs the same loop (its earlier runs are the
+warm-up) and an 8-tick window, and ``call_us``.
 The script uses only entry points that every slice of the port has had
 since the first (``default`` needs nothing else), so a copy of it placed
 in an older tree of the port times that tree the same way. Needs a CUDA
@@ -77,11 +78,12 @@ def timed(member, settings, fn=None, state=None, ticks: int = TICKS):
 
 
 def in_turns(member, settings, paths, rounds: int,
-             check=lambda name, final, logs: None) -> dict:
-    """Each path once to warm up, then ``rounds`` rounds of ``paths`` in
-    order and reversed; ``check(name, final, logs)`` sees every run.
-    Returns each path's timed ms per tick, in run order."""
-    for name in paths:
+             check=lambda name, final, logs: None, warm: bool = True) -> dict:
+    """Each path once to warm up (unless ``warm`` is False: the caller
+    has run them), then ``rounds`` rounds of ``paths`` in order and
+    reversed; ``check(name, final, logs)`` sees every run. Returns each
+    path's timed ms per tick, in run order."""
+    for name in paths if warm else ():
         check(name, *timed(member, settings, path_fn(name))[:2])
     ms = {name: [] for name in paths}
     for _ in range(rounds):
@@ -112,10 +114,10 @@ def call_us(member, settings, name: str) -> dict:
     return {"calls": spent[1], "host_us_per_call": spent[0] * 1e6 / spent[1]}
 
 
-def windows(member, settings, paths) -> dict:
-    """Ticks ``WINDOW_FROM + 1`` to ``WINDOW_FROM + WINDOW_TICKS`` of each
-    path under ``torch.profiler``, from one state reached by the tree's
-    own delivery."""
+def windows(member, settings, paths, ticks: int = WINDOW_TICKS) -> dict:
+    """Ticks ``WINDOW_FROM + 1`` to ``WINDOW_FROM + ticks`` of each path
+    under ``torch.profiler``, from one state reached by the tree's own
+    delivery."""
     from rapid_tpu_torch import profile
     from rapid_tpu_torch.engine import rx_packed
 
@@ -123,9 +125,8 @@ def windows(member, settings, paths) -> dict:
         timed(member, settings, ticks=WINDOW_FROM)[0], settings)
     return {name: profile.profile_window(
         lambda: timed(member, settings, path_fn(name), state,
-                      WINDOW_TICKS)[1].decide,
-        WINDOW_TICKS, 8, {"path": name, "from_tick": WINDOW_FROM,
-                          "ticks": WINDOW_TICKS})
+                      ticks)[1].decide,
+        ticks, 8, {"path": name, "from_tick": WINDOW_FROM, "ticks": ticks})
         for name in paths}
 
 

@@ -300,3 +300,47 @@ def test_campaign_on_card_equals_cpu(card, pipeline):
                                        device=card)
             assert (rec["match"], rec["recorder_match"],
                     rec["lineage_match"]) == (True, True, True)
+
+
+@pytest.mark.parametrize("layout", ["xla", "packed"])
+def test_chunked_receiver_across_a_checkpoint_equals_one_run(card, layout,
+                                                             tmp_path):
+    """The two-zone N=256 member in chunks of 16 on the card, saved after
+    6 chunks and restored from disk, then 3 more chunks: logs, recorder
+    and final equal one uninterrupted ``receiver_simulate`` on the card,
+    every chunk through ``rx_deliver`` (6 launches a tick)."""
+    from rapid_tpu_torch.engine import rx_packed
+    from rapid_tpu_torch.faults import two_zone_schedule
+    from rapid_tpu_torch.service import checkpoint
+
+    settings = Settings(rx_kernel=layout, flight_recorder_window=8)
+    member = receiver.lower_receiver_schedule(
+        two_zone_schedule(256, 0, 192), settings, device=card)
+    final, logs, rec = receiver.receiver_simulate(member.state,
+                                                  member.faults, 144,
+                                                  settings)
+    before = rx_account.deliver_launches
+    carry, r, parts = member.state, None, []
+    for i in range(9):
+        if i == 6:
+            checkpoint.save_receiver(str(tmp_path), carry, settings,
+                                     tick=96, rec=r)
+            cp = checkpoint.load_checkpoint(str(tmp_path), settings,
+                                            device=card)
+            carry = checkpoint.restore_receiver_carry(cp, settings)
+            r = cp.parts["recorder"]
+        carry, lg, r = receiver.receiver_simulate_chunk(
+            carry, member.faults, 16, settings, rec=r)
+        parts.append(lg)
+    torch.cuda.synchronize()
+    assert rx_account.deliver_launches - before == 6 * 144
+    chained = type(logs)(*[torch.cat(col) for col in zip(*parts)])
+    for got, want in zip(chained, logs):
+        assert torch.equal(got, want)
+    for got, want in zip(r, rec):
+        assert torch.equal(got, want)
+    if layout == "packed":
+        carry = rx_packed.unpack_receiver_state(carry.packed,
+                                                carry.delay_table, settings)
+    for got, want in zip(carry, final):
+        assert torch.equal(got, want)

@@ -43,12 +43,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "variants.oracle", "oracle.interfaces", "oracle.metadata",
                  "oracle.failure_detector", "oracle.testkit", "oracle.paxos",
                  "oracle.service", "oracle.simulation", "oracle.cluster",
-                 "campaign", "replay", "variants"):
+                 "campaign", "replay", "variants", "service",
+                 "service.checkpoint", "service.traffic", "service.servo",
+                 "service.status", "service.resident", "service.rx_resident",
+                 "service.__main__"):
         assert f"rapid_tpu_torch.{name}" in result["modules"], name
 
 
 def _entry_points():
-    from rapid_tpu_torch import campaign, golden, replay
+    from rapid_tpu_torch import campaign, golden, replay, service
+    from rapid_tpu_torch.service import __main__ as service_main
     from rapid_tpu_torch.convert import from_reference
     from rapid_tpu_torch.engine import churn, diff, paxos, receiver, state, step
     from rapid_tpu_torch.faults import crash_window_delay_schedule
@@ -96,6 +100,21 @@ def _entry_points():
         "simulate": lambda: step.simulate(
             state.init_state(uids, id_fp_sum, settings, device="cpu"),
             state.crash_faults([5] * 8, device="cpu"), 1, settings),
+        "simulate_chunk": lambda: step.simulate_chunk(
+            state.init_state(uids, id_fp_sum, settings, device="cpu"),
+            state.crash_faults([5] * 8, device="cpu"), 1, settings),
+        "boot_resident": lambda: service.boot_resident(
+            Settings(), 24, 10),
+        "boot_resident_receiver": lambda: service.boot_resident_receiver(
+            Settings(), 16, horizon_ticks=32, chunk_ticks=16),
+        "load_checkpoint": lambda: service.load_checkpoint(
+            str(golden.CHECKPOINT_DIR / "engine")),
+        "ResidentEngine.restore": lambda: service.ResidentEngine.restore(
+            str(golden.CHECKPOINT_DIR / "engine"),
+            state.crash_faults([state.I32_MAX] * 96, device="cpu"),
+            Settings(stream_chunk_ticks=512, flight_recorder_window=8)),
+        "service --soak": lambda: service_main.main(
+            ["--soak", "--ticks", "64", "--chunk", "32"]),
     }
 
 
