@@ -3,7 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero before the result lines:
+Phases; any failure, in this process or in a child, exits non-zero
+before the result lines. They run in this order: 1 and 2, the kernel
+times (below) and 16, on a card that is otherwise idle; then three child
+processes start, phase 15 (``--planned``), phases 23, 24 and 28-32
+(``--group referee``) and phases 25-27 (``--group campaign``), while this
+process runs 3-14 and 17-22; once every child has ended and its lines are
+relayed, 33 runs alone. Each phase is bound by the host's dispatch and
+leaves the card idle most of the time, so the processes share it; the
+times of phases 3-32 are taken beside the other processes' work.
+
 
 1. the card's name and power limit; build both delivery kernels
    (``rapid_tpu_torch/engine/csrc/rx_deliver.cu``, the main path's, and
@@ -206,9 +215,25 @@ Phases, in order; any failure exits non-zero before the result lines:
     attached: every record, servo blocks included, equal to
     ``rapid_tpu_torch/testdata/stream_servo.json``; one snapshot a chunk,
     each valid; ``read_status`` answers and ``watch`` streams every
-    frame.
+    frame;
+33. the kernel-cost observatory (``rapid_tpu_torch.telemetry.profile``)
+    at ``benchmarks/dominance_report.json``'s configuration, not cut:
+    ``dominance_report`` at N in {256, 1,000, 10,000, 100,000} (the nine
+    sub-kernels, 5 timed calls each), the receiver-memory block at N=64
+    for F=4 and F=64 and the variant block at 4,096 and 1,000,000 slots;
+    the payload valid under the port's validators, ``profile_sweep_errors``
+    (``bench_compare``'s rules) clean against the file, every fleet's
+    argument and output bytes and the bytes-per-member curve equal to the
+    file's, ``rx_deliver`` launched 72 times by the receiver block; then
+    the module's CLI (``--sizes 256 --repeats 2``) and the schema CLI on
+    its file, both exiting 0; the dense F=4 fleet tick equal to the same
+    tick on the CPU bit for bit; prints, per N and sub-kernel, the median
+    wall, CUDA kernels (``torch.profiler`` over 10 calls) and aten ops per
+    call, the argument and output bytes with their byte bound, the
+    dominant kernels beside the committed CPU report's, and
+    ``subkernel_wall_fraction``.
 
-Between phases 5 and 6 the kernels are timed at C=1024 and 4096: device
+Before phase 16 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
 plain version's time and the byte bound, for ``rx_deliver``, for the
 whole ``account`` on the same inputs and for ``rx_account`` alone.
@@ -223,8 +248,8 @@ phase 4's run under each layout (``launches_by_layout``) and on each of
 phase 23's runs (``referee_launches``), phase 25's campaign
 (``campaign_launches``), phase 26's replays (``replay_launches``),
 phase 27's runs (``committed_launches``), phase 28's receiver
-continuations (``checkpoint_launches``) and phase 30's soaks per layout
-(``stream_launches``). The line
+continuations (``checkpoint_launches``), phase 30's soaks per layout
+(``stream_launches``) and phase 33 (``profile_launches``). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -260,6 +285,14 @@ SHARED_REFEREE_N = 256         # phase 24: the widest oracle-cluster runs
 #: (tick, field, card, referee): the reference's own per-receiver engine
 #: gives it (testdata/rx_n1024_recorder.json against the referee).
 MAIN_REFEREE_DIVERGENCE = [112, "counters.sent", 653312, 1046528]
+#: Phase 33: ``benchmarks/dominance_report.json``'s configuration.
+PROFILE_SIZES = (256, 1000, 10000, 100000)
+PROFILE_VARIANTS = (4096, 1000000)
+PROFILE_REPEATS = 5
+PROFILE_WINDOW_CALLS = 10          # calls per torch.profiler window
+#: The sweep's receiver block runs 3 calls (first, allocator, count) of a
+#: one-tick run per fleet size and layout, each 6 ``rx_deliver`` launches.
+PROFILE_SWEEP_LAUNCHES = 3 * 2 * 2 * 6
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -1614,9 +1647,10 @@ def referee_run(schedule, ticks: int, settings, rx_account, device,
     return res, stats
 
 
-def phase_referee_receiver(rx_account, device, keep: dict) -> dict:
+def phase_referee_receiver(rx_account, device) -> dict:
     """Phase 23: the host referee holds the per-receiver engine at the
-    main path's width, under the dense and the packed carry."""
+    main path's width, under the dense and the packed carry. It runs in
+    its own process, so it makes phase 4's run again to compare with."""
     from rapid_tpu_torch import tick_time
     from rapid_tpu_torch.engine import receiver
     from rapid_tpu_torch.faults import (
@@ -1625,7 +1659,10 @@ def phase_referee_receiver(rx_account, device, keep: dict) -> dict:
 
     n, ticks = tick_time.N, tick_time.TICKS
     out = {}
-    phase4 = receiver.receiver_run_payload(*keep["main"], n, ticks)
+    _, final, logs, _ = run(crash_window_delay_schedule(n),
+                            Settings(rx_kernel="pallas"), ticks, device)
+    phase4 = receiver.receiver_run_payload(final, logs, n, ticks)
+    del final, logs
     want4 = {"events": phase4.events_by_slot, "counters": phase4.tick_history,
              "phases": phase4.phase_history,
              "config_ids": phase4.config_ids}
@@ -2405,7 +2442,7 @@ def phase_rx_soak(rx_account, device) -> dict:
     return out
 
 
-def phase_stream_n100k(rx_account, device, phase7: dict) -> dict:
+def phase_stream_n100k(rx_account, device) -> dict:
     """Phase 31: a resident shared engine at N=100,000 (phase 9's 100,096
     slots), the soak's traffic, 6 chunks of 256 with the round trip at
     chunk 3, equal to ``stream_n100k.json``: every record, the summary
@@ -2442,9 +2479,7 @@ def phase_stream_n100k(rx_account, device, phase7: dict) -> dict:
         f"record, the summary and every final-state field's SHA-256 equal "
         f"stream_n100k.json ({st['decisions']} decisions); {seconds:.1f} s "
         f"with the boot; peak {st['peak_mib']:.1f} MiB "
-        f"({st['run_peak_mib']:.1f} above the start) beside phase 7's "
-        f"{phase7['ms_per_tick']:.4f} ms/tick and "
-        f"{phase7['peak_bytes'] / 2**20:.1f} MiB")
+        f"({st['run_peak_mib']:.1f} above the start)")
     from rapid_tpu_torch.engine.step import simulate_chunk
 
     w = busy_window(lambda: simulate_chunk(
@@ -2526,22 +2561,219 @@ def phase_servo_status(rx_account, device) -> dict:
             "rates": rates}
 
 
-def planned_child() -> dict:
-    """Phase 15 in a child process under ``PYTHONHASHSEED`` of the golden
-    files; any failure there fails this process."""
+def kernels_per_call(fn, args):
+    """CUDA kernels (and memory operations) per ``fn(*args)``: the mean
+    over ``PROFILE_WINDOW_CALLS`` calls under ``torch.profiler``, or None
+    when the profiler recorded no device event (windows of one short call
+    late in the script have come back without any)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WINDOW_CALLS):
+            fn(*args)
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return count / PROFILE_WINDOW_CALLS if count else None
+
+
+def phase_profile(rx_account, device, card: str) -> dict:
+    """Phase 33: the kernel-cost observatory at the committed dominance
+    report's configuration, the CLIs, the dense F=4 fleet tick against
+    the CPU, and the per-sub-kernel lines."""
+    from pathlib import Path
+
+    import torch
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.convert import from_reference
+    from rapid_tpu_torch.engine.paxos import empty_fallback_schedule
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry import profile, schema
+
+    settings = Settings()
+    base = committed("dominance_report.json")
+    zero_counts(rx_account)
+    start = time.perf_counter()
+    payload = profile.dominance_report(
+        PROFILE_SIZES, settings, repeats=PROFILE_REPEATS, receiver_n=64,
+        variant_sizes=PROFILE_VARIANTS, multichip=False, device=device)
+    sweep_s = time.perf_counter() - start
+    sweep_launches = rx_account.deliver_launches
+    errors = schema.validate_bench_payload(payload) \
+        + schema.validate_profile_payload(payload)
+    drift, warnings = golden.profile_sweep_errors(payload, base)
+    rm, want = payload["receiver_memory"], base["receiver_memory"]
+    exact = [f"{layout}[F={got['fleet_size']}].{key}"
+             for layout in ("fleets", "packed_fleets")
+             for got, row in zip(rm[layout], want[layout], strict=True)
+             for key in ("fleet_size", "argument_bytes", "output_bytes")
+             if got[key] != row[key]]
+    if rm["bytes_per_member_curve"] != want["bytes_per_member_curve"]:
+        exact.append("bytes_per_member_curve")
+    if payload["platform"] != "gpu" or errors or drift or exact or \
+            sweep_launches != PROFILE_SWEEP_LAUNCHES:
+        raise AssertionError(f"phase 33: {errors[:4]} {drift[:4]} {exact} "
+                             f"{sweep_launches} rx_deliver launches")
+    for w in warnings:
+        log(f"phase 33: bench_compare warning (information): {w}")
+    log(f"phase 33: the dominance report at N={list(PROFILE_SIZES)}, "
+        f"variants at {list(PROFILE_VARIANTS)}, {PROFILE_REPEATS} repeats, "
+        f"on {card}: valid, no drift against dominance_report.json (every "
+        f"fleet's argument and output bytes and the curve exact), "
+        f"{len(warnings)} wall warnings; {sweep_s:.1f} s, "
+        f"{sweep_launches} rx_deliver launches")
+
+    out = Path(__file__).resolve().parent / "build" / "profile_cli.json"
+    out.parent.mkdir(exist_ok=True)
+    rc = profile.main(["--sizes", "256", "--repeats", "2", "--out",
+                       str(out)])
+    rc_schema = schema.main([str(out)])
+    if rc or rc_schema:
+        raise AssertionError(f"phase 33: the profile CLI exited {rc}, the "
+                             f"schema CLI {rc_schema}")
+
+    before = rx_account.deliver_launches
+    _, _, fn, args = next(profile.receiver_fleet_ticks(settings, 64, (4,),
+                                                       device=device))
+    got = fn(*args)
+    torch.cuda.synchronize()
+    tick_launches = rx_account.deliver_launches - before
+    _, _, fn_cpu, args_cpu = next(profile.receiver_fleet_ticks(
+        settings, 64, (4,), device="cpu"))
+    want_tick = fn_cpu(*args_cpu)
+    leaves = [(a, b) for part_a, part_b in zip(got, want_tick)
+              for a, b in zip(part_a, part_b)]
+    unequal = [i for i, (a, b) in enumerate(leaves)
+               if not torch.equal(a.cpu(), b)]
+    if unequal or tick_launches != 6:
+        raise AssertionError(f"phase 33: the dense F=4 tick differs from "
+                             f"the CPU's at leaves {unequal[:8]} "
+                             f"({tick_launches} launches)")
+    launches = rx_account.deliver_launches
+    log(f"phase 33: the CLIs exit 0 ({out.name}); the dense F=4 fleet tick "
+        f"equals the CPU's plain delivery bit for bit ({len(leaves)} "
+        f"leaves, {tick_launches} launches); {launches} rx_deliver "
+        f"launches in the phase")
+
+    rows = {}
+    for run in payload["runs"]:
+        n = run["n"]
+        state, faults = profile.synthetic_state(n, settings, device=device)
+        fallback = from_reference(empty_fallback_schedule(n), device)
+        costs = {k["kernel"]: k for k in run["kernels"]}
+        for name, fn, args in profile.kernel_cases(state, faults, settings,
+                                                   fallback):
+            k = costs[name]
+            io = k["argument_bytes"] + k["output_bytes"]
+            rows[f"{name}@{n}"] = row = {
+                "wall_median_s": k["wall_median_s"],
+                "kernels_per_call": kernels_per_call(fn, args),
+                "aten_ops_per_call": profile.count_ops(fn, args)[0].ops,
+                "io_bytes": io, "bound_us": io / HBM_BYTES_PER_S * 1e6}
+            kernels = row["kernels_per_call"]
+            kernels = "no device event recorded, so not measured: " \
+                if kernels is None else f"{kernels:.1f} CUDA kernels and "
+            log(f"phase 33: N={n} {name}: {row['wall_median_s'] * 1e3:.4f} "
+                f"ms median, {kernels}"
+                f"{row['aten_ops_per_call']} aten ops a call, "
+                f"{io} argument + output bytes, byte bound "
+                f"{row['bound_us']:.3f} us")
+        base_run = next(r for r in base["runs"] if r["n"] == n)
+        log(f"phase 33: N={n}: dominant {run['dominant']} (the committed "
+            f"CPU report's {base_run['dominant']}, information only); "
+            f"subkernel_wall_fraction {run['subkernel_wall_fraction']}")
+        del state, faults, fallback
+    variants = {f"{k['kernel']}@{k['n']}": k["wall_median_s"]
+                for k in payload["variants"]["kernels"]}
+    peaks = {layout: [(f["fleet_size"], f["peak_bytes"]) for f in rm[layout]]
+             for layout in ("fleets", "packed_fleets")}
+    log(f"phase 33: variant walls (s) {variants}; receiver fleets' (F, "
+        f"peak bytes) dense {peaks['fleets']}, packed "
+        f"{peaks['packed_fleets']}; {card}")
+    return {"deliver_launches": launches, "sweep_launches": sweep_launches,
+            "sweep_s": sweep_s, "dominant_by_n": payload["dominant_by_n"],
+            "warnings": len(warnings), "rows": rows, "variants": variants,
+            "receiver_memory": {k: rm[k] for k in ("fleets",
+                                                   "packed_fleets")}}
+
+
+def group_referee(rx_account, device) -> dict:
+    """Phases 23, 24 and 28-32, in a child process."""
+    return {"referee_receiver": phase_referee_receiver(rx_account, device),
+            "referee_shared": phase_referee_shared(rx_account, device),
+            "stream": {"checkpoints": phase_checkpoints(rx_account, device),
+                       "soak": phase_soak(rx_account, device),
+                       "rx_soak": phase_rx_soak(rx_account, device),
+                       "n100k": phase_stream_n100k(rx_account, device),
+                       "servo_status": phase_servo_status(rx_account,
+                                                          device)}}
+
+
+def group_campaign(rx_account, device) -> dict:
+    """Phases 25-27, in a child process."""
+    payload, run_stats = phase_campaign(rx_account, device)
+    replays = phase_replay(rx_account, device, payload)
+    del payload
+    return {"campaign": run_stats, "replay": replays,
+            "committed": phase_committed(rx_account, device)}
+
+
+#: Phase groups that run in child processes (``chip_smoke.py --group
+#: NAME``) beside phases 3-22 in this one, once the kernels are built and
+#: timed: the phases are bound by the host's dispatch and leave the card
+#: idle most of the time, so three processes share it.
+GROUPS = {"referee": group_referee, "campaign": group_campaign}
+CHILD_TIMEOUT_S = 1000
+
+
+def start_child(args: list, env=None) -> tuple:
+    """``chip_smoke.py args`` in a child process whose output goes to
+    temporary files, so no pipe fills while this process works."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, __file__, *args], env=env,
+                            stdout=out, stderr=err, text=True)
+    return proc, out, err, args
+
+
+def finish_child(child: tuple) -> dict:
+    """Waits for a child, relays its progress lines and returns its last
+    line's JSON; a failure there fails this process."""
+    proc, out, err, args = child
+    rc = proc.wait(timeout=CHILD_TIMEOUT_S)
+    out.seek(0)
+    lines = out.read().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if rc != 0 or not lines:
+        err.seek(0)
+        print(err.read()[-6000:], file=sys.stderr)
+        raise AssertionError(f"chip_smoke.py {' '.join(args)} exited {rc}")
+    return json.loads(lines[-1])
+
+
+def stop_children(children) -> None:
+    for proc, *_ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_children() -> dict:
+    """Phase 15 under ``PYTHONHASHSEED`` of the golden files, and each of
+    ``GROUPS``."""
     import os
 
     from rapid_tpu_torch import golden
 
     env = dict(os.environ, PYTHONHASHSEED=golden.PLAN_HASH_SEED)
-    done = subprocess.run([sys.executable, __file__, "--planned"], env=env,
-                          capture_output=True, text=True, timeout=900)
-    for line in done.stdout.splitlines()[:-1]:
-        log(line)
-    if done.returncode != 0:
-        print(done.stderr[-6000:], file=sys.stderr)
-        raise AssertionError(f"phase 15's child exited {done.returncode}")
-    return json.loads(done.stdout.splitlines()[-1])
+    return {"planned": start_child(["--planned"], env),
+            **{name: start_child(["--group", name]) for name in GROUPS}}
 
 
 def main() -> int:
@@ -2569,6 +2801,15 @@ def main() -> int:
     if sys.argv[1:] == ["--planned"]:
         print(json.dumps(phase_planned(torch.device("cuda", 0), rx_account)))
         return 0
+    if sys.argv[1:2] == ["--group"] and len(sys.argv) == 3 and \
+            sys.argv[2] in GROUPS:
+        print(json.dumps(GROUPS[sys.argv[2]](rx_account,
+                                             torch.device("cuda", 0))))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2582,44 +2823,63 @@ def main() -> int:
     phase_build(rx_account)
     err_deliver = phase_parity_deliver(rx_account, device)
     err_account = phase_parity(rx_account, device)
-    keep = {}
-    phase_golden(settings, device)
-    main_run = phase_main(rx_account, settings, device, keep)
-    wide = phase_wide(rx_account, settings, device)
     times = kernel_times(rx_account, device)
-    shared = {"n1000": phase_shared("shared_n1000_crash", 6, device,
-                                    rx_account)}
-    shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device,
-                                         rx_account, keep)
-    if shared["n100k_crash"]["decides"] != [(113, 1000)] or \
-            shared["n100k_crash"]["n_member"] != 99_000:
-        raise AssertionError("the N=100,000 burst did not decide at tick "
-                             "113 leaving 99,000 members")
-    shared["n100k_drop_flipflop"] = phase_shared(
-        "shared_n100k_drop_flipflop", 8, device, rx_account)
-    churn = shared["n100k_churn"] = phase_shared(
-        "shared_n100k_churn", 9, device, rx_account, keep)
-    if len(churn["decides"]) != 24 or churn["n_member"] != 100_000:
-        raise AssertionError("the churn run did not decide 24 bursts "
-                             "leaving 100,000 members")
-    contested = shared["n100k_contested"] = phase_shared(
-        "shared_n100k_contested", 10, device, rx_account, keep)
-    if len(contested["classic_decides"]) != 8 or \
-            len(contested["decides"]) != 8 or \
-            contested["classic_decides"][0] != 19 or \
-            contested["n_member"] != 99_992:
-        raise AssertionError("the contested run did not decide 8 classic "
-                             "rounds from tick 19 leaving 99,992 members")
-    for phase, variant in ((11, "ring"), (12, "hier")):
-        run = shared[f"n100k_crash_{variant}"] = phase_shared(
-            f"shared_n100k_crash_{variant}", phase, device, rx_account)
-        if run["decides"] != [(113, 1000)] or run["n_member"] != 99_000:
-            raise AssertionError(f"the {variant} variant did not decide the "
-                                 f"burst at tick 113")
-        print_factors(phase, variant, run, shared["n100k_crash"])
-    shared["monitor"] = phase_monitor(device, rx_account)
-    shared["recorder"] = phase_recorder(device, rx_account, keep)
-    planned = shared["planned"] = planned_child()
+    err_fleet, fleet_times = phase_fleet_deliver(rx_account, device)
+    children = start_children()
+    try:
+        keep = {}
+        phase_golden(settings, device)
+        main_run = phase_main(rx_account, settings, device, keep)
+        wide = phase_wide(rx_account, settings, device)
+        shared = {"n1000": phase_shared("shared_n1000_crash", 6, device,
+                                        rx_account)}
+        shared["n100k_crash"] = phase_shared("shared_n100k_crash", 7, device,
+                                             rx_account, keep)
+        if shared["n100k_crash"]["decides"] != [(113, 1000)] or \
+                shared["n100k_crash"]["n_member"] != 99_000:
+            raise AssertionError("the N=100,000 burst did not decide at "
+                                 "tick 113 leaving 99,000 members")
+        shared["n100k_drop_flipflop"] = phase_shared(
+            "shared_n100k_drop_flipflop", 8, device, rx_account)
+        churn = shared["n100k_churn"] = phase_shared(
+            "shared_n100k_churn", 9, device, rx_account, keep)
+        if len(churn["decides"]) != 24 or churn["n_member"] != 100_000:
+            raise AssertionError("the churn run did not decide 24 bursts "
+                                 "leaving 100,000 members")
+        contested = shared["n100k_contested"] = phase_shared(
+            "shared_n100k_contested", 10, device, rx_account, keep)
+        if len(contested["classic_decides"]) != 8 or \
+                len(contested["decides"]) != 8 or \
+                contested["classic_decides"][0] != 19 or \
+                contested["n_member"] != 99_992:
+            raise AssertionError("the contested run did not decide 8 "
+                                 "classic rounds from tick 19 leaving "
+                                 "99,992 members")
+        for phase, variant in ((11, "ring"), (12, "hier")):
+            run_v = shared[f"n100k_crash_{variant}"] = phase_shared(
+                f"shared_n100k_crash_{variant}", phase, device, rx_account)
+            if run_v["decides"] != [(113, 1000)] or \
+                    run_v["n_member"] != 99_000:
+                raise AssertionError(f"the {variant} variant did not "
+                                     f"decide the burst at tick 113")
+            print_factors(phase, variant, run_v, shared["n100k_crash"])
+        shared["monitor"] = phase_monitor(device, rx_account)
+        shared["recorder"] = phase_recorder(device, rx_account, keep)
+        for run_s in shared.values():
+            run_s.pop("log", None)
+        fleet_pools, pool_outputs = phase_fleet_pools(device)
+        scaling = phase_fleet_scaling(device, pool_outputs)
+        for pool_id in (1, 3):
+            del pool_outputs[pool_id]
+        layouts = phase_layouts(rx_account, device, keep, main_run)
+        wide_dense = phase_wide_dense(rx_account, device)
+        dense_fleets = phase_dense_fleets(device, fleet_pools)
+        telemetry = phase_telemetry(keep, pool_outputs)
+        del pool_outputs, keep
+        planned = shared["planned"] = finish_child(children.pop("planned"))
+        groups = {name: finish_child(children.pop(name)) for name in GROUPS}
+    finally:
+        stop_children(children.values())
     want = {"shared_n100k_planned_churn": ([[16, 16], [29, 16], [46, 16],
                                             [59, 16]], 100_000),
             "shared_n10k_planned_mixed": ([[113, 500], [126, 16], [139, 16],
@@ -2629,31 +2889,19 @@ def main() -> int:
                 planned[name]["n_member"] != members:
             raise AssertionError(f"{name} decided {planned[name]['decides']}"
                                  f" leaving {planned[name]['n_member']}")
-    for run in shared.values():
-        run.pop("log", None)
-    err_fleet, fleet_times = phase_fleet_deliver(rx_account, device)
-    fleet_pools, pool_outputs = phase_fleet_pools(device)
-    scaling = phase_fleet_scaling(device, pool_outputs)
-    for pool_id in (1, 3):
-        del pool_outputs[pool_id]
-    layouts = phase_layouts(rx_account, device, keep, main_run)
-    wide_dense = phase_wide_dense(rx_account, device)
-    dense_fleets = phase_dense_fleets(device, fleet_pools)
-    telemetry = phase_telemetry(keep, pool_outputs)
-    del pool_outputs
-    referee_rx = phase_referee_receiver(rx_account, device, keep)
-    del keep
-    referee_shared = phase_referee_shared(rx_account, device)
-    campaign_payload, campaign_run = phase_campaign(rx_account, device)
-    replays = phase_replay(rx_account, device, campaign_payload)
-    del campaign_payload
-    committed_runs = phase_committed(rx_account, device)
-    stream = {"checkpoints": phase_checkpoints(rx_account, device),
-              "soak": phase_soak(rx_account, device),
-              "rx_soak": phase_rx_soak(rx_account, device),
-              "n100k": phase_stream_n100k(rx_account, device,
-                                          shared["n100k_crash"]),
-              "servo_status": phase_servo_status(rx_account, device)}
+    referee_rx = groups["referee"]["referee_receiver"]
+    referee_shared = groups["referee"]["referee_shared"]
+    stream = groups["referee"]["stream"]
+    campaign_run = groups["campaign"]["campaign"]
+    replays = groups["campaign"]["replay"]
+    committed_runs = groups["campaign"]["committed"]
+    phase7 = shared["n100k_crash"]
+    log(f"phase 31: the resident engine's "
+        f"{stream['n100k']['ms_per_tick']:.4f} ms/tick and peak "
+        f"{stream['n100k']['peak_mib']:.1f} MiB beside phase 7's "
+        f"{phase7['ms_per_tick']:.4f} ms/tick and "
+        f"{phase7['peak_bytes'] / 2**20:.1f} MiB")
+    observatory = phase_profile(rx_account, device, card)
 
     main_t, wide_t = times[MAIN_N], times[WIDE_N]
     kernels = [{
@@ -2689,6 +2937,7 @@ def main() -> int:
         "checkpoint_launches": {
             k: v["deliver_launches"]
             for k, v in stream["checkpoints"].items()},
+        "profile_launches": observatory["deliver_launches"],
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -2715,7 +2964,7 @@ def main() -> int:
                     "referee_shared": referee_shared,
                     "campaign": campaign_run, "replay": replays,
                     "committed": committed_runs, "stream": stream,
-                    "card": card}))
+                    "profile": observatory, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ How the reference's JAX-only parts map:
   its launch blocks on the card; a per-receiver fleet rarely does, so
   the host runs ahead.
 - *Ahead-of-time compiles, donation and the compile cache* have no
-  PyTorch form (``ROADMAP.md`` Queue 1 item 1). ``compiled`` keeps its
+  PyTorch form (``ROADMAP.md``, "Open items"). ``compiled`` keeps its
   meaning, the first dispatch of its pool, and that dispatch's
   ``compile`` stage times its one-time work: the kernel build when a
   per-receiver pool first runs on the card, and the lowering of the
@@ -49,7 +49,7 @@ How the reference's JAX-only parts map:
   ``device_peak_bytes`` is null on the CPU, and ``platform`` is "gpu" on
   the card, "cpu" otherwise.
 - *``fleet_shard``* raises ``engine.fleet``'s ``NotImplementedError``
-  (``ROADMAP.md`` Queue 1 item 8).
+  (the sharding item of ``ROADMAP.md`` Queue 1).
 - *The recorder's host copy* is one copy of the dispatch's rings;
   triage slices exemplars out of it with ``recorder.member_recorder``.
 
@@ -189,8 +189,8 @@ class CampaignConfig:
     # fences each dispatch right after its launch. Every non-wall payload
     # field is the same either way.
     pipeline: bool = True
-    # A device mesh over the fleet axis: refused (ROADMAP.md Queue 1
-    # item 8).
+    # A device mesh over the fleet axis: refused (the sharding item of
+    # ROADMAP.md Queue 1).
     fleet_shard: Optional[int] = None
     # Flight-recorder window W: > 0 carries a [W, G] gauge ring through
     # every member's run and embeds the rings of triage exemplars.

@@ -34,7 +34,7 @@ Not here: ``enable_compile_cache``, ``fleet_aot_compile`` and
 ``receiver_fleet_aot_compile`` exist to persist and time XLA
 executables; the port compiles nothing ahead of time (its kernels are
 built once by ``rx_account.build``). A device mesh (``mesh``,
-``fleet_mesh``) is ``ROADMAP.md`` Queue 1 item 8.
+``fleet_mesh``) is the sharding item of ``ROADMAP.md`` Queue 1.
 """
 from __future__ import annotations
 
@@ -97,8 +97,9 @@ def clear_boot_caches() -> None:
 def _require_no_mesh(mesh, fleet_mesh) -> None:
     if mesh is not None or fleet_mesh is not None:
         raise NotImplementedError(
-            "a device mesh (mesh or fleet_mesh): sharding is ROADMAP.md "
-            "Queue 1 item 8; the port's fleets run on one device")
+            "a device mesh (mesh or fleet_mesh): sharding is the "
+            "ROADMAP.md Queue 1 sharding item; the port's fleets run on "
+            "one device")
 
 
 def _to_device(host, device):

@@ -28,10 +28,13 @@ This carry serves ``rx_kernel`` "packed" and "pallas" alike. In the
 reference the two differ in the delivery ("packed" runs the dense
 ``_account``, "pallas" the Pallas kernel, bit-identical to it); the port
 has one delivery for every layout, so the two run the same code.
+``dense_state_bytes``, ``packed_state_bytes`` and ``bundle_state_bytes``
+count one member of each layout in the reference's dtypes.
 """
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 
@@ -209,6 +212,26 @@ def final_view(ps: PackedReceiverState) -> ReceiverFinalView:
                              stopped=unpack_bits(ps.stopped, c),
                              cfg_hi=ps.cfg_hi, cfg_lo=ps.cfg_lo,
                              flags=ps.flags)
+
+
+def dense_state_bytes(capacity: int, settings: Settings) -> int:
+    """Exact bytes of one dense carry (``ReceiverState``) in the
+    reference's layout: 32-bit limbs at 4 bytes, bools at 1."""
+    from rapid_tpu_torch.engine import fleet
+
+    return fleet._state_bytes(capacity, settings)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def packed_state_bytes(capacity: int, settings: Settings) -> int:
+    """Exact bytes of one packed carry (``PackedReceiverState``) in the
+    reference's layout, from the shapes ``pack_receiver_state`` gives on
+    meta tensors."""
+    from rapid_tpu_torch.engine import fleet, receiver
+
+    dense = fleet._meta_state(capacity, settings.K, receiver.N_DRAWS,
+                              settings.delivery_ring_depth)
+    return fleet._tree_bytes(pack_receiver_state(dense, settings))
 
 
 def bundle_state_bytes(capacity: int, settings: Settings) -> int:

@@ -5,6 +5,8 @@ A receiver decides when it has seen at least the fast quorum
 Votes are tallied as a segmented count over 64-bit proposal fingerprints:
 sort the ``(hi, lo)`` vote hashes, mark run starts, and sum the valid
 votes of each run; no ``[C, C]`` comparison matrix is built.
+``scan_vote_count`` gives the same tally through scans, as the ring
+variant's aggregation kernel does (``telemetry.profile``'s variant block).
 """
 from __future__ import annotations
 
@@ -40,20 +42,55 @@ def segmented_vote_count(vote_hi, vote_lo, valid):
     """
     c = vote_hi.shape[-1]
     dev = vote_hi.device
+    order, sval, starts = _sorted_runs(vote_hi, vote_lo, valid)
+    seg_id = torch.cumsum(starts, dim=0) - 1
+    seg_counts = torch.zeros(c, dtype=torch.int32, device=dev).scatter_add(
+        0, seg_id, sval)
+    return torch.zeros(c, dtype=torch.int32, device=dev).scatter(
+        0, order, seg_counts[seg_id] * sval)
+
+
+def _sorted_runs(vote_hi, vote_lo, valid):
+    """``(order, sval, starts)``: the reference's ``lexsort((lo, hi,
+    invalid))`` as three stable sorts, least significant key first; the
+    valid mask in that order as int32; and where a run of equal
+    ``(hi, lo)`` starts."""
     order = torch.argsort(vote_lo, stable=True)
     order = order[torch.argsort(vote_hi[order], stable=True)]
     order = order[torch.argsort((~valid[order]).to(torch.uint8),
                                 stable=True)]
     shi = vote_hi[order]
     slo = vote_lo[order]
-    sval = valid[order].to(torch.int32)
-    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                        (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])])
-    seg_id = torch.cumsum(starts, dim=0) - 1
-    seg_counts = torch.zeros(c, dtype=torch.int32, device=dev).scatter_add(
-        0, seg_id, sval)
-    return torch.zeros(c, dtype=torch.int32, device=dev).scatter(
-        0, order, seg_counts[seg_id] * sval)
+    first = torch.ones(1, dtype=torch.bool, device=vote_hi.device)
+    starts = torch.cat([first, (shi[1:] != shi[:-1]) | (slo[1:] != slo[:-1])])
+    return order, valid[order].to(torch.int32), starts
+
+
+def scan_vote_count(vote_hi, vote_lo, valid):
+    """i32 [C]: ``segmented_vote_count``'s tally through scans, with no
+    segment sum: the aggregation core of the ring variant.
+
+    After the same sorts, a forward running max carries each run's start
+    index and a reversed running min its inclusive end; a run's count is
+    the difference of the valid mask's prefix sums at its two ends, so an
+    invalid slot sorted into a valid run's tail adds nothing and reads 0,
+    as in the segment sum. Equal to ``segmented_vote_count`` on every
+    input.
+    """
+    c = vote_hi.shape[-1]
+    dev = vote_hi.device
+    order, sval, starts = _sorted_runs(vote_hi, vote_lo, valid)
+    idx = torch.arange(c, device=dev)
+    start = torch.cummax(torch.where(starts, idx, -1), dim=0).values
+    ends = torch.cat([starts[1:], torch.ones(1, dtype=torch.bool,
+                                             device=dev)])
+    run_end = torch.flip(torch.cummin(
+        torch.flip(torch.where(ends, idx, c), [0]), dim=0).values, [0])
+    csum = torch.cumsum(sval, dim=0, dtype=torch.int32)
+    base = torch.where(start > 0, csum[(start - 1).clamp(min=0)], 0)
+    out = torch.zeros(c, dtype=torch.int32, device=dev)
+    out[order] = (csum[run_end] - base) * sval
+    return out
 
 
 def fast_quorum(n_member):

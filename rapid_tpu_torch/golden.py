@@ -42,7 +42,9 @@ stream (``stream_record``), run through ``PortService`` or its reference
 twin in the tests, so both packages run the same service code here.
 CPU tests regenerate the files from the reference and hold the port's CPU
 runs to them; ``chip_smoke.py`` compares the port's runs on the card
-against them.
+against them. ``profile_sweep_errors`` holds a kernel-cost dominance
+report (``telemetry.profile``) to ``benchmarks/dominance_report.json``
+by the rules of ``scripts/bench_compare.py``.
 """
 from __future__ import annotations
 
@@ -1181,3 +1183,155 @@ def continue_checkpoint(svc, family: str, path, scratch) -> dict:
             carry = svc.service.restore_receiver_carry(cp2, settings)
             rec = cp2.parts["recorder"]
     return out
+
+
+def _wall_warning(where: str, cur, base, tolerance: float) -> List[str]:
+    """A warning when the number ``cur`` is more than ``tolerance`` above
+    ``base``, in ``bench_compare``'s words."""
+    if isinstance(cur, (int, float)) and isinstance(base, (int, float)) \
+            and base > 0 and cur > base * (1.0 + tolerance):
+        up = 100.0 * (cur / base - 1.0)
+        return [f"{where}: {cur:.3e} is {up:.0f}% above baseline "
+                f"{base:.3e} (tolerance {tolerance * 100:.0f}%)"]
+    return []
+
+
+def profile_sweep_errors(current: dict, baseline: dict,
+                         wall_tolerance: float = 0.50
+                         ) -> Tuple[List[str], List[str]]:
+    """``(errors, warnings)`` of ``bench_compare.compare_profile_sweeps``
+    on two ``kernel_profile_sweep`` payloads, the same rules in the same
+    words (a copy: the script imports the reference's schema).
+
+    Errors: a kernel of a baseline run missing from the current run of
+    the same ``n``; a mismatch of the multichip mesh shape, of the
+    receiver-memory config, ``member_state_bytes``, the bytes-per-member
+    curve or a fleet's ``argument_bytes``/``output_bytes``; of the
+    variant block's config, or a refusal attempted or its arithmetic
+    changed. Walls, temp and peak bytes only warn past
+    ``wall_tolerance``."""
+    errors: List[str] = []
+    warnings: List[str] = []
+    base_runs = {run.get("n"): run for run in baseline.get("runs", [])}
+    for run in current.get("runs", []):
+        n = run.get("n")
+        where = f"payload.runs[n={n}]"
+        base = base_runs.get(n)
+        if base is None:
+            warnings.append(f"{where}: no baseline run at this n "
+                            f"(baseline sizes {sorted(base_runs)})")
+            continue
+        if run.get("k") != base.get("k"):
+            errors.append(f"{where}.k: config mismatch (current "
+                          f"{run.get('k')!r} vs baseline {base.get('k')!r})"
+                          f" — regenerate with --update-baseline")
+            continue
+        base_kernels = {k["kernel"]: k for k in base.get("kernels", [])}
+        cur_kernels = {k["kernel"]: k for k in run.get("kernels", [])}
+        for name in sorted(set(base_kernels) - set(cur_kernels)):
+            errors.append(f"{where}: kernel {name!r} in baseline but "
+                          f"missing from current sweep")
+        for name, cur_k in sorted(cur_kernels.items()):
+            base_k = base_kernels.get(name)
+            if base_k is None:
+                warnings.append(f"{where}: new kernel {name!r} not in "
+                                f"baseline")
+                continue
+            warnings += _wall_warning(
+                f"{where}.{name}.wall_median_s", cur_k.get("wall_median_s"),
+                base_k.get("wall_median_s"), wall_tolerance)
+
+    cur_mc = current.get("multichip")
+    base_mc = baseline.get("multichip")
+    if isinstance(cur_mc, dict) and isinstance(base_mc, dict):
+        for key in ("n_devices", "axis"):
+            if cur_mc.get(key) != base_mc.get(key):
+                errors.append(
+                    f"payload.multichip.{key}: config mismatch (current "
+                    f"{cur_mc.get(key)!r} vs baseline {base_mc.get(key)!r})"
+                    f" — regenerate with --update-baseline")
+
+    cur_rm = current.get("receiver_memory")
+    base_rm = baseline.get("receiver_memory")
+    if isinstance(cur_rm, dict) and isinstance(base_rm, dict):
+        for key in ("n", "capacity", "k", "member_state_bytes"):
+            if cur_rm.get(key) != base_rm.get(key):
+                errors.append(
+                    f"payload.receiver_memory.{key}: config mismatch "
+                    f"(current {cur_rm.get(key)!r} vs baseline "
+                    f"{base_rm.get(key)!r}) — regenerate with "
+                    f"--update-baseline")
+        base_fleets = {f.get("fleet_size"): f
+                       for f in base_rm.get("fleets", [])}
+        cur_curve = {row.get("capacity"): row
+                     for row in cur_rm.get("bytes_per_member_curve", [])}
+        base_curve = {row.get("capacity"): row
+                      for row in base_rm.get("bytes_per_member_curve", [])}
+        for cap in sorted(set(cur_curve) & set(base_curve)):
+            for key in ("dense_bytes", "packed_carry_bytes",
+                        "packed_bundle_bytes"):
+                if cur_curve[cap].get(key) != base_curve[cap].get(key):
+                    errors.append(
+                        f"payload.receiver_memory.bytes_per_member_curve"
+                        f"[C={cap}].{key}: {cur_curve[cap].get(key)!r} != "
+                        f"baseline {base_curve[cap].get(key)!r}")
+        for fl in cur_rm.get("fleets", []):
+            fsz = fl.get("fleet_size")
+            where = f"payload.receiver_memory.fleets[F={fsz}]"
+            base_f = base_fleets.get(fsz)
+            if base_f is None:
+                warnings.append(f"{where}: no baseline fleet at this size "
+                                f"(baseline sizes {sorted(base_fleets)})")
+                continue
+            for key in ("argument_bytes", "output_bytes"):
+                if fl.get(key) != base_f.get(key):
+                    errors.append(f"{where}.{key}: {fl.get(key)!r} != "
+                                  f"baseline {base_f.get(key)!r}")
+            for key in ("temp_bytes", "peak_bytes"):
+                cur_v, base_v = fl.get(key), base_f.get(key)
+                if isinstance(cur_v, int) and isinstance(base_v, int) and \
+                        base_v > 0 and \
+                        cur_v > base_v * (1.0 + wall_tolerance):
+                    up = 100.0 * (cur_v / base_v - 1.0)
+                    warnings.append(
+                        f"{where}.{key}: {cur_v} is {up:.0f}% above "
+                        f"baseline {base_v} (tolerance "
+                        f"{wall_tolerance * 100:.0f}%)")
+
+    cur_vb = current.get("variants")
+    base_vb = baseline.get("variants")
+    if isinstance(cur_vb, dict) and isinstance(base_vb, dict):
+        for key in ("sizes", "budget_bytes"):
+            if cur_vb.get(key) != base_vb.get(key):
+                errors.append(
+                    f"payload.variants.{key}: config mismatch (current "
+                    f"{cur_vb.get(key)!r} vs baseline {base_vb.get(key)!r})"
+                    f" — regenerate with --update-baseline")
+        cur_ref = {(r.get("kernel"), r.get("n")): r
+                   for r in cur_vb.get("refusals", [])}
+        base_ref = {(r.get("kernel"), r.get("n")): r
+                    for r in base_vb.get("refusals", [])}
+        for key in sorted(set(base_ref) - set(cur_ref)):
+            errors.append(f"payload.variants.refusals: {key[0]!r} at "
+                          f"n={key[1]} refused in baseline but attempted "
+                          f"in current sweep")
+        for key in sorted(set(cur_ref) & set(base_ref)):
+            for field in ("bytes_required", "budget_bytes"):
+                if cur_ref[key].get(field) != base_ref[key].get(field):
+                    errors.append(
+                        f"payload.variants.refusals[{key[0]}, n={key[1]}]"
+                        f".{field}: {cur_ref[key].get(field)!r} != "
+                        f"baseline {base_ref[key].get(field)!r}")
+        base_vk = {(k.get("kernel"), k.get("n")): k
+                   for k in base_vb.get("kernels", [])}
+        for k in cur_vb.get("kernels", []):
+            ref = (k.get("kernel"), k.get("n"))
+            base_k = base_vk.get(ref)
+            where = f"payload.variants.kernels[{ref[0]}, n={ref[1]}]"
+            if base_k is None:
+                warnings.append(f"{where}: not in baseline")
+                continue
+            warnings += _wall_warning(
+                f"{where}.wall_median_s", k.get("wall_median_s"),
+                base_k.get("wall_median_s"), wall_tolerance)
+    return errors, warnings

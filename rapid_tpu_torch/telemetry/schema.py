@@ -7,19 +7,22 @@ and summaries, SLO windows, single-run, sweep and suite bench payloads,
 campaign payloads with their triage, tournament, dispatch timeline,
 observatory and ``--progress`` heartbeat records, and the streaming
 service's chunk heartbeats, stream summaries, servo blocks, status
-snapshots, load sweeps and checkpoint manifests. Each validator returns
-a list of violations, empty when the payload is well formed; the
+snapshots, load sweeps and checkpoint manifests, and the kernel-cost
+observatory's dominance report (``telemetry.profile``). Each validator
+returns a list of violations, empty when the payload is well formed; the
 constants pin the field names and fold semantics the folds, the
-recorder, the campaign and the service write.
+recorder, the campaign, the service and the observatory write.
 
-Not here: the kernel-profile payload's validator (the reference's
-``telemetry/profile.py`` has no PyTorch form); ``validate_bench_payload``
-raises ``NotImplementedError`` on such a payload rather than pass it
-unchecked.
+    python -m rapid_tpu_torch.telemetry.schema \
+        [--progress|--streaming|--load-sweep|--status] FILE
+
+checks one artifact as the reference's CLI does: exit 0 when it is well
+formed, 1 with one line per violation, 2 on a usage error.
 """
 from __future__ import annotations
 
 import json
+import sys
 from typing import Dict, List
 
 _NUM = (int, float)
@@ -97,6 +100,104 @@ RUN_SPEC = {
     "rounds_per_sec": (int, float, type(None)),
     "telemetry": (dict,),
 }
+
+#: One per-kernel cost record of the kernel-cost observatory
+#: (``telemetry.profile.KernelCost.as_dict``).
+KERNEL_COST_SPEC = {
+    "kernel": (str,),
+    "flops": _NUM,
+    "bytes_accessed": _NUM,
+    "argument_bytes": (int,),
+    "output_bytes": (int,),
+    "temp_bytes": (int,),
+    "peak_bytes": (int,),
+    "compile_s": _NUM,
+    "wall_median_s": _NUM,
+    "wall_best_s": _NUM,
+    "repeats": (int,),
+}
+
+#: One per-N entry of the dominance report.
+PROFILE_RUN_SPEC = {
+    "n": (int,),
+    "capacity": (int,),
+    "kernels": (list,),
+    "dominant": (dict,),
+}
+
+#: Top level of the ``kernel_profile_sweep`` dominance report.
+PROFILE_SWEEP_SPEC = {
+    "bench": (str,),
+    "platform": (str,),
+    "k": (int,),
+    "sizes": (list,),
+    "runs": (list,),
+    "dominant_by_n": (dict,),
+}
+
+#: Sharded-vs-single-device block of the dominance report. The top-level
+#: ``multichip`` key may be ``null`` (not enough devices); when present it
+#: must carry these fields.
+MULTICHIP_SPEC = {
+    "n_devices": (int,),
+    "axis": (str,),
+    "kernels": (list,),
+}
+
+MULTICHIP_ENTRY_SPEC = {
+    "kernel": (str,),
+    "n": (int,),
+    "single_wall_median_s": _NUM,
+    "sharded_wall_median_s": _NUM,
+    "speedup": (int, float, type(None)),
+}
+
+#: Per-receiver fleet-step memory block of the dominance report
+#: (``telemetry.profile.receiver_memory_block``). Like ``multichip``, the
+#: top-level ``receiver_memory`` key may be ``null`` ("not measured").
+RECEIVER_MEMORY_SPEC = {
+    "n": (int,),
+    "capacity": (int,),
+    "k": (int,),
+    "member_state_bytes": (int,),
+    "fleets": (list,),
+}
+
+RECEIVER_FLEET_ENTRY_SPEC = {
+    "fleet_size": (int,),
+    "argument_bytes": (int,),
+    "output_bytes": (int,),
+    "temp_bytes": (int,),
+    "peak_bytes": (int,),
+    "compile_s": _NUM,
+}
+
+#: Protocol-variant kernel block of the dominance report
+#: (``telemetry.profile.variant_sweep_block``). The top-level ``variants``
+#: key may be ``null`` ("not measured"); when present it carries the
+#: measured ring aggregation kernels plus the documented dense-broadcast
+#: refusals, sizes where the O(N^2) kernel would exceed the budget.
+VARIANT_SPEC = {
+    "sizes": (list,),
+    "budget_bytes": (int,),
+    "kernels": (list,),
+    "refusals": (list,),
+}
+
+#: One documented refusal of the variant block: the kernel that was *not*
+#: run, at which size, the bytes it would have needed against the budget,
+#: and the one-line reason.
+VARIANT_REFUSAL_SPEC = {
+    "kernel": (str,),
+    "n": (int,),
+    "bytes_required": (int,),
+    "budget_bytes": (int,),
+    "reason": (str,),
+}
+
+#: One measured variant kernel entry: a KERNEL_COST_SPEC record plus the
+#: size it ran at.
+VARIANT_KERNEL_SPEC = dict(KERNEL_COST_SPEC, n=(int,))
 
 #: First-occurrence tick stamps of a flight-recorder payload (-1 ==
 #: never observed inside the run).
@@ -1462,6 +1563,61 @@ def validate_run_payload(payload, where: str = "payload") -> List[str]:
     return errors
 
 
+def validate_profile_payload(payload, where: str = "payload") -> List[str]:
+    """Validate a ``kernel_profile_sweep`` dominance report."""
+    errors = _check(payload, PROFILE_SWEEP_SPEC, where)
+    if not isinstance(payload, dict):
+        return errors
+    for i, run in enumerate(payload.get("runs") or []):
+        rw = f"{where}.runs[{i}]"
+        errors += _check(run, PROFILE_RUN_SPEC, rw)
+        if not isinstance(run, dict):
+            continue
+        names = set()
+        for j, kc in enumerate(run.get("kernels") or []):
+            errors += _check(kc, KERNEL_COST_SPEC, f"{rw}.kernels[{j}]")
+            if isinstance(kc, dict) and isinstance(kc.get("kernel"), str):
+                names.add(kc["kernel"])
+        dom = run.get("dominant")
+        if isinstance(dom, dict):
+            for axis, kernel in dom.items():
+                if kernel not in names:
+                    errors.append(f"{rw}.dominant.{axis}: {kernel!r} "
+                                  f"names no profiled kernel")
+    dom_by_n = payload.get("dominant_by_n")
+    if isinstance(dom_by_n, dict):
+        for n, kernel in dom_by_n.items():
+            if not isinstance(kernel, str):
+                errors.append(f"{where}.dominant_by_n[{n}]: expected str, "
+                              f"got {type(kernel).__name__}")
+    mc = payload.get("multichip")
+    if mc is not None:  # null means "not measured", which is valid
+        errors += _check(mc, MULTICHIP_SPEC, f"{where}.multichip")
+        if isinstance(mc, dict):
+            for j, entry in enumerate(mc.get("kernels") or []):
+                errors += _check(entry, MULTICHIP_ENTRY_SPEC,
+                                 f"{where}.multichip.kernels[{j}]")
+    rm = payload.get("receiver_memory")
+    if rm is not None:  # null means "not measured", which is valid
+        errors += _check(rm, RECEIVER_MEMORY_SPEC,
+                         f"{where}.receiver_memory")
+        if isinstance(rm, dict):
+            for j, entry in enumerate(rm.get("fleets") or []):
+                errors += _check(entry, RECEIVER_FLEET_ENTRY_SPEC,
+                                 f"{where}.receiver_memory.fleets[{j}]")
+    vb = payload.get("variants")
+    if vb is not None:  # null means "not measured", which is valid
+        errors += _check(vb, VARIANT_SPEC, f"{where}.variants")
+        if isinstance(vb, dict):
+            for j, kc in enumerate(vb.get("kernels") or []):
+                errors += _check(kc, VARIANT_KERNEL_SPEC,
+                                 f"{where}.variants.kernels[{j}]")
+            for j, rf in enumerate(vb.get("refusals") or []):
+                errors += _check(rf, VARIANT_REFUSAL_SPEC,
+                                 f"{where}.variants.refusals[{j}]")
+    return errors
+
+
 def _version_errors(payload) -> List[str]:
     v = payload.get("schema_version")
     if v is None:
@@ -1476,14 +1632,13 @@ def _version_errors(payload) -> List[str]:
 
 
 def validate_bench_payload(payload) -> List[str]:
-    """Validate a single-run, sweep or suite payload. Top-level payloads
-    must carry a matching ``schema_version``."""
+    """Validate a single-run, sweep, suite or kernel-profile payload.
+    Top-level payloads must carry a matching ``schema_version``."""
     if not isinstance(payload, dict):
         return ["payload: expected a JSON object"]
     errors = _version_errors(payload)
     if payload.get("bench") == "kernel_profile_sweep":
-        raise NotImplementedError(
-            "payload: kernel-profile payloads have no port validator")
+        return errors + validate_profile_payload(payload)
     if payload.get("bench") == "engine_tick_suite":
         for key in ("steady", "churn", "contested", "partition", "delay",
                     "streaming", "fleet"):
@@ -1498,3 +1653,57 @@ def validate_bench_payload(payload) -> List[str]:
             errors += validate_run_payload(run, f"payload.sweep[{i}]")
         return errors
     return errors + validate_run_payload(payload)
+
+
+def _report(errors: List[str], ok: str) -> int:
+    if errors:
+        for e in errors:
+            print(f"schema violation: {e}", file=sys.stderr)
+        return 1
+    print(ok)
+    return 0
+
+
+def main(argv=None) -> int:
+    """The reference's schema CLI, with its messages and exit codes."""
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 2 and argv[0] in ("--progress", "--streaming"):
+        validate = (validate_progress_stream if argv[0] == "--progress"
+                    else validate_streaming_stream)
+        with open(argv[1], "r", encoding="utf-8") as fh:
+            errors = validate(fh.readlines())
+        return _report(errors, f"{argv[0][2:]} schema ok: {argv[1]}")
+    if len(argv) == 2 and argv[0] in ("--load-sweep", "--status"):
+        with open(argv[1], "rb") as fh:
+            raw = fh.read()
+        errors = [] if raw.endswith(b"\n") else \
+            ["payload: file must end with a trailing newline"]
+        try:
+            payload = json.loads(raw)
+        except ValueError as e:
+            errors.append(f"payload: not JSON ({e})")
+            payload = None
+        if payload is not None:
+            validate = (validate_load_sweep if argv[0] == "--load-sweep"
+                        else validate_status_snapshot)
+            errors += validate(payload)
+        return _report(errors, f"{argv[0][2:]} schema ok: {argv[1]}")
+    if len(argv) != 1:
+        print("usage: python -m rapid_tpu_torch.telemetry.schema "
+              "[--progress|--streaming|--load-sweep|--status] FILE",
+              file=sys.stderr)
+        return 2
+    with open(argv[0], "rb") as fh:
+        raw = fh.read()
+    # Every JSON artifact is a line-oriented build product: tools that
+    # append or concatenate them rely on the trailing newline.
+    errors = [] if raw.endswith(b"\n") else \
+        ["payload: file must end with a trailing newline"]
+    payload = json.loads(raw)
+    errors += validate_bench_payload(payload)
+    return _report(errors, f"telemetry schema ok: {argv[0]} "
+                           f"({payload.get('bench', '?')})")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

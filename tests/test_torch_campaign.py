@@ -232,7 +232,7 @@ def test_tournament_and_variant_refusals_match_the_reference():
 
 def test_fleet_shard_is_refused():
     _, port_cfg = configs(CONFIGS["tiny"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
         campaign.run_campaign(dataclasses.replace(port_cfg, fleet_shard=2),
                               device="cpu")
 

@@ -344,3 +344,46 @@ def test_chunked_receiver_across_a_checkpoint_equals_one_run(card, layout,
                                                 carry.delay_table, settings)
     for got, want in zip(carry, final):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+def test_profile_fleet_tick_on_card_equals_cpu(card, layout):
+    """The observatory's F=4 fleet tick of either layout on the card: the
+    finals and logs equal the CPU's plain delivery bit for bit, with 6
+    ``rx_deliver`` launches."""
+    from rapid_tpu_torch.telemetry import profile
+
+    def tick(device):
+        for _, got, fn, args in profile.receiver_fleet_ticks(
+                Settings(), 64, (4,), device=device):
+            if got == layout:
+                return fn(*args)
+
+    before = rx_account.deliver_launches
+    got = tick(card)
+    torch.cuda.synchronize()
+    assert rx_account.deliver_launches - before == 6
+    want = tick("cpu")
+    for part_got, part_want in zip(got, want):
+        for a, b in zip(part_got, part_want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_dominance_report_on_card_holds_to_the_committed_report(card):
+    """``dominance_report`` at N=256 with the receiver block on the card:
+    valid, platform "gpu", allocator figures read, and no drift against
+    ``benchmarks/dominance_report.json`` by ``bench_compare``'s rules."""
+    import json
+    from pathlib import Path
+
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.telemetry import profile, schema
+
+    payload = profile.dominance_report([256], Settings(), repeats=2,
+                                       multichip=False, device=card)
+    base = json.loads((Path(__file__).resolve().parents[1] / "benchmarks"
+                       / "dominance_report.json").read_text())
+    assert payload["platform"] == "gpu"
+    assert schema.validate_bench_payload(payload) == []
+    assert golden.profile_sweep_errors(payload, base)[0] == []
+    assert all(k["peak_bytes"] > 0 for k in payload["runs"][0]["kernels"])

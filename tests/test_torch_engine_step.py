@@ -148,7 +148,7 @@ def test_step_reads_the_tick_when_not_given():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 8"),
+    (dict(mesh=object()), "sharding item"),
 ])
 def test_out_of_slice_options_are_refused(kw, item):
     uids, id_fp_sum = default_identities(8)

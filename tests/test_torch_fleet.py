@@ -259,7 +259,7 @@ def test_refusals():
         fleet.stack_members([members[1], dropped])
     stacked = fleet.stack_members(members[:2])
     for kw in ({"mesh": object()}, {"fleet_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
             fleet.fleet_simulate(stacked, 4, settings, device="cpu", **kw)
 
 

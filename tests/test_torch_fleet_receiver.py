@@ -234,7 +234,7 @@ def test_receiver_refusals():
     with pytest.raises(ValueError, match="cannot shrink"):
         fleet.pad_delay_rules(members[3].faults, 0)
     stacked = fleet.stack_receiver_members(members[:2])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
         fleet.receiver_fleet_simulate(stacked, 4, SETTINGS,
                                       fleet_mesh=object(), device="cpu")
     assert receiver.lower_receiver_schedule is fleet.lower_receiver_schedule

@@ -46,7 +46,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                  "campaign", "replay", "variants", "service",
                  "service.checkpoint", "service.traffic", "service.servo",
                  "service.status", "service.resident", "service.rx_resident",
-                 "service.__main__"):
+                 "service.__main__", "telemetry.profile",
+                 "telemetry.schema"):
         assert f"rapid_tpu_torch.{name}" in result["modules"], name
 
 
@@ -58,6 +59,7 @@ def _entry_points():
     from rapid_tpu_torch.faults import crash_window_delay_schedule
     from rapid_tpu_torch.identity import default_identities
     from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry import profile
 
     settings = Settings(rx_kernel="pallas")
     uids, id_fp_sum = default_identities(8)
@@ -115,6 +117,9 @@ def _entry_points():
             Settings(stream_chunk_ticks=512, flight_recorder_window=8)),
         "service --soak": lambda: service_main.main(
             ["--soak", "--ticks", "64", "--chunk", "32"]),
+        "telemetry.profile": lambda: profile.main(["--sizes", "64"]),
+        "dominance_report": lambda: profile.dominance_report(
+            [64], Settings()),
     }
 
 

@@ -110,7 +110,7 @@ def test_divergence_names_tick_and_field_on_both(tmp_path):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
         diff.run_differential(8, {}, 4, mesh=object(), device="cpu")
 
 
