@@ -5,13 +5,14 @@
 
 Phases; any failure, in this process or in a child, exits non-zero
 before the result lines. They run in this order: 1 and 2, the kernel
-times (below) and 16, on a card that is otherwise idle; then three child
+times (below) and 16, on a card that is otherwise idle; then four child
 processes start, phase 15 (``--planned``), phases 23, 24 and 28-32
-(``--group referee``) and phases 25-27 (``--group campaign``), while this
-process runs 3-14 and 17-22; once every child has ended and its lines are
-relayed, 33 runs alone. Each phase is bound by the host's dispatch and
-leaves the card idle most of the time, so the processes share it; the
-times of phases 3-32 are taken beside the other processes' work.
+(``--group referee``), phases 25-27 (``--group campaign``) and phase 34
+(``--group sharding``), while this process runs 3-14 and 17-22; once
+every child has ended and its lines are relayed, 33 runs alone. Each
+phase is bound by the host's dispatch and leaves the card idle most of
+the time, so the processes share it; the times of phases 3-32 and 34 are
+taken beside the other processes' work.
 
 
 1. the card's name and power limit; build both delivery kernels
@@ -231,7 +232,24 @@ times of phases 3-32 are taken beside the other processes' work.
     wall, CUDA kernels (``torch.profiler`` over 10 calls) and aten ops per
     call, the argument and output bytes with their byte bound, the
     dominant kernels beside the committed CPU report's, and
-    ``subkernel_wall_fraction``.
+    ``subkernel_wall_fraction``;
+34. sharding (``rapid_tpu_torch.engine.sharding``), in its own child
+    process: (a) phase 17's four pools (F=256, 120 ticks; pools 2 and 3
+    on the dense carry, as phase 21), each lowered once and run unsplit,
+    on a one-device fleet mesh and split four ways on this card
+    (``fleet_axis_mesh(devices=[card] * 4)``), and over the first
+    ``min(count, 4)`` cards where the machine shows more than one; the
+    unsplit run equal to the golden file for every member and each split
+    run equal to the unsplit one in every leaf, ``rx_deliver`` 720
+    launches per shard of a per-receiver pool and ``rx_account`` none;
+    prints ms/tick against the unsplit run (each timed run warm, after
+    its profiled window), µs per member-tick, host reads per tick and
+    kernels per tick over ticks 1-5; (b) phase 7 on ``slot_mesh(1)``,
+    equal to its golden file; (c) the campaign at ``baseline.json``'s
+    ``fleet`` entry with ``fleet_shard=1``, clean on its exact fields;
+    (d) ``fleet_axis_mesh(count + 1)`` raises ``ValueError`` and a slot
+    mesh of two raises ``NotImplementedError`` in ``shard_put`` and
+    ``simulate``.
 
 Before phase 16 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -249,7 +267,8 @@ phase 23's runs (``referee_launches``), phase 25's campaign
 (``campaign_launches``), phase 26's replays (``replay_launches``),
 phase 27's runs (``committed_launches``), phase 28's receiver
 continuations (``checkpoint_launches``), phase 30's soaks per layout
-(``stream_launches``) and phase 33 (``profile_launches``). The line
+(``stream_launches``), phase 33 (``profile_launches``) and phase 34's
+pools per layout (``shard_launches``). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -293,6 +312,9 @@ PROFILE_WINDOW_CALLS = 10          # calls per torch.profiler window
 #: The sweep's receiver block runs 3 calls (first, allocator, count) of a
 #: one-tick run per fleet size and layout, each 6 ``rx_deliver`` launches.
 PROFILE_SWEEP_LAUNCHES = 3 * 2 * 2 * 6
+SHARD_WAYS = 4                 # phase 34: the fleet split four ways
+#: Phase 34's timed runs of each pool in turns before the others.
+SHARD_TURNS = ("unsplit", "mesh1", "mesh1", "unsplit")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -700,10 +722,11 @@ def kernel_times(rx_account, device) -> dict:
     return out
 
 
-def run_shared(boot, sc, rx_account, settings=None):
-    """``simulate`` of a booted scenario, timed by CUDA events, with the
-    host reads and both kernels' launches counted (zeroed just before):
-    ``(out, ms_per_tick, reads_per_tick, launches, peak_bytes)``."""
+def run_shared(boot, sc, rx_account, settings=None, mesh=None):
+    """``simulate`` of a booted scenario (on ``mesh``, a one-device slot
+    mesh, when given), timed by CUDA events, with the host reads and both
+    kernels' launches counted (zeroed just before): ``(out, ms_per_tick,
+    reads_per_tick, launches, peak_bytes)``."""
     import torch
     from rapid_tpu_torch import device as device_mod
     from rapid_tpu_torch.engine import simulate
@@ -717,7 +740,7 @@ def run_shared(boot, sc, rx_account, settings=None):
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     out = simulate(boot.state, boot.faults, sc.ticks, settings,
-                   churn=boot.churn, fallback=boot.fallback)
+                   churn=boot.churn, fallback=boot.fallback, mesh=mesh)
     end.record()
     end.synchronize()
     launches = rx_account.deliver_launches + rx_account.launches
@@ -735,17 +758,25 @@ def check_golden(sc, rec: dict, label: str) -> None:
                              f"{diff_[:8]}")
 
 
-def phase_shared(sc, phase: int, device, rx_account, keep=None) -> dict:
+def phase_shared(sc, phase: int, device, rx_account, keep=None,
+                 mesh=None) -> dict:
     """One golden scenario (a name of ``golden.SCENARIOS`` or a
     ``SharedScenario``) through the shared engine's entry points, with
     both kernels' launch counts zeroed just before the run and read after
-    (the shared engine has no kernel: any launch fails the phase)."""
+    (the shared engine has no kernel: any launch fails the phase); on
+    ``mesh``, a one-device slot mesh, when given (``shard_put`` places the
+    state and faults)."""
     from rapid_tpu_torch import golden
-    from rapid_tpu_torch.engine import diff
+    from rapid_tpu_torch.engine import diff, sharding
 
     sc = golden.SCENARIOS[sc] if isinstance(sc, str) else sc
     boot = sc.boot(device=device)
-    out, ms_tick, reads, launches, peak = run_shared(boot, sc, rx_account)
+    if mesh is not None:
+        c = int(boot.state.member.shape[0])
+        boot = boot._replace(state=sharding.shard_put(boot.state, mesh, c),
+                             faults=sharding.shard_put(boot.faults, mesh, c))
+    out, ms_tick, reads, launches, peak = run_shared(boot, sc, rx_account,
+                                                     mesh=mesh)
     if launches:
         raise AssertionError(f"{sc.name} launched a delivery kernel "
                              f"{launches} times")
@@ -763,7 +794,8 @@ def phase_shared(sc, phase: int, device, rx_account, keep=None) -> dict:
               if key.endswith("_sent")}
     flags = [f for f, on in (("variant " + sc.variant, sc.variant != "rapid"),
                              ("invariant_checks", sc.invariant_checks),
-                             (f"W={sc.recorder_window}", sc.recorder_window))
+                             (f"W={sc.recorder_window}", sc.recorder_window),
+                             ("slot_mesh(1)", mesh is not None))
              if on]
     log(f"phase {phase}: {sc.name}{' (' + ', '.join(flags) + ')' if flags else ''}"
         f" x {sc.ticks} ticks equals its golden file: {ms_tick:.3f} ms/tick, "
@@ -1103,8 +1135,10 @@ def phase_fleet_deliver(rx_account, device) -> tuple:
     return worst, times
 
 
-def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas"):
-    """Lower and stack ``members`` of ``pool``, then run them with CUDA
+def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas",
+              fleet_mesh=None, stacked=None):
+    """Lower and stack ``members`` of ``pool`` (or take ``stacked``),
+    then run them, split over ``fleet_mesh`` when given, with CUDA
     events around the run and both kernels' launches and the host reads
     counted (zeroed just before): ``(out, stats)``."""
     import torch
@@ -1113,8 +1147,9 @@ def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas"):
     from rapid_tpu_torch.engine import fleet, rx_account
 
     start = time.perf_counter()
-    stacked = golden.lower_pool(pool, members, device=device,
-                                rx_kernel=rx_kernel)
+    if stacked is None:
+        stacked = golden.lower_pool(pool, members, device=device,
+                                    rx_kernel=rx_kernel)
     torch.cuda.synchronize()
     setup = time.perf_counter() - start
     run = (fleet.fleet_simulate if pool.mode == "shared"
@@ -1128,7 +1163,7 @@ def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas"):
     end = torch.cuda.Event(enable_timing=True)
     begin.record()
     out = run(stacked, ticks, golden.pool_settings(pool, rx_kernel),
-              device=device)
+              fleet_mesh=fleet_mesh, device=device)
     end.record()
     end.synchronize()
     ms = begin.elapsed_time(end)
@@ -1142,21 +1177,25 @@ def fleet_run(pool, members, device, ticks=None, rx_kernel="pallas"):
                  "run_peak_bytes": torch.cuda.max_memory_allocated() - base}
 
 
-def fleet_profile(pool, members, device, rx_kernel="pallas") -> dict:
+def fleet_profile(pool, members, device, rx_kernel="pallas",
+                  fleet_mesh=None, stacked=None) -> dict:
     """Kernels, aten ops and host reads per tick of a pool's fleet over
-    ``FLEET_PROFILE_TICKS`` ticks from its boot, under ``torch.profiler``."""
+    ``FLEET_PROFILE_TICKS`` ticks from its boot (``stacked``, or lowered
+    here), split over ``fleet_mesh`` when given, under ``torch.profiler``."""
     from rapid_tpu_torch import golden, profile
     from rapid_tpu_torch.engine import fleet
 
-    stacked = golden.lower_pool(pool, members, device=device,
-                                rx_kernel=rx_kernel)
+    if stacked is None:
+        stacked = golden.lower_pool(pool, members, device=device,
+                                    rx_kernel=rx_kernel)
     run = (fleet.fleet_simulate if pool.mode == "shared"
            else fleet.receiver_fleet_simulate)
     settings = golden.pool_settings(pool, rx_kernel)
     field = "decide_now" if pool.mode == "shared" else "decide"
 
     def window():
-        out = run(stacked, FLEET_PROFILE_TICKS, settings, device=device)
+        out = run(stacked, FLEET_PROFILE_TICKS, settings,
+                  fleet_mesh=fleet_mesh, device=device)
         return getattr(out[1], field)
 
     return profile.profile_window(window, FLEET_PROFILE_TICKS, 5,
@@ -2105,6 +2144,30 @@ def phase_replay(rx_account, device, payload: dict) -> dict:
     return out
 
 
+def baseline_fleet(rx_account, device, phase: int,
+                   fleet_shard=None) -> dict:
+    """A campaign at ``baseline.json``'s ``fleet`` configuration (with
+    ``fleet_shard`` when given) against that entry's exact fields."""
+    from rapid_tpu_torch import campaign
+
+    want = committed("baseline.json")["fleet"]
+    zero_counts(rx_account)
+    cfg = campaign.CampaignConfig(clusters=128, n=64, ticks=120, seed=0,
+                                  fleet_size=64, fleet_shard=fleet_shard)
+    payload = campaign.run_campaign(cfg, device=device)
+    errors = exact_errors(json.loads(json.dumps(payload)), want, "fleet")
+    if errors:
+        raise AssertionError(f"phase {phase} fleet: {errors[:5]}")
+    stats = campaign_stats(payload)
+    stats["deliver_launches"] = rx_account.deliver_launches
+    shard = "" if fleet_shard is None else f" with --fleet-shard {fleet_shard}"
+    log(f"phase {phase}: baseline.json's fleet entry{shard} reproduced on "
+        f"every exact field ({payload['dispatches']} dispatches, "
+        f"{rx_account.deliver_launches} rx_deliver launches)")
+    print_campaign(phase, "fleet", stats)
+    return stats
+
+
 def phase_committed(rx_account, device) -> dict:
     """Phase 27: a campaign at ``baseline.json``'s ``fleet`` configuration
     against that entry's exact fields, and ``run_tournament(["rapid",
@@ -2113,21 +2176,7 @@ def phase_committed(rx_account, device) -> dict:
     from rapid_tpu_torch import campaign
     from rapid_tpu_torch.faults import ScenarioWeights
 
-    out = {}
-    want = committed("baseline.json")["fleet"]
-    zero_counts(rx_account)
-    cfg = campaign.CampaignConfig(clusters=128, n=64, ticks=120, seed=0,
-                                  fleet_size=64)
-    payload = campaign.run_campaign(cfg, device=device)
-    errors = exact_errors(json.loads(json.dumps(payload)), want, "fleet")
-    if errors:
-        raise AssertionError(f"phase 27 fleet: {errors[:5]}")
-    out["fleet"] = campaign_stats(payload)
-    out["fleet"]["deliver_launches"] = rx_account.deliver_launches
-    log(f"phase 27: baseline.json's fleet entry reproduced on every exact "
-        f"field ({payload['dispatches']} dispatches, "
-        f"{rx_account.deliver_launches} rx_deliver launches)")
-    print_campaign(27, "fleet", out["fleet"])
+    out = {"fleet": baseline_fleet(rx_account, device, 27)}
     want = committed("campaign_tournament.json")
     camp = want["campaign"]
     cfg = campaign.CampaignConfig(
@@ -2701,6 +2750,160 @@ def phase_profile(rx_account, device, card: str) -> dict:
                                                    "packed_fleets")}}
 
 
+def shard_meshes(device) -> dict:
+    """Phase 34's layouts: none, a one-device fleet mesh, four shards on
+    this card, and, where the machine shows more than one card, its first
+    ``min(count, 4)`` cards."""
+    import torch
+    from rapid_tpu_torch.engine import sharding
+
+    meshes = {"unsplit": None,
+              "mesh1": sharding.fleet_axis_mesh(devices=[device]),
+              f"{SHARD_WAYS}x1card": sharding.fleet_axis_mesh(
+                  devices=[device] * SHARD_WAYS)}
+    count = torch.cuda.device_count()
+    if count > 1:
+        k = min(count, SHARD_WAYS)
+        meshes[f"{k}cards"] = sharding.fleet_axis_mesh(k)
+    else:
+        log("phase 34: one card visible: the fleet split over several "
+            "cards is skipped")
+    return meshes
+
+
+def same_leaves(a, b) -> bool:
+    """Every tensor leaf of two output trees equal, shape and bits."""
+    import torch
+    from torch.utils import _pytree
+
+    xs, ys = _pytree.tree_leaves(a), _pytree.tree_leaves(b)
+    return len(xs) == len(ys) and all(
+        torch.equal(x, y) for x, y in zip(xs, ys) if torch.is_tensor(x))
+
+
+def phase_sharding(rx_account, device) -> dict:
+    """Phase 34: ``engine.sharding`` on the card. (a) Phase 17's four
+    pools (pools 2 and 3 on the dense carry, as phase 21), each lowered
+    once and run unsplit (equal to the golden file for every member), on
+    a one-device fleet mesh and split four ways on this card (each equal
+    to the unsplit run in every leaf, so to the golden file); each
+    layout's profiled window runs before its first timed run, which is
+    warm, and the unsplit run and the one-device mesh are timed in turns
+    (``SHARD_TURNS``); (b) phase 7 on a one-device slot mesh; (c)
+    ``--fleet-shard 1`` at
+    ``baseline.json``'s fleet entry; (d) the refusals."""
+    import torch
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import sharding, simulate
+
+    out = {"pools": {}}
+    meshes = shard_meshes(device)
+    for pool_id, pool in sorted(golden.FLEET_POOLS.items()):
+        rx_kernel = "xla" if pool_id in (2, 3) else "pallas"
+        want = golden.load(pool.path)
+        members = golden.pool_inputs(want)
+        start = time.perf_counter()
+        stacked = golden.lower_pool(pool, members, device=device,
+                                    rx_kernel=rx_kernel)
+        setup = time.perf_counter() - start
+        rows = out["pools"][pool_id] = {}
+        unsplit = None
+        for name in SHARD_TURNS + tuple(m for m in meshes
+                                        if m not in SHARD_TURNS):
+            mesh = meshes[name]
+            if name not in rows:
+                prof = fleet_profile(pool, members, device, rx_kernel,
+                                     fleet_mesh=mesh, stacked=stacked)
+            res, stats = fleet_run(pool, members, device, rx_kernel=rx_kernel,
+                                   fleet_mesh=mesh, stacked=stacked)
+            shards = 1 if mesh is None else len(mesh.devices)
+            want_launches = (6 * stats["ticks"] * shards
+                             if pool.mode == "per_receiver" else 0)
+            if (stats["deliver_launches"], stats["account_launches"]) != \
+                    (want_launches, 0):
+                raise AssertionError(
+                    f"phase 34 pool {pool_id} {name} launched (rx_deliver, "
+                    f"rx_account) {(stats['deliver_launches'], stats['account_launches'])}"
+                    f", want {(want_launches, 0)}")
+            if unsplit is None:
+                diff_ = golden.differences(
+                    golden.fleet_run_record(pool, members, res), want)
+                if diff_:
+                    raise AssertionError(f"phase 34 pool {pool_id} {name} "
+                                         f"differs from its golden file in "
+                                         f"{diff_[:8]}")
+                unsplit = res
+            elif not same_leaves(res, unsplit):
+                raise AssertionError(f"phase 34 pool {pool_id} {name} differs "
+                                     f"from the unsplit run")
+            del res
+            if name in rows:
+                rows[name]["ms_per_tick_turns"].append(stats["ms_per_tick"])
+                continue
+            stats.update(profile=prof, shards=shards, setup_s=setup,
+                         ms_per_tick_turns=[stats["ms_per_tick"]])
+            rows[name] = stats
+        for st in rows.values():
+            turns = st["ms_per_tick_turns"]
+            st["ms_per_tick"] = sum(turns) / len(turns)
+            st["ms_per_member_tick"] = st["ms_per_tick"] / st["f"]
+        base = rows["unsplit"]
+        for name, st in rows.items():
+            prof = st["profile"]
+            turns = ", ".join(f"{t:.3f}" for t in st["ms_per_tick_turns"])
+            log(f"phase 34: pool {pool_id} ({pool.mode}, {rx_kernel}) "
+                f"F={st['f']} {name} ({st['shards']} shard(s)) equals its "
+                f"golden file: {st['ms_per_tick']:.3f} ms/tick (runs "
+                f"{turns}; {st['ms_per_tick'] / base['ms_per_tick']:.2f}x "
+                f"unsplit), "
+                f"{st['ms_per_member_tick'] * 1e3:.2f} us/member-tick, "
+                f"{st['host_reads_per_tick']:.3f} host reads/tick, "
+                f"{prof['device_kernels_per_tick']:.1f} kernels/tick and "
+                f"{prof['device_busy_ms_per_tick']:.3f} ms/tick device-busy "
+                f"over ticks 1-{FLEET_PROFILE_TICKS} (unsplit "
+                f"{base['profile']['device_kernels_per_tick']:.1f}), peak "
+                f"{st['run_peak_bytes'] / 2**20:.1f} MiB above the run's "
+                f"start, {st['deliver_launches']} rx_deliver launches")
+        del stacked, unsplit
+    # (b) the shared engine's main path on a one-device slot mesh.
+    out["slot_mesh1"] = phase_shared("shared_n100k_crash", 34, device,
+                                     rx_account, mesh=sharding.slot_mesh(
+                                         devices=[device]))
+    out["slot_mesh1"].pop("log")
+    # (c) the campaign with --fleet-shard 1.
+    out["fleet_shard1"] = baseline_fleet(rx_account, device, 34,
+                                         fleet_shard=1)
+    # (d) the refusals.
+    too_many = torch.cuda.device_count() + 1
+    try:
+        sharding.fleet_axis_mesh(too_many)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError(f"fleet_axis_mesh({too_many}) did not raise")
+    two = sharding.slot_mesh(devices=[device, device])
+    x = torch.zeros(4, device=device)
+    for what, call in (("shard_put", lambda: sharding.shard_put(x, two)),
+                       ("simulate", lambda: simulate(x, x, 1, None,
+                                                     mesh=two))):
+        try:
+            call()
+        except NotImplementedError as exc:
+            if "slot axis across cards" not in str(exc):
+                raise AssertionError(f"phase 34: {what} refused a slot mesh "
+                                     f"of 2 without naming the item: {exc}")
+        else:
+            raise AssertionError(f"phase 34: {what} ran a slot mesh of 2")
+    log(f"phase 34: refusals hold: fleet_axis_mesh({too_many}) raised "
+        f"ValueError ({refused}); a slot mesh of 2 raised "
+        f"NotImplementedError in shard_put and simulate")
+    out["deliver_launches"] = {
+        f"pool{pid}": {name: st["deliver_launches"]
+                       for name, st in rows.items()}
+        for pid, rows in out["pools"].items()}
+    return out
+
+
 def group_referee(rx_account, device) -> dict:
     """Phases 23, 24 and 28-32, in a child process."""
     return {"referee_receiver": phase_referee_receiver(rx_account, device),
@@ -2725,8 +2928,9 @@ def group_campaign(rx_account, device) -> dict:
 #: Phase groups that run in child processes (``chip_smoke.py --group
 #: NAME``) beside phases 3-22 in this one, once the kernels are built and
 #: timed: the phases are bound by the host's dispatch and leave the card
-#: idle most of the time, so three processes share it.
-GROUPS = {"referee": group_referee, "campaign": group_campaign}
+#: idle most of the time, so five processes share it.
+GROUPS = {"referee": group_referee, "campaign": group_campaign,
+          "sharding": phase_sharding}
 CHILD_TIMEOUT_S = 1000
 
 
@@ -2892,6 +3096,7 @@ def main() -> int:
     referee_rx = groups["referee"]["referee_receiver"]
     referee_shared = groups["referee"]["referee_shared"]
     stream = groups["referee"]["stream"]
+    sharded = groups["sharding"]
     campaign_run = groups["campaign"]["campaign"]
     replays = groups["campaign"]["replay"]
     committed_runs = groups["campaign"]["committed"]
@@ -2938,6 +3143,7 @@ def main() -> int:
             k: v["deliver_launches"]
             for k, v in stream["checkpoints"].items()},
         "profile_launches": observatory["deliver_launches"],
+        "shard_launches": sharded["deliver_launches"],
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -2964,7 +3170,8 @@ def main() -> int:
                     "referee_shared": referee_shared,
                     "campaign": campaign_run, "replay": replays,
                     "committed": committed_runs, "stream": stream,
-                    "profile": observatory, "card": card}))
+                    "profile": observatory, "sharding": sharded,
+                    "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -48,8 +48,13 @@ How the reference's JAX-only parts map:
   ``torch.cuda.memory_allocated`` and ``max_memory_allocated``;
   ``device_peak_bytes`` is null on the CPU, and ``platform`` is "gpu" on
   the card, "cpu" otherwise.
-- *``fleet_shard``* raises ``engine.fleet``'s ``NotImplementedError``
-  (the sharding item of ``ROADMAP.md`` Queue 1).
+- *``fleet_shard``* builds ``engine.sharding.fleet_axis_mesh(D)`` of
+  the run's device type and splits every stacked dispatch over it
+  (``fleet_axis_put``): whole members on each device, advanced in turns
+  and joined in member order, so every non-wall field equals the
+  unsharded run's. On one card ``fleet_axis_mesh`` raises for D > 1; a
+  slot mesh of more than one device is the one sharding item left
+  (``ROADMAP.md`` Queue 1, the slot axis across cards).
 - *The recorder's host copy* is one copy of the dispatch's rings;
   triage slices exemplars out of it with ``recorder.member_recorder``.
 
@@ -189,8 +194,9 @@ class CampaignConfig:
     # fences each dispatch right after its launch. Every non-wall payload
     # field is the same either way.
     pipeline: bool = True
-    # A device mesh over the fleet axis: refused (the sharding item of
-    # ROADMAP.md Queue 1).
+    # Split the fleet axis of every dispatch over this many devices
+    # (engine.sharding.fleet_axis_mesh: whole members per device). None
+    # keeps single-device dispatch; every non-wall field is the same.
     fleet_shard: Optional[int] = None
     # Flight-recorder window W: > 0 carries a [W, G] gauge ring through
     # every member's run and embeds the rings of triage exemplars.
@@ -611,8 +617,8 @@ def run_campaign(cfg: CampaignConfig, *, trace_path: Optional[str] = None,
     from rapid_tpu_torch.engine import receiver as receiver_mod
     from rapid_tpu_torch.engine import recorder as recorder_mod
     from rapid_tpu_torch.engine import rx_packed
-    from rapid_tpu_torch.engine.fleet import (_require_no_mesh,
-                                              check_receiver_budget,
+    from rapid_tpu_torch.engine import sharding
+    from rapid_tpu_torch.engine.fleet import (check_receiver_budget,
                                               fleet_simulate,
                                               lower_receiver_schedule,
                                               member_of,
@@ -650,8 +656,8 @@ def run_campaign(cfg: CampaignConfig, *, trace_path: Optional[str] = None,
                 f"the reference protocol (use "
                 f"engine.diff.run_variant_differential for variant "
                 f"exactness)")
-    if cfg.fleet_shard:
-        _require_no_mesh(None, cfg.fleet_shard)
+    fleet_mesh = (sharding.fleet_axis_mesh(cfg.fleet_shard, device=dev)
+                  if cfg.fleet_shard else None)
 
     base = cfg.settings or Settings()
     if base.protocol_variant != cfg.protocol_variant:
@@ -792,6 +798,8 @@ def run_campaign(cfg: CampaignConfig, *, trace_path: Optional[str] = None,
                 fleet = stack_receiver_members(
                     [lowered[i] for i in padded],
                     n_windows=shape[0], n_delay_rules=shape[1])
+            if fleet_mesh is not None:
+                fleet = sharding.fleet_axis_put(fleet, fleet_mesh, fsize)
         stack_s = time.perf_counter() - t0
         # The lowered members are only inputs to the stack.
         for i in chunk:
@@ -1354,8 +1362,10 @@ def main(argv=None) -> int:
                              "next (same payload in every non-wall field)")
     parser.add_argument("--fleet-shard", type=int, default=None,
                         metavar="D",
-                        help="shard each dispatch's fleet axis over D "
-                             "devices (not supported by the port)")
+                        help="split each dispatch's fleet axis over D "
+                             "devices of --device's type (whole members "
+                             "per device; the same payload but the "
+                             "walls)")
     parser.add_argument("--flight-recorder", type=int, default=0,
                         metavar="W",
                         help="flight-recorder window: carry a [W, G] "

@@ -10,8 +10,9 @@ planner ``plan_churn``), ``monitor``, ``cut``, ``votes``, ``invariants``
 shared engine's host-side events and counters), ``adversary`` (the host
 adversary engine, the per-receiver engine's referee),
 ``rx_account`` (the delivery kernels and their plain versions), ``receiver`` (the
-per-receiver step, boot, lowering and host extractors) and ``rx_packed``
-(the packed carry and its tick loop).
+per-receiver step, boot, lowering and host extractors), ``rx_packed``
+(the packed carry and its tick loop) and ``sharding`` (slot and fleet
+meshes).
 
 The shared engine's entry points are exported here::
 
@@ -42,6 +43,7 @@ from rapid_tpu_torch.engine.state import (
     link_faults, state_config_id)
 from rapid_tpu_torch.engine.invariants import (
     InvariantViolationError, check_run)
+from rapid_tpu_torch.engine.sharding import slot_mesh
 from rapid_tpu_torch.engine.step import simulate, simulate_chunk
 
 __all__ = ["ChurnEnvelopeError", "ChurnPlan", "ChurnSchedule",
@@ -50,5 +52,5 @@ __all__ = ["ChurnEnvelopeError", "ChurnPlan", "ChurnSchedule",
            "ViewEvent", "check_run", "crash_faults", "engine_events",
            "expand_counters", "expand_fallback_counters", "init_state",
            "link_faults", "plan_churn", "plan_fallback", "simulate",
-           "simulate_chunk", "state_config_id", "synthetic_churn_schedule",
-           "synthetic_contested_schedule"]
+           "simulate_chunk", "slot_mesh", "state_config_id",
+           "synthetic_churn_schedule", "synthetic_contested_schedule"]

@@ -31,8 +31,11 @@ write its JSONL artifact.
 
 ``boot_static_cluster`` wires every oracle ``MembershipService`` from one
 converged ``MembershipView`` instead of running N joins (O(N**3)
-messages), so a differential at N=256 runs in seconds. ``mesh=`` is
-refused, as ``step.require_scope`` refuses it.
+messages), so a differential at N=256 runs in seconds. ``mesh=`` (of
+``run_differential`` and ``run_variant_differential``) places the
+engine's state and faults on a one-device slot mesh
+(``sharding.shard_put``) and runs there; a larger one raises, as
+``step.require_scope`` does.
 
 The host-side extractors of the shared engine's stacked ``StepLog`` live
 here too: the event stream and the exact per-tick counts, from tensors
@@ -313,11 +316,12 @@ def _raise_divergence(report, artifact: Optional[str]) -> None:
 
 
 def _crash_runs(n: int, crash_ticks: Dict[int, int], n_ticks: int,
-                settings: Settings, dev):
+                settings: Settings, dev, mesh=None):
     """A crash scenario through the oracle and the shared engine on
-    ``dev``: the oracle's counters, per-phase counters, events and final
-    config id (from the first never-crashed node), the engine's final
-    state and host logs, and each side's seconds."""
+    ``dev`` (on ``mesh``, a one-device slot mesh, when given): the
+    oracle's counters, per-phase counters, events and final config id
+    (from the first never-crashed node), the engine's final state and
+    host logs, and each side's seconds."""
     endpoints = default_endpoints(n)
     node_ids = default_node_ids(n)
 
@@ -336,7 +340,7 @@ def _crash_runs(n: int, crash_ticks: Dict[int, int], n_ticks: int,
     uids = [uid_of(e) for e in endpoints]
     final, logs = _run_shared(
         settings, dev, uids, view._id_fp_sum,
-        [crash_ticks.get(s) for s in range(n)], n_ticks)
+        [crash_ticks.get(s) for s in range(n)], n_ticks, mesh=mesh)
     return SimpleNamespace(
         oracle_counts=oracle_counts,
         oracle_phase=[dict(d) for d in network.consensus_history],
@@ -348,11 +352,13 @@ def _crash_runs(n: int, crash_ticks: Dict[int, int], n_ticks: int,
 
 def _run_shared(settings: Settings, dev, uids, id_fp_sum: int,
                 crash_ticks: Sequence, n_ticks: int, *, member=None,
-                id_fps=None, churn=None, fallback=None):
+                id_fps=None, churn=None, fallback=None, mesh=None):
     """Boot and run the shared engine on ``dev``; returns the final state
     and the logs, read to the host in one transfer. ``churn`` and
-    ``fallback`` are host schedules (or a ``ChurnPlan``)."""
+    ``fallback`` are host schedules (or a ``ChurnPlan``); ``mesh`` a
+    one-device slot mesh the state and faults are placed on."""
     from rapid_tpu_torch.convert import from_reference
+    from rapid_tpu_torch.engine import sharding
     from rapid_tpu_torch.engine.state import crash_faults, init_state
     from rapid_tpu_torch.engine.step import simulate
     from rapid_tpu_torch.telemetry.metrics import host_log
@@ -360,12 +366,16 @@ def _run_shared(settings: Settings, dev, uids, id_fp_sum: int,
     state = init_state(uids, id_fp_sum, settings, member=member,
                        id_fps=id_fps, device=dev)
     faults = crash_faults(crash_ticks, device=dev)
+    if mesh is not None:
+        capacity = int(state.member.shape[0])
+        state = sharding.shard_put(state, mesh, capacity)
+        faults = sharding.shard_put(faults, mesh, capacity)
     if churn is not None:
         churn = from_reference(churn, dev)
     if fallback is not None:
         fallback = from_reference(fallback, dev)
     final, logs = simulate(state, faults, n_ticks, settings, churn=churn,
-                           fallback=fallback, device=dev)
+                           fallback=fallback, mesh=mesh, device=dev)
     return final, host_log(logs, logs._fields)
 
 
@@ -428,14 +438,15 @@ def run_differential(
 
     ``crash_ticks`` maps slot index -> crash tick. Call
     ``result.assert_identical()`` for the bit-identical checks. ``mesh``
-    is refused (``step.require_scope``).
+    is a one-device slot mesh the engine runs on (a larger one raises,
+    ``step.require_scope``).
     """
     from rapid_tpu_torch.engine.state import state_config_id
     from rapid_tpu_torch.engine.step import require_scope
 
     require_scope(mesh)
     run = _crash_runs(n, crash_ticks, n_ticks, settings or Settings(),
-                      resolve_device(device))
+                      resolve_device(device), mesh)
     logs, oracle_counts = run.logs, run.oracle_counts
 
     from rapid_tpu_torch.telemetry import metrics as telemetry_metrics
@@ -761,7 +772,7 @@ def run_variant_differential(
     from rapid_tpu_torch.engine.state import state_config_id
     from rapid_tpu_torch.telemetry import metrics as telemetry_metrics
 
-    run = _crash_runs(n, crash_ticks, n_ticks, settings, dev)
+    run = _crash_runs(n, crash_ticks, n_ticks, settings, dev, mesh)
     o_tick, _ = variants_oracle.variant_oracle_counters(
         variant, n, dict(crash_ticks), run.events_oracle, run.oracle_counts,
         run.oracle_phase, uids, contested=False)

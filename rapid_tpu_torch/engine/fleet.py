@@ -33,8 +33,14 @@ capacity above ``Settings.receiver_capacity_cap`` with a
 Not here: ``enable_compile_cache``, ``fleet_aot_compile`` and
 ``receiver_fleet_aot_compile`` exist to persist and time XLA
 executables; the port compiles nothing ahead of time (its kernels are
-built once by ``rx_account.build``). A device mesh (``mesh``,
-``fleet_mesh``) is the sharding item of ``ROADMAP.md`` Queue 1.
+built once by ``rx_account.build``).
+
+Meshes (``engine.sharding``): ``fleet_mesh`` splits the member axis over
+its devices, whole members on each (``fleet_axis_put``); the fleet loops
+advance the shards in turns and join the outputs in member order on the
+mesh's first device, equal to the unsplit run. ``mesh`` is a slot mesh
+of one device; a larger one is the slot axis across cards, the sharding
+item of ``ROADMAP.md`` Queue 1, and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from torch.utils import _pytree
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import resolve_device
 from rapid_tpu_torch.engine import churn as churn_mod
-from rapid_tpu_torch.engine import paxos
+from rapid_tpu_torch.engine import paxos, sharding
 from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, EngineState, ReceiverState, init_state,
     is_limb_field, link_faults, pad_delay_rules, pad_link_windows)
@@ -92,14 +98,6 @@ def clear_boot_caches() -> None:
     """Drop the cached boots."""
     _BOOT_CACHE.clear()
     _RX_BOOT_CACHE.clear()
-
-
-def _require_no_mesh(mesh, fleet_mesh) -> None:
-    if mesh is not None or fleet_mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (mesh or fleet_mesh): sharding is the "
-            "ROADMAP.md Queue 1 sharding item; the port's fleets run on "
-            "one device")
 
 
 def _to_device(host, device):
@@ -301,9 +299,34 @@ def stack_members(members: Sequence[FleetMember], *,
 
 def _placed_on(tree, dev: torch.device) -> None:
     for leaf in _pytree.tree_leaves(tree):
-        if torch.is_tensor(leaf) and leaf.device.type != dev.type:
+        if torch.is_tensor(leaf) and leaf.device != dev:
             raise ValueError(f"a fleet leaf lives on {leaf.device}, the "
                              f"run was asked for {dev}")
+
+
+def _shards(fleet, mesh, fleet_mesh, device) -> sharding.FleetShards:
+    """``fleet`` (stacked, or ``sharding.FleetShards``) as the shards the
+    run takes, each checked to lie on its device, index included.
+    Without a fleet mesh the whole fleet is one shard on ``device``, or
+    on the one-device slot mesh's device."""
+    sharding.require_one_layout(mesh, fleet_mesh)
+    dev = resolve_device(device)
+    home = sharding.require_slot_mesh(mesh)
+    if home is None:
+        home = sharding.pinned(dev)
+    shards = fleet if isinstance(fleet, sharding.FleetShards) else \
+        sharding.fleet_shards(fleet, fleet_mesh, _fleet_size(fleet), home)
+    for tree, where in zip(shards.shards, shards.devices):
+        if where.type != dev.type:
+            raise ValueError(f"a fleet shard is placed on {where}, the run "
+                             f"was asked for {dev}")
+        _placed_on(tree, where)
+    return shards
+
+
+def _fleet_size(fleet) -> int:
+    state = fleet.state
+    return int(getattr(state, "packed", state).member.shape[0])
 
 
 def fleet_simulate(fleet: FleetMember, n_ticks: int, settings: Settings,
@@ -312,14 +335,17 @@ def fleet_simulate(fleet: FleetMember, n_ticks: int, settings: Settings,
     ``device``; returns ``(finals, logs)`` with the member axis first on
     every leaf (logs ``[F, T, ...]``), and with
     ``settings.flight_recorder_window > 0`` ``(finals, logs, recorders)``
-    (``[F, W, G]`` rings, ``[F]`` stamps)."""
+    (``[F, W, G]`` rings, ``[F]`` stamps).
+
+    ``fleet_mesh`` (``sharding.fleet_axis_mesh`` of ``device``'s type)
+    splits the members over its devices; ``fleet`` may also be the
+    ``FleetShards`` that ``sharding.fleet_axis_put`` gave. The outputs
+    come back joined on the mesh's first device. ``mesh`` is a slot mesh
+    of one device, on which the fleet must lie."""
     from rapid_tpu_torch.engine import step
 
-    _require_no_mesh(mesh, fleet_mesh)
-    dev = resolve_device(device)
-    _placed_on(fleet, dev)
-    return step.fleet_body(fleet.state, fleet.faults, fleet.churn,
-                           fleet.fallback, int(n_ticks), settings)
+    return step.run_fleet_shards(_shards(fleet, mesh, fleet_mesh, device),
+                                 int(n_ticks), settings)
 
 
 def member_of(tree, i: int):
@@ -583,11 +609,9 @@ def receiver_fleet_simulate(fleet: ReceiverMember, n_ticks: int,
     ``(finals, logs)`` with the member axis first, the finals in the
     carry's layout (``receiver.receiver_final_view`` reads either), and
     with ``settings.flight_recorder_window > 0`` ``(finals, logs,
-    recorders)``."""
+    recorders)``. ``fleet_mesh`` splits the members over its devices, as
+    in ``fleet_simulate``; ``fleet`` may be ``sharding.FleetShards``."""
     from rapid_tpu_torch.engine import receiver
 
-    _require_no_mesh(None, fleet_mesh)
-    dev = resolve_device(device)
-    _placed_on(fleet, dev)
-    return receiver.receiver_fleet_simulate(fleet.state, fleet.faults,
-                                            int(n_ticks), settings)
+    return receiver.receiver_fleet_run(
+        _shards(fleet, None, fleet_mesh, device), int(n_ticks), settings)

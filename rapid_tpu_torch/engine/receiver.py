@@ -1021,20 +1021,36 @@ def receiver_simulate_chunk(carry, faults: EngineFaults, n_ticks: int,
 
 
 def receiver_fleet_simulate(fleet_state, faults: EngineFaults,
-                            n_ticks: int, settings: Settings):
+                            n_ticks: int, settings: Settings,
+                            fleet_mesh=None):
     """Run a stacked per-receiver fleet (states and ``EngineFaults`` with
     the member axis first) ``n_ticks`` ticks: ``(finals, logs)``, the
     logs ``[F, T, ...]``, and with ``settings.flight_recorder_window > 0``
     ``(finals, logs, recorders)``. Under ``rx_kernel="xla"`` the fleet is
     a stacked dense ``ReceiverState`` and the finals come back dense;
     under "packed" and "pallas" a stacked ``PackedReceiverBundle`` and
-    the finals come back packed (``receiver_final_view`` reads either)."""
+    the finals come back packed (``receiver_final_view`` reads either).
+    ``fleet_mesh`` splits the members over its devices
+    (``sharding.fleet_axis_put``); the outputs come back joined on its
+    first device."""
+    from rapid_tpu_torch.engine import sharding
+
+    ps = getattr(fleet_state, "packed", fleet_state)
+    return receiver_fleet_run(sharding.fleet_shards(
+        (fleet_state, faults), fleet_mesh, int(ps.member.shape[0]),
+        ps.member.device), n_ticks, settings)
+
+
+def receiver_fleet_run(shards, n_ticks: int, settings: Settings):
+    """``receiver_fleet_simulate`` over ``sharding.FleetShards`` of
+    ``(state, faults)`` pairs (a ``fleet.ReceiverMember`` is one)."""
     from rapid_tpu_torch.engine import recorder, rx_packed
 
-    _require_layout(fleet_state, settings, fleet=True)
-    run = (rx_packed.dense_fleet_simulate if settings.rx_kernel == "xla"
-           else rx_packed.fleet_simulate)
-    finals, logs = run(fleet_state, faults, n_ticks, settings)
+    for state, _ in shards.shards:
+        _require_layout(state, settings, fleet=True)
+    run = (rx_packed.dense_fleet_run if settings.rx_kernel == "xla"
+           else rx_packed.fleet_run)
+    finals, logs = run(shards, n_ticks, settings)
     if settings.flight_recorder_window:
         return finals, logs, recorder.record_fleet_run(
             logs, settings, recorder.record_receiver_run)

@@ -243,49 +243,100 @@ def bundle_state_bytes(capacity: int, settings: Settings) -> int:
     return fleet._state_bytes(capacity, settings)[1]
 
 
-def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings):
+def _start_tick(shards) -> int:
+    """The members' common start tick, each shard's read once."""
+    from rapid_tpu_torch.device import read_arrays
+    from rapid_tpu_torch.engine import sharding
+
+    ticks = set()
+    for dev, (state, _) in zip(shards.devices, shards.shards):
+        with sharding.device_context(dev):
+            ticks |= set(read_arrays(getattr(state, "packed",
+                                             state).tick)[0].tolist())
+    if len(ticks) != 1:
+        raise ValueError("fleet members must start at one tick")
+    return ticks.pop()
+
+
+def _joined(shards, finals, logs):
+    """Each shard's finals and ``[F, T, ...]`` logs joined in member
+    order on the first shard's device."""
+    from rapid_tpu_torch.engine import sharding
+
+    home = shards.devices[0]
+    return (sharding.join(finals, home),
+            sharding.join([ReceiverStepLog(*[torch.stack(col, dim=1)
+                                             for col in zip(*lg)])
+                           for lg in logs], home))
+
+
+def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings,
+                   fleet_mesh=None):
     """The tick loop of a stacked fleet (member axis first on every
     leaf): unpack, ``receiver.fleet_step``, repack, once per tick, each
     map batched over the members. Returns the packed finals and the
-    logs, member-major ``[F, T, ...]``."""
-    from rapid_tpu_torch.device import read_arrays
+    logs, member-major ``[F, T, ...]``. ``fleet_mesh`` splits the
+    members over its devices (``fleet_run``)."""
+    from rapid_tpu_torch.engine import sharding
+
+    ps = bundle.packed
+    return fleet_run(sharding.fleet_shards(
+        (bundle, faults), fleet_mesh, int(ps.member.shape[0]),
+        ps.member.device), n_ticks, settings)
+
+
+def fleet_run(shards, n_ticks: int, settings: Settings):
+    """``fleet_simulate`` over ``sharding.FleetShards`` of ``(bundle,
+    faults)``: every shard one tick before the next tick, each under its
+    device's context (``sharding.run_shards``), the outputs joined."""
     from rapid_tpu_torch.engine import receiver as receiver_mod
+    from rapid_tpu_torch.engine import sharding
     from rapid_tpu_torch.engine.state import member_map
 
-    ps, delay_table = bundle.packed, bundle.delay_table
-    ticks = read_arrays(ps.tick)[0]
-    if len(set(ticks.tolist())) != 1:
-        raise ValueError("fleet members must start at one tick")
-    t0 = int(ticks[0])
-    logs = []
-    for i in range(int(n_ticks)):
+    t0 = _start_tick(shards)
+
+    def tick(k, ps, i):
+        bundle, faults = shards.shards[k]
         rs = member_map(lambda p, d: unpack_receiver_state(p, d, settings),
-                        ps, delay_table)
+                        ps, bundle.delay_table)
         nxt, log = receiver_mod.fleet_step(rs, faults, settings, t0 + i)
-        ps = member_map(lambda r: pack_receiver_state(r, settings), nxt)
-        logs.append(log)
-    return ps, ReceiverStepLog(*[torch.stack(col, dim=1)
-                                 for col in zip(*logs)])
+        return member_map(lambda r: pack_receiver_state(r, settings),
+                          nxt), log
+
+    finals, logs = sharding.run_shards(
+        shards.devices, [b.packed for b, _ in shards.shards], n_ticks, tick)
+    return _joined(shards, finals, logs)
 
 
-def dense_fleet_simulate(rs, faults, n_ticks: int, settings: Settings):
+def dense_fleet_simulate(rs, faults, n_ticks: int, settings: Settings,
+                         fleet_mesh=None):
     """The tick loop of a stacked fleet on the dense carry (member axis
     first on every leaf): ``receiver.fleet_step`` on the stacked
     ``ReceiverState`` once per tick. Returns the dense finals and the
-    logs, member-major ``[F, T, ...]``."""
-    from rapid_tpu_torch.device import read_arrays
-    from rapid_tpu_torch.engine import receiver as receiver_mod
+    logs, member-major ``[F, T, ...]``. ``fleet_mesh`` splits the members
+    over its devices (``dense_fleet_run``)."""
+    from rapid_tpu_torch.engine import sharding
 
-    ticks = read_arrays(rs.tick)[0]
-    if len(set(ticks.tolist())) != 1:
-        raise ValueError("fleet members must start at one tick")
-    t0 = int(ticks[0])
-    logs = []
-    for i in range(int(n_ticks)):
-        rs, log = receiver_mod.fleet_step(rs, faults, settings, t0 + i)
-        logs.append(log)
-    return rs, ReceiverStepLog(*[torch.stack(col, dim=1)
-                                 for col in zip(*logs)])
+    return dense_fleet_run(sharding.fleet_shards(
+        (rs, faults), fleet_mesh, int(rs.member.shape[0]),
+        rs.member.device), n_ticks, settings)
+
+
+def dense_fleet_run(shards, n_ticks: int, settings: Settings):
+    """``dense_fleet_simulate`` over ``sharding.FleetShards`` of
+    ``(state, faults)``, advanced in turns as ``fleet_run`` does."""
+    from rapid_tpu_torch.engine import receiver as receiver_mod
+    from rapid_tpu_torch.engine import sharding
+
+    t0 = _start_tick(shards)
+
+    def tick(k, rs, i):
+        return receiver_mod.fleet_step(rs, shards.shards[k][1], settings,
+                                       t0 + i)
+
+    finals, logs = sharding.run_shards(
+        shards.devices, [rs for rs, _ in shards.shards], n_ticks, tick)
+    return _joined(shards, finals, logs)
 
 
 def simulate_chunk(bundle, faults, n_ticks: int, settings: Settings,

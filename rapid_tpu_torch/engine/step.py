@@ -56,9 +56,10 @@ hashed once on a tick that needs them); each branch runs only under its
 variant. With
 ``invariant_checks`` every tick packs ``invariants.check_step`` into
 ``inv_bits`` (else the constant 0); with ``flight_recorder_window > 0``
-``simulate`` also returns the run's ``recorder.RecorderState``. A device
-mesh raises ``NotImplementedError`` (the sharding item of ``ROADMAP.md``
-Queue 1).
+``simulate`` also returns the run's ``recorder.RecorderState``. A slot
+mesh of one device (``sharding.slot_mesh``) runs on that device; a larger
+one raises ``NotImplementedError`` (the slot axis across cards, the
+sharding item of ``ROADMAP.md`` Queue 1).
 
 ``fleet_body`` runs a stacked fleet (``engine.fleet``): F members, the
 member axis first on every tensor, through one host loop. ``_FleetHost``
@@ -68,7 +69,12 @@ member needs it, as one batched call (``state.member_map``) or the plain
 op where it broadcasts, and its result is kept where a ``[F]`` mask says
 the member's own ``_step`` would have run it. Each read returns a
 ``[F]`` vector in one transfer, so host reads and launches per tick do
-not grow with F.
+not grow with F. Under a fleet mesh of D devices (``sharding.
+fleet_axis_mesh``) the loop keeps one ``_FleetHost`` per shard and
+advances the shards in turns (``sharding.run_shards``): each shard
+decides its branches from its own members, which is exact because every
+phase is a value identity for a member that does not need it; host
+reads per tick grow with D.
 """
 from __future__ import annotations
 
@@ -81,7 +87,7 @@ from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import read_arrays, read_host, resolve_device
 from rapid_tpu_torch.engine import churn as churn_mod
 from rapid_tpu_torch.engine import (cut, invariants, monitor, paxos,
-                                    recorder, votes)
+                                    recorder, sharding, votes)
 from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs, member_map)
 from rapid_tpu_torch.engine.topology import build_topology
@@ -94,12 +100,11 @@ PX_COUNTS = ("pxvote_senders", "pxvote_recipients", "px1a_senders",
              "px2a_recipients", "px2b_senders", "px2b_recipients")
 
 
-def require_scope(mesh=None) -> None:
-    """Refuse what the shared engine's port does not run yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh: sharding is the ROADMAP.md Queue 1 sharding "
-            "item; the shared engine's port does not run it yet")
+def require_scope(mesh=None) -> Optional[torch.device]:
+    """The device of a one-device slot mesh, None without one; a larger
+    slot mesh raises ``NotImplementedError`` (``sharding.
+    require_slot_mesh``)."""
+    return sharding.require_slot_mesh(mesh)
 
 
 class _Host:
@@ -525,7 +530,7 @@ def _simulate(state, faults, n_ticks: int, settings: Settings, churn,
               fallback, mesh, device, rec):
     """``simulate``, folding the logs into the recorder ``rec`` when one
     is given (``simulate_chunk``) and into a fresh one otherwise."""
-    require_scope(mesh)
+    on_mesh = require_scope(mesh)
     dev = resolve_device(device)
     placed = [("state", state.member.device),
               ("faults", faults.crash_tick.device)]
@@ -537,6 +542,10 @@ def _simulate(state, faults, n_ticks: int, settings: Settings, churn,
         if where.type != dev.type:
             raise ValueError(f"{name} lives on {where}, the run was asked "
                              f"for {dev}")
+        if on_mesh is not None and where != on_mesh:
+            raise ValueError(f"{name} lives on {where}, the slot mesh's "
+                             f"device is {on_mesh} (sharding.shard_put "
+                             f"places it)")
     host = _Host(state, churn, fallback)
     logs = []
     for _ in range(int(n_ticks)):
@@ -1003,21 +1012,51 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
 
 
 def fleet_body(state: EngineState, faults: EngineFaults, churn, fallback,
-               n_ticks: int, settings: Settings):
+               n_ticks: int, settings: Settings, mesh=None, fleet_mesh=None):
     """Run a stacked fleet ``n_ticks`` ticks: one host loop, one set of
     launches a tick for all F members. Every leaf of the inputs carries
     the member axis first; ``churn`` and ``fallback`` are required (inert
     schedules stand in for none, as the reference's fleets have them).
     Returns ``(finals, logs)`` with logs member-major ``[F, T, ...]``,
     and with ``settings.flight_recorder_window > 0`` ``(finals, logs,
-    recorders)`` with ``[F, W, G]`` rings."""
-    host = _FleetHost(state, churn, fallback)
-    logs = []
-    for _ in range(int(n_ticks)):
-        state, log = _fleet_step(state, faults, settings, host, churn,
-                                 fallback)
-        logs.append(log)
-    logs = StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
+    recorders)`` with ``[F, W, G]`` rings.
+
+    ``mesh`` is a one-device slot mesh (a larger one raises);
+    ``fleet_mesh`` splits the members over its devices
+    (``sharding.fleet_axis_put``) and the outputs come back joined in
+    member order on its first device. The two are mutually exclusive."""
+    sharding.require_one_layout(mesh, fleet_mesh)
+    return run_fleet_shards(sharding.fleet_shards(
+        (state, faults, churn, fallback), fleet_mesh, state.member.shape[0],
+        state.member.device), n_ticks, settings)
+
+
+def run_fleet_shards(parts: "sharding.FleetShards", n_ticks: int,
+                     settings: Settings):
+    """``fleet_body`` over ``FleetShards`` of ``(state, faults, churn,
+    fallback)`` (a ``fleet.FleetMember`` is one): one ``_FleetHost`` per
+    shard, the shards advanced in turns, each under its device's
+    context, and the finals and logs joined in member order on the first
+    shard's device."""
+    hosts = []
+    for dev, (state, _, churn, fallback) in zip(parts.devices, parts.shards):
+        with sharding.device_context(dev):
+            hosts.append(_FleetHost(state, churn, fallback))
+    if len({h.tick for h in hosts}) != 1:
+        raise ValueError("fleet members must start at one tick")
+
+    def tick(k, state, _):
+        _, faults, churn, fallback = parts.shards[k]
+        return _fleet_step(state, faults, settings, hosts[k], churn,
+                           fallback)
+
+    finals, shard_logs = sharding.run_shards(
+        parts.devices, [p[0] for p in parts.shards], n_ticks, tick)
+    home = parts.devices[0]
+    state = sharding.join(finals, home)
+    logs = sharding.join(
+        [StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
+         for logs in shard_logs], home)
     if settings.flight_recorder_window:
         return state, logs, recorder.record_fleet_run(logs, settings,
                                                       recorder.record_run)

@@ -554,17 +554,18 @@ def lower_pool(pool: FleetPool, members: List[dict], device="cuda",
 
 
 def run_pool(pool: FleetPool, members: List[dict], device="cuda",
-             rx_kernel: str = "pallas"):
+             rx_kernel: str = "pallas", fleet_mesh=None):
     """Lower, stack and run a pool's members for the campaign's ticks on
-    ``device``; returns the fleet's outputs (``fleet_simulate`` or
-    ``receiver_fleet_simulate``)."""
+    ``device``, split over ``fleet_mesh`` when given; returns the fleet's
+    outputs (``fleet_simulate`` or ``receiver_fleet_simulate``)."""
     from rapid_tpu_torch.engine import fleet
 
     stacked = lower_pool(pool, members, device=device, rx_kernel=rx_kernel)
     run = (fleet.fleet_simulate if pool.mode == "shared"
            else fleet.receiver_fleet_simulate)
     return run(stacked, FLEET_CAMPAIGN["ticks"],
-               pool_settings(pool, rx_kernel), device=device)
+               pool_settings(pool, rx_kernel), fleet_mesh=fleet_mesh,
+               device=device)
 
 
 def _digest(arrays) -> str:

@@ -151,7 +151,8 @@ def kernel_cases(state, faults, settings, fallback=None,
     tick where its host knows the phase does nothing, so the sub-kernels
     can add up to more than ``full_step``. ``fallback`` is a
     ``paxos.FallbackSchedule`` of tensors on the state's device; its
-    instance must be live at the state's epoch. A ``mesh`` raises
+    instance must be live at the state's epoch. ``mesh`` may be a slot
+    mesh of one device, on which the state lies; a larger one raises
     ``NotImplementedError``, as the step does.
     """
     from rapid_tpu_torch.engine import cut, monitor, paxos, step, votes
@@ -190,7 +191,8 @@ def kernel_cases(state, faults, settings, fallback=None,
     ]
     if fallback is None:
         def full_step(state, faults):
-            return step.step(state, faults, settings, tick=t_now)
+            return step.step(state, faults, settings, mesh=mesh,
+                             tick=t_now)
 
         return cases + [("full_step", full_step, (state, faults))]
 
@@ -212,7 +214,8 @@ def kernel_cases(state, faults, settings, fallback=None,
         return paxos.task_phase(state, sched, e, t, n, True, True)
 
     def full_step(state, faults, sched):
-        return step.step(state, faults, settings, None, sched, tick=t_now)
+        return step.step(state, faults, settings, None, sched, mesh,
+                         tick=t_now)
 
     return cases + [
         ("paxos_chain_deliver", paxos_chain_deliver, (state, fallback)),
@@ -415,16 +418,19 @@ def multichip_comparison(sizes: Sequence[int], settings,
                          n_devices: int = 8, repeats: int = 5,
                          seed: int = 0,
                          warmup_ticks: int = 8) -> Optional[Dict[str, object]]:
-    """The sharded-vs-single-device block: ``None`` when the process sees
-    fewer than ``n_devices`` CUDA devices, as the reference answers with
-    too few devices (the payload records the absence). With enough
-    devices it raises ``NotImplementedError``: the port does not shard
-    (ROADMAP.md Queue 1, the sharding item)."""
+    """The sharded-vs-single-device block, a slot-axis comparison:
+    ``None`` when the process sees fewer than ``n_devices`` CUDA devices,
+    as the reference answers with too few devices (the payload records
+    the absence). With enough devices it raises ``NotImplementedError``:
+    a slot mesh of more than one device is the slot axis across cards
+    (the ROADMAP.md Queue 1 sharding item); a one-device slot mesh and
+    fleet meshes run."""
     if torch.cuda.device_count() < n_devices:
         return None
     raise NotImplementedError(
-        f"a {n_devices}-device mesh: sharding is the ROADMAP.md Queue 1 "
-        f"sharding item; the port runs on one device")
+        f"a {n_devices}-device slot mesh: the slot axis across cards (the "
+        f"ROADMAP.md Queue 1 sharding item) is not ported; the port runs "
+        f"a one-device slot mesh and fleet meshes")
 
 
 def receiver_fleet_ticks(settings, n: int = 64,

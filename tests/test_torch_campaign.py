@@ -230,11 +230,31 @@ def test_tournament_and_variant_refusals_match_the_reference():
         assert str(got.value) == str(want.value)
 
 
-def test_fleet_shard_is_refused():
+def test_fleet_shard_is_refused(monkeypatch):
+    """``fleet_shard`` beyond the visible cards is refused with their
+    count before anything is sampled or placed."""
     _, port_cfg = configs(CONFIGS["tiny"])
-    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="need 2 devices for the fleet "
+                                         "mesh, have 1"):
         campaign.run_campaign(dataclasses.replace(port_cfg, fleet_shard=2),
-                              device="cpu")
+                              device="cuda")
+
+
+@pytest.mark.parametrize("fleet_shard", [1, 2])
+def test_fleet_shard_equals_reference(fleet_shard):
+    """STRADDLE with each dispatch split over a fleet mesh of CPU entries
+    (both dispatch modes, one member a shard at 2): the payload equals
+    the reference's unsharded one on every non-wall field, as the
+    reference's ``fleet_shard`` promises."""
+    ref, _ = runs("straddle")
+    _, port_cfg = configs(CONFIGS["straddle"])
+    port = campaign.run_campaign(
+        dataclasses.replace(port_cfg, fleet_shard=fleet_shard), device="cpu")
+    assert same_json(golden.campaign_record(port),
+                     golden.campaign_record(ref)), golden.differences(
+        golden.campaign_record(port), golden.campaign_record(ref))
 
 
 def _broken(payload: dict, how: str) -> dict:

@@ -208,6 +208,28 @@ def test_dense_fleet_card_run_equals_cpu_run(card, pool_id):
         _same(a, b)
 
 
+@pytest.mark.parametrize("pool_id", [0, 3])
+def test_fleet_split_on_card_equals_unsplit(card, pool_id):
+    """Six members split two ways on one card (a fleet mesh that names
+    the card twice) equal the unsplit run; each shard launches its own
+    deliveries."""
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import sharding
+
+    pool = golden.FLEET_POOLS[pool_id]
+    members = golden.pool_inputs(golden.load(pool.path), 6)
+    whole = golden.run_pool(pool, members, device=card)
+    before = rx_account.deliver_launches
+    split = golden.run_pool(
+        pool, members, device=card,
+        fleet_mesh=sharding.fleet_axis_mesh(devices=[card, card]))
+    launches = rx_account.deliver_launches - before
+    ticks = golden.FLEET_CAMPAIGN["ticks"]
+    assert launches == (2 * 6 * ticks if pool.mode == "per_receiver" else 0)
+    for a, b in zip(split, whole):
+        _same(a, b)
+
+
 def test_telemetry_folds_card_logs_as_cpu_logs(card):
     from rapid_tpu_torch import golden
 

@@ -21,7 +21,7 @@ from rapid_tpu.settings import Settings as RefSettings
 
 from rapid_tpu_torch import device
 from rapid_tpu_torch.convert import from_reference, to_numpy
-from rapid_tpu_torch.engine import diff, step
+from rapid_tpu_torch.engine import diff, sharding, step
 from rapid_tpu_torch.engine.state import I32_MAX, init_state
 from rapid_tpu_torch.identity import default_identities
 from rapid_tpu_torch.settings import Settings
@@ -148,7 +148,7 @@ def test_step_reads_the_tick_when_not_given():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "sharding item"),
+    (dict(mesh=sharding.slot_mesh(2, device="cpu")), "sharding item"),
 ])
 def test_out_of_slice_options_are_refused(kw, item):
     uids, id_fp_sum = default_identities(8)

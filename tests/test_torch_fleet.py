@@ -29,7 +29,7 @@ from rapid_tpu.settings import Settings as RefSettings
 
 from rapid_tpu_torch import device, faults
 from rapid_tpu_torch.convert import to_numpy
-from rapid_tpu_torch.engine import churn, fleet, state, step
+from rapid_tpu_torch.engine import churn, fleet, sharding, state, step
 from rapid_tpu_torch.settings import Settings
 
 N, TICKS, C = 16, 120, 20
@@ -258,9 +258,12 @@ def test_refusals():
     with pytest.raises(ValueError, match="probe-drop"):
         fleet.stack_members([members[1], dropped])
     stacked = fleet.stack_members(members[:2])
-    for kw in ({"mesh": object()}, {"fleet_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
-            fleet.fleet_simulate(stacked, 4, settings, device="cpu", **kw)
+    two = sharding.slot_mesh(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
+        fleet.fleet_simulate(stacked, 4, settings, device="cpu", mesh=two)
+    with pytest.raises(ValueError, match="'fleet' axis"):
+        fleet.fleet_simulate(stacked, 4, settings, device="cpu",
+                             fleet_mesh=two)
 
 
 @pytest.mark.parametrize("entry", ["lower_schedule", "fleet_simulate",

@@ -25,7 +25,7 @@ from rapid_tpu.settings import Settings as RefSettings
 
 from rapid_tpu_torch import faults
 from rapid_tpu_torch.convert import from_reference, to_numpy
-from rapid_tpu_torch.engine import fleet, receiver, rx_account
+from rapid_tpu_torch.engine import fleet, receiver, rx_account, sharding
 from rapid_tpu_torch.settings import Settings
 
 N, TICKS = 16, 80
@@ -234,7 +234,8 @@ def test_receiver_refusals():
     with pytest.raises(ValueError, match="cannot shrink"):
         fleet.pad_delay_rules(members[3].faults, 0)
     stacked = fleet.stack_receiver_members(members[:2])
-    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
-        fleet.receiver_fleet_simulate(stacked, 4, SETTINGS,
-                                      fleet_mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="'fleet' axis"):
+        fleet.receiver_fleet_simulate(
+            stacked, 4, SETTINGS, fleet_mesh=sharding.slot_mesh(
+                2, device="cpu"), device="cpu")
     assert receiver.lower_receiver_schedule is fleet.lower_receiver_schedule

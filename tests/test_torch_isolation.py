@@ -37,6 +37,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "rapid_tpu_torch.engine.rx_account" in result["modules"]
     assert "rapid_tpu_torch.engine.step" in result["modules"]
     assert "rapid_tpu_torch.engine.churn" in result["modules"]
+    assert "rapid_tpu_torch.engine.sharding" in result["modules"]
     assert "rapid_tpu_torch.telemetry.metrics" in result["modules"]
     assert "rapid_tpu_torch.telemetry.lineage" in result["modules"]
     for name in ("events", "engine.adversary", "engine.diff",
@@ -55,7 +56,8 @@ def _entry_points():
     from rapid_tpu_torch import campaign, golden, replay, service
     from rapid_tpu_torch.service import __main__ as service_main
     from rapid_tpu_torch.convert import from_reference
-    from rapid_tpu_torch.engine import churn, diff, paxos, receiver, state, step
+    from rapid_tpu_torch.engine import (churn, diff, paxos, receiver,
+                                        sharding, state, step)
     from rapid_tpu_torch.faults import crash_window_delay_schedule
     from rapid_tpu_torch.identity import default_identities
     from rapid_tpu_torch.settings import Settings
@@ -120,6 +122,8 @@ def _entry_points():
         "telemetry.profile": lambda: profile.main(["--sizes", "64"]),
         "dominance_report": lambda: profile.dominance_report(
             [64], Settings()),
+        "slot_mesh": lambda: sharding.slot_mesh(1),
+        "fleet_axis_mesh": lambda: sharding.fleet_axis_mesh(1),
     }
 
 

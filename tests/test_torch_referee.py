@@ -32,7 +32,7 @@ from rapid_tpu.variants import hier as ref_hier
 from rapid_tpu.variants.oracle import VariantEnvelopeError as RefVariantError
 
 from rapid_tpu_torch import convert
-from rapid_tpu_torch.engine import diff
+from rapid_tpu_torch.engine import diff, sharding
 from rapid_tpu_torch.engine.churn import ChurnEnvelopeError
 from rapid_tpu_torch.engine.paxos import FallbackEnvelopeError
 from rapid_tpu_torch.oracle.cluster import default_rng
@@ -111,7 +111,8 @@ def test_divergence_names_tick_and_field_on_both(tmp_path):
 
 def test_mesh_is_refused():
     with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
-        diff.run_differential(8, {}, 4, mesh=object(), device="cpu")
+        diff.run_differential(8, {}, 4, device="cpu",
+                              mesh=sharding.slot_mesh(2, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
