@@ -5,14 +5,15 @@
 
 Phases; any failure, in this process or in a child, exits non-zero
 before the result lines. They run in this order: 1 and 2, the kernel
-times (below) and 16, on a card that is otherwise idle; then four child
+times (below) and 16, on a card that is otherwise idle; then five child
 processes start, phase 15 (``--planned``), phases 23, 24 and 28-32
-(``--group referee``), phases 25-27 (``--group campaign``) and phase 34
-(``--group sharding``), while this process runs 3-14 and 17-22; once
-every child has ended and its lines are relayed, 33 runs alone. Each
-phase is bound by the host's dispatch and leaves the card idle most of
-the time, so the processes share it; the times of phases 3-32 and 34 are
-taken beside the other processes' work.
+(``--group referee``), phases 25-27 (``--group campaign``), phase 34
+(``--group sharding``) and phase 35 (``--group slots``), while this
+process runs 3-14 and 17-22; once every child has ended and its lines
+are relayed, 33 runs alone. Each phase is bound by the host's dispatch
+and leaves the card idle most of the time, so the processes share it;
+the times of phases 3-32, 34 and 35 are taken beside the other
+processes' work.
 
 
 1. the card's name and power limit; build both delivery kernels
@@ -247,9 +248,27 @@ taken beside the other processes' work.
     kernels per tick over ticks 1-5; (b) phase 7 on ``slot_mesh(1)``,
     equal to its golden file; (c) the campaign at ``baseline.json``'s
     ``fleet`` entry with ``fleet_shard=1``, clean on its exact fields;
-    (d) ``fleet_axis_mesh(count + 1)`` raises ``ValueError`` and a slot
-    mesh of two raises ``NotImplementedError`` in ``shard_put`` and
-    ``simulate``.
+    (d) ``fleet_axis_mesh(count + 1)`` raises ``ValueError``; a slot mesh
+    of two splits a tensor (``shard_put``) and runs one cluster (phase
+    35), and a fleet on it raises ``NotImplementedError`` ("fleets on a
+    slot mesh") in ``fleet_shard_put`` and ``fleet_body``;
+35. the slot axis (``engine.sharding``'s ``SlotGroup`` and ``run_spmd``),
+    in its own child process, on a slot mesh that names this card four
+    times (``slot_mesh(devices=[card] * 4)``: four shards of 25,000 slots,
+    a thread each, every read across slots a collective): (a) the
+    N=100,000 golden runs of phases 7 (the main path), 8, 9 (100,096
+    slots), 10, 11, 12 and 14, and phase 13's invariant monitor on phase
+    7 with every ``inv_bits`` 0, each equal to its golden file; (b) phase
+    6 on eight shards, and on three, where the divisibility guard runs it
+    whole on one shard; (c) ``multichip.dryrun_multichip`` on eight
+    shards (sharded and unsharded against the oracle and each other),
+    its JSON on a line of its own; (d) ``telemetry.profile.
+    multichip_comparison`` on four shards at N=10,000 and 100,000; (e)
+    phase 7 unsharded and on 2 and 4 shards in turns (1, 2, 4, 4, 2, 1),
+    each run equal to the golden file: ms per tick, host reads and
+    collectives per tick, peak memory, and kernels per tick over ticks
+    1-16 under ``torch.profiler``. No delivery kernel launches in the
+    phase.
 
 Before phase 16 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -267,8 +286,9 @@ phase 23's runs (``referee_launches``), phase 25's campaign
 (``campaign_launches``), phase 26's replays (``replay_launches``),
 phase 27's runs (``committed_launches``), phase 28's receiver
 continuations (``checkpoint_launches``), phase 30's soaks per layout
-(``stream_launches``), phase 33 (``profile_launches``) and phase 34's
-pools per layout (``shard_launches``). The line
+(``stream_launches``), phase 33 (``profile_launches``), phase 34's
+pools per layout (``shard_launches``) and phase 35
+(``slot_mesh_launches``, 0). The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -315,6 +335,15 @@ PROFILE_SWEEP_LAUNCHES = 3 * 2 * 2 * 6
 SHARD_WAYS = 4                 # phase 34: the fleet split four ways
 #: Phase 34's timed runs of each pool in turns before the others.
 SHARD_TURNS = ("unsplit", "mesh1", "mesh1", "unsplit")
+SLOT_WAYS = 4                  # phase 35: one cluster's slots, four shards
+SLOT_GOLDEN = ((7, "shared_n100k_crash"), (8, "shared_n100k_drop_flipflop"),
+               (9, "shared_n100k_churn"), (10, "shared_n100k_contested"),
+               (11, "shared_n100k_crash_ring"), (12, "shared_n100k_crash_hier"),
+               (13, "shared_n100k_crash"), (14, "shared_n100k_crash_rec64"))
+SLOT_SMALL_WAYS = (8, 3)       # phase 35 (b): 3 does not divide N=1,000
+SLOT_TURNS = (1, 2, 4, 4, 2, 1)    # phase 35 (e): shards of phase 7, in turns
+SLOT_PROFILE_TICKS = 16        # phase 35 (e): ticks 1-16 under the profiler
+MULTICHIP_SIZES = (10_000, 100_000)   # phase 35 (d)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -764,19 +793,26 @@ def phase_shared(sc, phase: int, device, rx_account, keep=None,
     ``SharedScenario``) through the shared engine's entry points, with
     both kernels' launch counts zeroed just before the run and read after
     (the shared engine has no kernel: any launch fails the phase); on
-    ``mesh``, a one-device slot mesh, when given (``shard_put`` places the
-    state and faults)."""
+    the slot mesh ``mesh`` when given (``shard_put`` places the state and
+    faults: on one device as they are, on several split into
+    ``sharding.SlotShards``, or whole on the first device when the
+    capacity does not divide the mesh), counting the collectives."""
     from rapid_tpu_torch import golden
     from rapid_tpu_torch.engine import diff, sharding
 
     sc = golden.SCENARIOS[sc] if isinstance(sc, str) else sc
     boot = sc.boot(device=device)
+    shards = 1
     if mesh is not None:
         c = int(boot.state.member.shape[0])
         boot = boot._replace(state=sharding.shard_put(boot.state, mesh, c),
                              faults=sharding.shard_put(boot.faults, mesh, c))
+        if isinstance(boot.state, sharding.SlotShards):
+            shards = len(boot.state.shards)
+    collectives = sharding.collectives
     out, ms_tick, reads, launches, peak = run_shared(boot, sc, rx_account,
                                                      mesh=mesh)
+    collectives = (sharding.collectives - collectives) / sc.ticks
     if launches:
         raise AssertionError(f"{sc.name} launched a delivery kernel "
                              f"{launches} times")
@@ -795,7 +831,9 @@ def phase_shared(sc, phase: int, device, rx_account, keep=None,
     flags = [f for f, on in (("variant " + sc.variant, sc.variant != "rapid"),
                              ("invariant_checks", sc.invariant_checks),
                              (f"W={sc.recorder_window}", sc.recorder_window),
-                             ("slot_mesh(1)", mesh is not None))
+                             (f"slot_mesh({0 if mesh is None else len(mesh.devices)}"
+                              f"): {shards} shard(s), {collectives:.2f} "
+                              f"collectives/tick", mesh is not None))
              if on]
     log(f"phase {phase}: {sc.name}{' (' + ', '.join(flags) + ')' if flags else ''}"
         f" x {sc.ticks} ticks equals its golden file: {ms_tick:.3f} ms/tick, "
@@ -809,6 +847,7 @@ def phase_shared(sc, phase: int, device, rx_account, keep=None,
             "host_reads_per_tick": reads, "peak_bytes": peak,
             "setup_s": boot.setup_s, "plan_s": boot.plan_s,
             "decides": decides, "classic_decides": classic,
+            "shards": shards, "collectives_per_tick": collectives,
             "phase_sent": totals, "n_member": rec["log"]["n_member"][-1],
             "kernel_launches": launches, "log": rec["log"],
             "stamps": rec.get("recorder", {}).get("stamps")}
@@ -2794,7 +2833,7 @@ def phase_sharding(rx_account, device) -> dict:
     ``baseline.json``'s fleet entry; (d) the refusals."""
     import torch
     from rapid_tpu_torch import golden
-    from rapid_tpu_torch.engine import sharding, simulate
+    from rapid_tpu_torch.engine import sharding, step
 
     out = {"pools": {}}
     meshes = shard_meshes(device)
@@ -2873,7 +2912,8 @@ def phase_sharding(rx_account, device) -> dict:
     # (c) the campaign with --fleet-shard 1.
     out["fleet_shard1"] = baseline_fleet(rx_account, device, 34,
                                          fleet_shard=1)
-    # (d) the refusals.
+    # (d) the refusals. A slot mesh of two runs one cluster (phase 35);
+    # a fleet on it stays refused.
     too_many = torch.cuda.device_count() + 1
     try:
         sharding.fleet_axis_mesh(too_many)
@@ -2883,24 +2923,175 @@ def phase_sharding(rx_account, device) -> dict:
         raise AssertionError(f"fleet_axis_mesh({too_many}) did not raise")
     two = sharding.slot_mesh(devices=[device, device])
     x = torch.zeros(4, device=device)
-    for what, call in (("shard_put", lambda: sharding.shard_put(x, two)),
-                       ("simulate", lambda: simulate(x, x, 1, None,
-                                                     mesh=two))):
+    if not isinstance(sharding.shard_put(x, two), sharding.SlotShards):
+        raise AssertionError("phase 34: shard_put did not split over a "
+                             "slot mesh of 2")
+    for what, call in (("fleet_shard_put",
+                        lambda: sharding.fleet_shard_put(x, two, 4)),
+                       ("fleet_body", lambda: step.fleet_body(
+                           x, x, x, x, 1, None, mesh=two))):
         try:
             call()
         except NotImplementedError as exc:
-            if "slot axis across cards" not in str(exc):
+            if "fleets on a slot mesh" not in str(exc):
                 raise AssertionError(f"phase 34: {what} refused a slot mesh "
                                      f"of 2 without naming the item: {exc}")
         else:
-            raise AssertionError(f"phase 34: {what} ran a slot mesh of 2")
+            raise AssertionError(f"phase 34: {what} ran a fleet on a slot "
+                                 f"mesh of 2")
     log(f"phase 34: refusals hold: fleet_axis_mesh({too_many}) raised "
-        f"ValueError ({refused}); a slot mesh of 2 raised "
-        f"NotImplementedError in shard_put and simulate")
+        f"ValueError ({refused}); a fleet on a slot mesh of 2 raised "
+        f"NotImplementedError in fleet_shard_put and fleet_body; "
+        f"shard_put split a tensor over it")
     out["deliver_launches"] = {
         f"pool{pid}": {name: st["deliver_launches"]
                        for name, st in rows.items()}
         for pid, rows in out["pools"].items()}
+    return out
+
+
+def slot_turns(rx_account, device) -> dict:
+    """Phase 35 (e): phase 7's run unsharded and on 2 and 4 shards of
+    this card, in turns (``SLOT_TURNS``), each run equal to the golden
+    file; ms/tick (CUDA events), host reads and collectives a tick, peak
+    allocated memory, and kernels a tick over ticks 1 to
+    ``SLOT_PROFILE_TICKS`` under ``torch.profiler`` before each layout's
+    first timed run."""
+    from rapid_tpu_torch import golden, profile
+    from rapid_tpu_torch.engine import sharding, simulate
+
+    sc = golden.SCENARIOS["shared_n100k_crash"]
+    boot = sc.boot(device=device)
+    c = int(boot.state.member.shape[0])
+    layouts = {}
+    for ways in sorted(set(SLOT_TURNS)):
+        mesh = (None if ways == 1
+                else sharding.slot_mesh(devices=[device] * ways))
+        placed = boot if mesh is None else boot._replace(
+            state=sharding.shard_put(boot.state, mesh, c),
+            faults=sharding.shard_put(boot.faults, mesh, c))
+        layouts[ways] = (mesh, placed)
+    rows = {}
+    for ways in SLOT_TURNS:
+        mesh, placed = layouts[ways]
+        if ways not in rows:
+            def window():
+                return simulate(placed.state, placed.faults,
+                                SLOT_PROFILE_TICKS, sc.settings(),
+                                mesh=mesh)[1].decide_now
+            rows[ways] = {"profile": profile.profile_window(
+                window, SLOT_PROFILE_TICKS, 5, {"shards": ways}),
+                "ms_per_tick_turns": [], "host_reads_per_tick": [],
+                "collectives_per_tick": [], "peak_bytes": []}
+        collectives = sharding.collectives
+        out, ms_tick, reads, launches, peak = run_shared(placed, sc,
+                                                         rx_account,
+                                                         mesh=mesh)
+        if launches:
+            raise AssertionError(f"phase 35: {ways} shard(s) launched a "
+                                 f"delivery kernel {launches} times")
+        check_golden(sc, golden.shared_run_record(sc.name, *out),
+                     f"phase 35 (e): {sc.name} on {ways} shard(s)")
+        row = rows[ways]
+        row["ms_per_tick_turns"].append(ms_tick)
+        row["host_reads_per_tick"].append(reads)
+        row["collectives_per_tick"].append(
+            (sharding.collectives - collectives) / sc.ticks)
+        row["peak_bytes"].append(peak)
+        del out
+    base = rows[1]["ms_per_tick_turns"]
+    for ways, row in rows.items():
+        turns = row["ms_per_tick_turns"]
+        row["ms_per_tick"] = sum(turns) / len(turns)
+        prof = row["profile"]
+        log(f"phase 35 (e): {sc.name} on {ways} shard(s) of one card, in "
+            f"turns: {', '.join(f'{t:.3f}' for t in turns)} ms/tick (mean "
+            f"{row['ms_per_tick']:.3f}; {row['ms_per_tick'] / (sum(base) / len(base)):.2f}x "
+            f"unsharded), {row['host_reads_per_tick'][0]:.3f} host "
+            f"reads/tick, {row['collectives_per_tick'][0]:.2f} "
+            f"collectives/tick, peak {max(row['peak_bytes']) / 2**20:.1f} "
+            f"MiB; ticks 1-{SLOT_PROFILE_TICKS} under the profiler: "
+            f"{prof['device_kernels_per_tick']:.1f} kernels/tick, "
+            f"{prof['device_busy_ms_per_tick']:.3f} ms/tick device-busy, "
+            f"{prof['wall_ms_per_tick']:.3f} ms/tick wall")
+    return rows
+
+
+def phase_slots(rx_account, device) -> dict:
+    """Phase 35: one cluster's slot universe split over a slot mesh of
+    this card repeated (``sharding.slot_mesh(devices=[card] * D)``), in a
+    child process of its own. (a) The N=100,000 golden runs of phases
+    7-12 and 14, and phase 13's invariant monitor on phase 7 (every
+    ``inv_bits`` 0), each on ``SLOT_WAYS`` shards and equal to its golden
+    file; (b) phase 6 (N=1,000) on eight shards and on three, where the
+    divisibility guard runs it whole on one; (c)
+    ``multichip.dryrun_multichip`` on eight shards, its JSON on a line of
+    its own; (d) ``multichip_comparison`` on ``SLOT_WAYS`` shards at
+    ``MULTICHIP_SIZES``; (e) ``slot_turns``. Both kernels' launches are
+    counted from 0 around every run: the shared engine launches none."""
+    import dataclasses
+
+    from rapid_tpu_torch import golden, multichip
+    from rapid_tpu_torch.engine import sharding
+    from rapid_tpu_torch.settings import Settings
+    from rapid_tpu_torch.telemetry import profile as cost
+
+    out = {"golden": {}, "small": {}}
+    mesh = sharding.slot_mesh(devices=[device] * SLOT_WAYS)
+    launches = 0
+    for phase, name in SLOT_GOLDEN:
+        sc = golden.SCENARIOS[name]
+        if phase == 13:
+            sc = dataclasses.replace(sc, invariant_checks=True)
+        run = phase_shared(sc, 35, device, rx_account, mesh=mesh)
+        if run["shards"] != SLOT_WAYS:
+            raise AssertionError(f"phase 35: {name} ran on {run['shards']} "
+                                 f"shard(s), want {SLOT_WAYS}")
+        if sc.invariant_checks and set(run["log"]["inv_bits"]) != {0}:
+            raise AssertionError(f"phase 35: the monitor flagged {name} on "
+                                 f"{SLOT_WAYS} shards")
+        run.pop("log")
+        launches += run["kernel_launches"]
+        out["golden"][f"phase{phase}"] = run
+    for ways in SLOT_SMALL_WAYS:
+        run = phase_shared("shared_n1000_crash", 35, device, rx_account,
+                           mesh=sharding.slot_mesh(devices=[device] * ways))
+        want = 1 if 1000 % ways else ways
+        if run["shards"] != want:
+            raise AssertionError(f"phase 35: N=1,000 on a {ways}-way mesh "
+                                 f"ran on {run['shards']} shard(s), want "
+                                 f"{want}")
+        run.pop("log")
+        launches += run["kernel_launches"]
+        out["small"][f"ways{ways}"] = run
+    start = time.perf_counter()
+    zero_counts(rx_account)
+    dry = multichip.dryrun_multichip(8, devices=[device] * 8)
+    launches += rx_account.deliver_launches + rx_account.launches
+    if not dry["ok"]:
+        raise AssertionError(f"phase 35: dryrun_multichip gave {dry}")
+    out["dryrun"] = dict(dry, seconds=time.perf_counter() - start)
+    log(f"phase 35 (c): dryrun_multichip on 8 shards of one card ok in "
+        f"{out['dryrun']['seconds']:.1f} s, config id {dry['config_id']}")
+    zero_counts(rx_account)
+    block = cost.multichip_comparison(MULTICHIP_SIZES, Settings(),
+                                      devices=[device] * SLOT_WAYS)
+    launches += rx_account.deliver_launches + rx_account.launches
+    if [(e["kernel"], e["n"]) for e in block["kernels"]] != [
+            (k, n) for n in MULTICHIP_SIZES for k in cost.MULTICHIP_KERNELS]:
+        raise AssertionError(f"phase 35: the multichip block holds "
+                             f"{block['kernels']}")
+    for e in block["kernels"]:
+        log(f"phase 35 (d): multichip {e['kernel']} N={e['n']}: one device "
+            f"{e['single_wall_median_s'] * 1e3:.3f} ms, {SLOT_WAYS} shards "
+            f"{e['sharded_wall_median_s'] * 1e3:.3f} ms (speedup "
+            f"{e['speedup']})")
+    out["multichip"] = block
+    out["turns"] = slot_turns(rx_account, device)
+    if launches:
+        raise AssertionError(f"phase 35 launched a delivery kernel "
+                             f"{launches} times")
+    out["deliver_launches"] = launches
     return out
 
 
@@ -2930,7 +3121,7 @@ def group_campaign(rx_account, device) -> dict:
 #: timed: the phases are bound by the host's dispatch and leave the card
 #: idle most of the time, so five processes share it.
 GROUPS = {"referee": group_referee, "campaign": group_campaign,
-          "sharding": phase_sharding}
+          "sharding": phase_sharding, "slots": phase_slots}
 CHILD_TIMEOUT_S = 1000
 
 
@@ -3097,6 +3288,7 @@ def main() -> int:
     referee_shared = groups["referee"]["referee_shared"]
     stream = groups["referee"]["stream"]
     sharded = groups["sharding"]
+    slots = groups["slots"]
     campaign_run = groups["campaign"]["campaign"]
     replays = groups["campaign"]["replay"]
     committed_runs = groups["campaign"]["committed"]
@@ -3144,6 +3336,7 @@ def main() -> int:
             for k, v in stream["checkpoints"].items()},
         "profile_launches": observatory["deliver_launches"],
         "shard_launches": sharded["deliver_launches"],
+        "slot_mesh_launches": slots["deliver_launches"],
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -3171,6 +3364,7 @@ def main() -> int:
                     "campaign": campaign_run, "replay": replays,
                     "committed": committed_runs, "stream": stream,
                     "profile": observatory, "sharding": sharded,
+                    "slots": slots,
                     "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -52,9 +52,9 @@ How the reference's JAX-only parts map:
   the run's device type and splits every stacked dispatch over it
   (``fleet_axis_put``): whole members on each device, advanced in turns
   and joined in member order, so every non-wall field equals the
-  unsharded run's. On one card ``fleet_axis_mesh`` raises for D > 1; a
-  slot mesh of more than one device is the one sharding item left
-  (``ROADMAP.md`` Queue 1, the slot axis across cards).
+  unsharded run's. On one card ``fleet_axis_mesh`` raises for D > 1. A
+  fleet with each member's slots split over a slot mesh is not ported
+  (``ROADMAP.md`` Queue 1 item 5, fleets on a slot mesh).
 - *The recorder's host copy* is one copy of the dispatch's rings;
   triage slices exemplars out of it with ``recorder.member_recorder``.
 

@@ -29,6 +29,11 @@ joiner wired on an FD-interval tick under crash faults.
 ``synthetic_churn_schedule`` is the benchmark workload.
 ``convert.from_reference`` carries a host schedule to the device.
 
+On a slot mesh (``group``) ``inject`` all-reduces its count and
+``apply_redraws`` lets the slot's owner write its identity; the ring
+tables move and the topology is rebuilt on all-gathered tables, and each
+shard keeps its rows.
+
 Joiner node ids come from the cluster rng (``oracle.cluster.default_rng``),
 seeded from a salted ``str`` hash: a plan is reproducible across processes
 only under one ``PYTHONHASHSEED``.
@@ -43,6 +48,7 @@ import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.engine import paxos, topology
+from rapid_tpu_torch.engine.sharding import SOLO
 from rapid_tpu_torch.engine.state import I32_MAX
 from rapid_tpu_torch.identity import SEED_MEMBER, id_fingerprint, uid_of
 from rapid_tpu_torch.oracle.cluster import default_rng
@@ -86,46 +92,65 @@ def empty_schedule(c: int) -> ChurnSchedule:
     )
 
 
-def apply_redraws(state, schedule: ChurnSchedule, slot: int):
+def apply_redraws(state, schedule: ChurnSchedule, slot: int, group=SOLO):
     """The state after dormant slot ``slot`` redraws its identifier: new
     uid, member-fingerprint and identifier-fingerprint limbs, its ring
     positions moved, and the topology and ring-0 positions re-scanned
     from the moved order. The caller picks ``slot``: the first slot with
-    ``redraw_tick == t`` that is not a member."""
+    ``redraw_tick == t`` that is not a member. On a slot mesh the shard
+    that holds ``slot`` writes it; the ring tables move and the topology
+    is rebuilt on the all-gathered tables, and each shard keeps its
+    rows."""
+    at = slot - group.lo
+    own = 0 <= at < state.uid_hi.shape[0]
+
     def put(arr, value):
+        if not own:
+            return arr
         arr = arr.clone()
-        arr[slot] = value
+        arr[at] = value
         return arr
 
-    new_hi = schedule.redraw_hi[slot]
-    new_lo = schedule.redraw_lo[slot]
-    uid_hi = put(state.uid_hi, new_hi)
-    uid_lo = put(state.uid_lo, new_lo)
-    mfp_hi, mfp_lo = hashing.hash64_limbs(new_hi, new_lo, seed=SEED_MEMBER)
+    uid_hi, uid_lo = state.uid_hi, state.uid_lo
+    mfp_hi, mfp_lo = state.mfp_hi, state.mfp_lo
+    idfp_hi, idfp_lo = state.idfp_hi, state.idfp_lo
+    if own:
+        new_hi = schedule.redraw_hi[at]
+        new_lo = schedule.redraw_lo[at]
+        uid_hi = put(uid_hi, new_hi)
+        uid_lo = put(uid_lo, new_lo)
+        new_mhi, new_mlo = hashing.hash64_limbs(new_hi, new_lo,
+                                                seed=SEED_MEMBER)
+        mfp_hi, mfp_lo = put(mfp_hi, new_mhi), put(mfp_lo, new_mlo)
+        idfp_hi = put(idfp_hi, schedule.redraw_idfp_hi[at])
+        idfp_lo = put(idfp_lo, schedule.redraw_idfp_lo[at])
+    uid_hi_all, uid_lo_all, order_all, rank_all, member_all = group.all_gather(
+        uid_hi, uid_lo, state.ring_order, state.ring_rank, state.member)
     ring_order, ring_rank = topology.rank_and_insert(
-        slot, uid_hi, uid_lo, state.ring_order, state.ring_rank)
-    subj, obs, gk, fd_active, fd_first = topology.build_topology(
-        state.member, ring_order, ring_rank)
+        slot, uid_hi_all, uid_lo_all, order_all, rank_all)
+    tables = topology.build_topology(member_all, ring_order, ring_rank)
+    subj, obs, gk, fd_active, fd_first = (group.local(x) for x in tables)
     return state._replace(
-        uid_hi=uid_hi, uid_lo=uid_lo,
-        mfp_hi=put(state.mfp_hi, mfp_hi), mfp_lo=put(state.mfp_lo, mfp_lo),
-        idfp_hi=put(state.idfp_hi, schedule.redraw_idfp_hi[slot]),
-        idfp_lo=put(state.idfp_lo, schedule.redraw_idfp_lo[slot]),
-        ring_order=ring_order, ring_rank=ring_rank,
+        uid_hi=uid_hi, uid_lo=uid_lo, mfp_hi=mfp_hi, mfp_lo=mfp_lo,
+        idfp_hi=idfp_hi, idfp_lo=idfp_lo,
+        ring_order=group.local(ring_order), ring_rank=group.local(ring_rank),
         subj_idx=subj, obs_idx=obs, gk_idx=gk, fd_active=fd_active,
         fd_first=fd_first,
-        px_pos=paxos.ring0_positions(state.member, ring_order, ring_rank))
+        px_pos=group.local(paxos.ring0_positions(member_all, ring_order,
+                                                 ring_rank)))
 
 
-def inject(state, schedule: ChurnSchedule, t: int):
+def inject(state, schedule: ChurnSchedule, t: int, group=SOLO):
     """``(churn_flush, injected)``: the alerts enqueued at tick ``t``
-    whose epoch expectation holds, and their count (0-d int32)."""
+    whose epoch expectation holds, and their count (0-d int32,
+    all-reduced on a slot mesh)."""
     join_now = ((schedule.join_tick == t) & ~state.member
                 & (schedule.join_epoch == state.epoch))
     leave_now = ((schedule.leave_tick == t) & state.member
                  & (schedule.leave_epoch == state.epoch))
     now = join_now | leave_now
-    return state.churn_flush | now, now.sum().to(torch.int32)
+    return (state.churn_flush | now,
+            group.sum(now.sum()).to(torch.int32))
 
 
 @dataclass

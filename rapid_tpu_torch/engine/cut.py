@@ -8,23 +8,33 @@ report the rings whose observer is itself at or above L. The reference
 iterates it in a ``while_loop`` until nothing changes; both detectors
 here take ``_invalidate``'s one masked pass, which is that fixed point
 (its docstring says why), with no loop and no read.
+
+On a slot mesh (``group``, a ``sharding.SlotGroup``) the shared
+detector's rows are the shard's destinations: the reports of other
+shards' observers arrive through an all-gather of ``pending_deliver``,
+the invalidation reads the observers' ``at_lo`` through an all-gather,
+and every sum and ``any`` is an all-reduce, so every shard reads the
+same ``announce_now``. The default group, ``sharding.SOLO``, computes what one device does.
 """
 from __future__ import annotations
 
 import torch
 
 from rapid_tpu_torch.device import read_host
+from rapid_tpu_torch.engine.sharding import SOLO
 
 
-def deliver_reports(state, src_alive):
+def deliver_reports(state, src_alive, group=SOLO):
     """bool [C, K]: monitor DOWN reports landing in the shared detector.
 
     ``pending_deliver[obs, j]`` is observer ``obs``'s ring-j report; the
     ring-j observer of ``dst`` (``obs_idx``) is the one reporter for
     ``(dst, j)``, and a batch whose sender crashed before delivery is
-    dropped."""
+    dropped. ``src_alive`` covers the whole slot universe; on a slot mesh
+    the rows are the shard's and ``pending_deliver`` is all-gathered."""
     obs = state.obs_idx.long()
-    return torch.gather(state.pending_deliver, 0, obs) & src_alive[obs]
+    pending = group.all_gather(state.pending_deliver)
+    return torch.gather(pending, 0, obs) & src_alive[obs]
 
 
 def deliver_churn_reports(state, src_alive):
@@ -33,17 +43,20 @@ def deliver_churn_reports(state, src_alive):
     ``churn_deliver[dst]`` is dst's scheduled alert batch, flushed last
     tick. A leaver's K observers (``obs_idx``) each report DOWN; a
     joiner's K gatekeepers (``gk_idx``) each report UP. Rings whose
-    source crashed before delivery are dropped."""
+    source crashed before delivery are dropped. ``src_alive`` covers the
+    whole slot universe (the rows may be a shard's)."""
     member = state.member[:, None]
     src = torch.where(member, state.obs_idx, state.gk_idx).long()
     ok = state.churn_deliver[:, None] & src_alive[src]
     return ok & member, ok & ~member
 
 
-def _invalidate(reports, obs, gate, lo, hi):
+def _invalidate(reports, obs, gate, lo, hi, group=SOLO):
     """The invalidation fixpoint over ``[..., D, K]`` report planes;
     returns ``(reports, added)``. ``obs`` (int64, same shape) is each
     cell's observer, an index into D; ``gate`` broadcasts to ``reports``.
+    On a slot mesh the rows are the shard's destinations and the
+    observers' ``at_lo`` is all-gathered.
 
     One pass is the fixed point: a pass adds cells only to destinations
     at or above L, so the set of such destinations, and with it the
@@ -54,12 +67,15 @@ def _invalidate(reports, obs, gate, lo, hi):
     counts = reports.sum(dim=-1)
     at_lo = counts >= lo
     flux = at_lo & (counts < hi)
-    obs_at_lo = torch.gather(at_lo, -1, obs.flatten(-2)).reshape(obs.shape)
+    at_lo_all = group.all_gather(at_lo, dim=-1)
+    obs_at_lo = torch.gather(at_lo_all, -1,
+                             obs.flatten(-2)).reshape(obs.shape)
     added = flux[..., None] & obs_at_lo & ~reports & gate
     return reports | added, added
 
 
-def aggregate(state, delivered_down, delivered_up, any_receiver, settings):
+def aggregate(state, delivered_down, delivered_up, any_receiver, settings,
+              group=SOLO):
     """One tick of reports into the shared detector.
 
     Returns ``(reports, seen_down, announce_now, proposal, explicit_added,
@@ -68,38 +84,42 @@ def aggregate(state, delivered_down, delivered_up, any_receiver, settings):
     bool) gates on an alive receiver; ``delivered_down`` are DOWN alerts
     (kept for member destinations), ``delivered_up`` UP alerts (kept for
     non-members; None when there are none). The invalidation fixpoint
-    runs where ``any_new & seen_down``, as in the reference.
+    runs where ``any_new & seen_down``, as in the reference. On a slot
+    mesh every shard reads the same all-reduced ``announce_now``.
     """
     out = aggregate_device(state, delivered_down, delivered_up,
-                           any_receiver, settings)
+                           any_receiver, settings, group)
     (announced,) = read_host(out[2])
     return out + (bool(announced),)
 
 
 def aggregate_device(state, delivered_down, delivered_up, any_receiver,
-                     settings):
+                     settings, group=SOLO):
     """``aggregate``'s six device results, without the read; a fleet maps
-    it over its members and reads their ``announce_now`` at once."""
+    it over its members and reads their ``announce_now`` at once. On a
+    slot mesh ``reports`` and ``proposal`` are the shard's rows and the
+    rest is all-reduced."""
     lo, hi = settings.L, settings.H
     gate = any_receiver & ~state.announced
     member = state.member[:, None]
     new = delivered_down & member & gate
-    seen_down = state.seen_down | new.any()
+    new_down = new.any()
     if delivered_up is not None:
         new = new | (delivered_up & ~member & gate)
-    explicit_added = (new & ~state.reports).sum().to(torch.int32)
+    new_down, any_new = group.any(new_down, new.any())
+    seen_down = state.seen_down | new_down
+    explicit_added = group.sum((new & ~state.reports).sum()).to(torch.int32)
     reports = state.reports | new
-    any_new = new.any()
 
     eff_obs = torch.where(member, state.obs_idx, state.gk_idx).long()
     reports, added = _invalidate(reports, eff_obs, any_new & seen_down, lo,
-                                 hi)
-    implicit_added = added.sum().to(torch.int32)
-
+                                 hi, group)
     counts = reports.sum(dim=1)
     crossed = counts >= hi
-    in_flux = ((counts >= lo) & (counts < hi)).any()
-    announce_now = any_new & ~in_flux & crossed.any() & ~state.announced
+    implicit_added = group.sum(added.sum()).to(torch.int32)
+    in_flux, any_crossed = group.any(((counts >= lo) & (counts < hi)).any(),
+                                     crossed.any())
+    announce_now = any_new & ~in_flux & any_crossed & ~state.announced
     return (reports, seen_down, announce_now, crossed, explicit_added,
             implicit_added)
 

@@ -33,9 +33,10 @@ write its JSONL artifact.
 converged ``MembershipView`` instead of running N joins (O(N**3)
 messages), so a differential at N=256 runs in seconds. ``mesh=`` (of
 ``run_differential`` and ``run_variant_differential``) places the
-engine's state and faults on a one-device slot mesh
-(``sharding.shard_put``) and runs there; a larger one raises, as
-``step.require_scope`` does.
+engine's state and faults on a slot mesh (``sharding.shard_put``) and
+runs there: on one device as it is, on ``D`` devices split into ``C /
+D`` slots per shard, a thread each (``step.simulate``); the results
+equal the run without a mesh bit for bit.
 
 The host-side extractors of the shared engine's stacked ``StepLog`` live
 here too: the event stream and the exact per-tick counts, from tensors
@@ -318,7 +319,7 @@ def _raise_divergence(report, artifact: Optional[str]) -> None:
 def _crash_runs(n: int, crash_ticks: Dict[int, int], n_ticks: int,
                 settings: Settings, dev, mesh=None):
     """A crash scenario through the oracle and the shared engine on
-    ``dev`` (on ``mesh``, a one-device slot mesh, when given): the
+    ``dev`` (on ``mesh``, a slot mesh, when given): the
     oracle's counters, per-phase counters, events and final config id
     (from the first never-crashed node), the engine's final state and
     host logs, and each side's seconds."""
@@ -356,7 +357,8 @@ def _run_shared(settings: Settings, dev, uids, id_fp_sum: int,
     """Boot and run the shared engine on ``dev``; returns the final state
     and the logs, read to the host in one transfer. ``churn`` and
     ``fallback`` are host schedules (or a ``ChurnPlan``); ``mesh`` a
-    one-device slot mesh the state and faults are placed on."""
+    slot mesh the state and faults are placed on (split over it when it
+    has several devices)."""
     from rapid_tpu_torch.convert import from_reference
     from rapid_tpu_torch.engine import sharding
     from rapid_tpu_torch.engine.state import crash_faults, init_state
@@ -438,8 +440,7 @@ def run_differential(
 
     ``crash_ticks`` maps slot index -> crash tick. Call
     ``result.assert_identical()`` for the bit-identical checks. ``mesh``
-    is a one-device slot mesh the engine runs on (a larger one raises,
-    ``step.require_scope``).
+    is a slot mesh of any size the engine runs on.
     """
     from rapid_tpu_torch.engine.state import state_config_id
     from rapid_tpu_torch.engine.step import require_scope

@@ -39,8 +39,9 @@ Meshes (``engine.sharding``): ``fleet_mesh`` splits the member axis over
 its devices, whole members on each (``fleet_axis_put``); the fleet loops
 advance the shards in turns and join the outputs in member order on the
 mesh's first device, equal to the unsplit run. ``mesh`` is a slot mesh
-of one device; a larger one is the slot axis across cards, the sharding
-item of ``ROADMAP.md`` Queue 1, and raises ``NotImplementedError``.
+of one device; a larger one (each member's slots split) raises
+``NotImplementedError``: "fleets on a slot mesh", ``ROADMAP.md`` Queue 1
+item 5. One cluster runs on a slot mesh of any size (``step.simulate``).
 """
 from __future__ import annotations
 

@@ -20,7 +20,11 @@ Seven checks, each folded to one bool and packed into the ``int32`` of
 
 ``step`` calls ``check_step`` only under ``Settings.invariant_checks``;
 otherwise ``inv_bits`` is the constant 0. On the host, ``check_run``
-raises ``InvariantViolationError`` at the first violating tick.
+raises ``InvariantViolationError`` at the first violating tick. On a slot
+mesh (``group``) each check runs on the shard's rows, with the member
+mask, the in-flight reports and the observers' ``at_lo`` all-gathered,
+the member sum's limbs added across shards and the seven flags
+all-reduced, so every shard packs the same ``inv_bits``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.engine.paxos import rank_lt
+from rapid_tpu_torch.engine.sharding import SOLO
 from rapid_tpu_torch.telemetry.forensics import (
     DivergenceError, DivergenceReport)
 
@@ -55,15 +60,14 @@ def describe_bits(mask: int) -> List[str]:
     return [name for name, bit in INVARIANT_BITS if (mask >> bit) & 1]
 
 
-def _ring_degree(post):
+def _ring_degree(post, member_all, g):
     c = post.member.shape[0]
-    slots = torch.arange(c, dtype=torch.int32,
-                         device=post.member.device)[:, None]
+    slots = g.slots(c, post.member.device, torch.int32)[:, None]
     subj, obs = post.subj_idx, post.obs_idx
     m_rows = post.member[:, None]
-    multi = post.member.sum() >= 2
+    multi = g.sum(post.member.sum()) >= 2
     bad_member = m_rows & (
-        ~post.member[subj.long()] | ~post.member[obs.long()]
+        ~member_all[subj.long()] | ~member_all[obs.long()]
         | (multi & ((subj == slots) | (obs == slots))))
     bad_dormant = ~m_rows & ((subj != slots) | (obs != slots))
     return (bad_member | bad_dormant).any()
@@ -77,43 +81,49 @@ def _rank_order(post):
     return bad.any()
 
 
-def _memsum(post):
+def _memsum(post, g):
     m = post.member.to(torch.int64)
-    hi, lo = hashing.sum64_axis(post.mfp_hi * m, post.mfp_lo * m)
+    hi, lo = g.sum64(*hashing.sum64_axis(post.mfp_hi * m, post.mfp_lo * m))
     return (hi != post.memsum_hi) | (lo != post.memsum_lo)
 
 
-def _ghost_reports(pre, post, settings):
+def _ghost_reports(pre, post, pending_all, at_lo, at_lo_all):
     added = post.reports & ~pre.reports
     eff_obs = torch.where(post.member[:, None], post.obs_idx,
                           post.gk_idx).long()
-    in_flight = torch.gather(pre.pending_deliver, 0, eff_obs)
+    in_flight = torch.gather(pending_all, 0, eff_obs)
     explicit = in_flight | pre.churn_deliver[:, None]
-    at_lo = post.reports.sum(dim=1) >= settings.L
-    implicit = at_lo[:, None] & at_lo[eff_obs]
+    implicit = at_lo[:, None] & at_lo_all[eff_obs]
     return (added & ~explicit & ~implicit).any()
 
 
 def check_step(pre, post, *, decide_now, fast_decide, classic_decide,
-               fast_mask, classic_mask, settings):
+               fast_mask, classic_mask, settings, group=SOLO):
     """Every check of one tick, packed into a 0-d int32 bitmask (0 when
     every invariant holds). ``pre``/``post`` are the states before and
     after the tick; ``fast_decide``/``classic_decide`` (0-d bool) this
     tick's decision sources, with ``fast_mask``/``classic_mask`` their
-    proposal masks."""
+    proposal masks (the shard's slots on a slot mesh)."""
     win_mask = torch.where(classic_decide, classic_mask, fast_mask)
+    at_lo = post.reports.sum(dim=1) >= settings.L
+    member_all, pending_all, at_lo_all = group.all_gather(
+        post.member, pre.pending_deliver, at_lo)
+    ring_degree, shrunk, win_any, rank_order, ghost = group.any(
+        _ring_degree(post, member_all, group), (pre.reports
+                                                & ~post.reports).any(),
+        win_mask.any(), _rank_order(post),
+        _ghost_reports(pre, post, pending_all, at_lo, at_lo_all))
     flags = {
-        "ring_degree": _ring_degree(post),
-        "report_monotone": ~decide_now & (pre.reports
-                                          & ~post.reports).any(),
+        "ring_degree": ring_degree,
+        "report_monotone": ~decide_now & shrunk,
         "unique_decide": ((fast_decide & classic_decide)
-                          | (decide_now & ~win_mask.any())
+                          | (decide_now & ~win_any)
                           | (fast_decide & ~pre.announced)),
-        "rank_order": _rank_order(post),
+        "rank_order": rank_order,
         "epoch_monotone": post.epoch != pre.epoch + decide_now.to(
             torch.int32),
-        "memsum": _memsum(post),
-        "ghost_reports": _ghost_reports(pre, post, settings),
+        "memsum": _memsum(post, group),
+        "ghost_reports": ghost,
     }
     bits = torch.stack([flags[name].to(torch.int32) << bit
                         for name, bit in INVARIANT_BITS])

@@ -4,6 +4,14 @@ drop) and the shared engine's failure-detector interval.
 ``tick`` is a host int throughout: both engines keep the tick on the host
 (it drives the loop), so ring-slot selection, window phases and the drop
 hash's seed need no device sync.
+
+On a slot mesh (``group``, a ``sharding.SlotGroup``) ``monitor_tick``
+and ``partitioned_edge_count`` take the shard's rows of the state and
+the whole universe's faults: a probe's subject, its crash tick, its
+window masks and its identity may lie on another shard, so those are
+read whole (the faults never change in a run; the identities are
+all-gathered when the drop model needs them), row indices are global
+(``group.slots``), and the counts are all-reduced.
 """
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.engine.rx_packed import pack_bits
+from rapid_tpu_torch.engine.sharding import SOLO
 from rapid_tpu_torch.engine.state import EngineFaults
 
 
@@ -157,7 +166,8 @@ def edge_drop(faults: EngineFaults, src_idx, dst_idx, uid_hi, uid_lo,
     return drop
 
 
-def monitor_tick(state, faults: EngineFaults, settings, tick: int):
+def monitor_tick(state, faults: EngineFaults, settings, tick: int,
+                 group=SOLO):
     """One failure-detector interval of every node of the shared state at
     ``tick`` (``state.tick`` as a host int).
 
@@ -166,38 +176,48 @@ def monitor_tick(state, faults: EngineFaults, settings, tick: int):
     probing; every other active edge probes its subject and counts a
     failure when either end is crashed, a link window blocks it, or the
     drop model drops it; ``notify_expanded`` fans each notification out
-    to every ring of that subject (``fd_first``).
+    to every ring of that subject (``fd_first``). On a slot mesh the
+    state's rows are the shard's and ``faults`` the whole universe's.
     """
     crashed = crashed_at(faults, tick)
     subj = state.subj_idx.long()
-    obs = torch.arange(subj.shape[0], device=subj.device)[:, None]
-    probe_fail = (crashed[subj] | crashed[:, None]
+    obs = group.slots(subj.shape[0], subj.device)[:, None]
+    uid_hi, uid_lo = state.uid_hi, state.uid_lo
+    if faults.drop_p > 0.0:
+        uid_hi, uid_lo = group.all_gather(uid_hi, uid_lo)
+    probe_fail = (crashed[subj] | group.local(crashed)[:, None]
                   | link_blocked(faults, obs, subj, tick)
-                  | edge_drop(faults, obs, subj, state.uid_hi, state.uid_lo,
-                              tick))
+                  | edge_drop(faults, obs, subj, uid_hi, uid_lo, tick))
     at_threshold = state.fc >= settings.fd_failure_threshold
     probing = state.fd_active & ~at_threshold
     notify_now = state.fd_active & at_threshold & ~state.notified
     failed = probing & probe_fail
     fc = torch.where(failed, state.fc + 1, state.fc)
     notify_expanded = torch.gather(notify_now, 1, state.fd_first.long())
+    sent, failed = group.sum(probing.sum(), failed.sum())
     return (fc, state.notified | notify_now, notify_expanded,
-            probing.sum().to(torch.int32), failed.sum().to(torch.int32))
+            sent.to(torch.int32), failed.to(torch.int32))
 
 
-def partitioned_edge_count(faults: EngineFaults, member, tick: int):
+def partitioned_edge_count(faults: EngineFaults, member, tick: int,
+                           group=SOLO):
     """i32 gauge: directed member->member pairs blocked by active windows,
-    counted per window, self-edges excluded."""
+    counted per window, self-edges excluded. On a slot mesh ``member`` is
+    the shard's and ``faults`` the whole universe's; the counts are
+    all-reduced."""
     dev = faults.crash_tick.device
     total = torch.zeros((), dtype=torch.int32, device=dev)
     if faults.n_windows == 0:
         return total
     active = link_window_active(faults, tick)
+    src = group.local(faults.link_src, dim=1)
+    dst = group.local(faults.link_dst, dim=1)
+    count = lambda m: m.sum().to(torch.int32)
+    counts = group.sum(*[count(m) for w in range(faults.n_windows)
+                         for m in (src[w] & member, dst[w] & member,
+                                   src[w] & dst[w] & member)])
     for w in range(faults.n_windows):
-        count = lambda m: m.sum().to(torch.int32)
-        src_m = count(faults.link_src[w] & member)
-        dst_m = count(faults.link_dst[w] & member)
-        both = count(faults.link_src[w] & faults.link_dst[w] & member)
+        src_m, dst_m, both = counts[3 * w:3 * w + 3]
         pairs = src_m * dst_m - both
         two = torch.where(faults.link_two_way[w], pairs, 0)
         total = total + torch.where(active[w], pairs + two, 0).to(torch.int32)

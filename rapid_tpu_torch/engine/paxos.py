@@ -24,6 +24,12 @@ The per-receiver engine uses ``classic_rank_index``, ``ring0_positions``
 and the host table of fallback-timer delays each slot can draw; all its
 randomness is the per-slot ``random.Random`` streams of
 ``adversary_rngs``, as the reference's host referee draws them.
+
+On a slot mesh (``group``) the device phases take a shard's slots of the
+state and of the schedule's ``[C]`` rows and ``table_mask``: their counts
+are all-reduced, the coordinator rule and the ring-0 positions run on
+all-gathered rows, and the first firing timer is the global first set
+slot (``group.first_true``), whose identity its owner contributes.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from rapid_tpu_torch import hashing
+from rapid_tpu_torch.engine.sharding import SOLO
 from rapid_tpu_torch.engine.state import I32_MAX
 from rapid_tpu_torch.engine.votes import (PROPOSAL_SEED, fast_quorum,
                                           segmented_vote_count)
@@ -54,9 +61,13 @@ def classic_rank_index(uid_hi, uid_lo):
     return (lo & 0x7FFFFFFF).to(torch.int32)
 
 
-def ring0_positions(member, ring_order, ring_rank):
+def ring0_positions(member, ring_order, ring_rank, group=SOLO):
     """i32 ``[..., C]``: each member's position in ring-0 order among the
-    members of its view; non-members read ``I32_MAX``."""
+    members of its view; non-members read ``I32_MAX``. On a slot mesh the
+    inputs are all-gathered and the shard's slots returned."""
+    if group.size > 1:
+        return group.local(ring0_positions(
+            *group.all_gather(member, ring_order, ring_rank)))
     member = member.to(torch.bool)
     order0 = ring_order[:, 0].to(torch.int64)
     rank0 = ring_rank[:, 0].to(torch.int64)
@@ -235,7 +246,7 @@ def coordinator_rule_pid(promised, pos, vval_pid, n, n_pids: int):
     return torch.where(has_val.any(), chosen, -1).to(torch.int32)
 
 
-def chain_deliver(state, sched: FallbackSchedule, t: int, n):
+def chain_deliver(state, sched: FallbackSchedule, t: int, n, group=SOLO):
     """Classic-chain deliveries at tick ``t``, in the reference's order
     2b, 2a, 1b (they were sent in the last tick's delivery phase, so they
     land before fast-round votes). Returns ``(state, counts,
@@ -258,7 +269,8 @@ def chain_deliver(state, sched: FallbackSchedule, t: int, n):
                          state.px_rnd_r, state.px_rnd_i)
               & ~rank_eq(state.px_vrnd_r, state.px_vrnd_i,
                          state.c2a_rank_r, state.c2a_rank_i) & arr2a)
-    n_accept = i32(accept.sum())
+    n_accept, n_promise = (i32(x) for x in group.sum(
+        accept.sum(), state.c1b_mask.sum()))
     state = state._replace(
         px_rnd_r=torch.where(accept, state.c2a_rank_r, state.px_rnd_r),
         px_rnd_i=torch.where(accept, state.c2a_rank_i, state.px_rnd_i),
@@ -273,12 +285,11 @@ def chain_deliver(state, sched: FallbackSchedule, t: int, n):
 
     # -- phase 1b: the coordinator applies the rule past majority --------
     arr1b = gate & (state.c1b_tick + 1 == t) & (state.c1b_epoch == epoch)
-    n_promise = i32(state.c1b_mask.sum())
-    chosen = coordinator_rule_pid(state.c1b_mask, state.px_pos,
-                                  state.px_vval, n,
-                                  sched.table_mask.shape[1])
+    chosen = coordinator_rule_pid(
+        *group.all_gather(state.c1b_mask, state.px_pos, state.px_vval), n,
+        sched.table_mask.shape[1])
     do2a = arr1b & (n_promise > maj) & (chosen >= 0)
-    slots = torch.arange(state.px_cval.shape[0], device=chosen.device)
+    slots = group.slots(state.px_cval.shape[0], chosen.device)
     state = state._replace(
         c2a_tick=i32(torch.where(do2a, t, state.c2a_tick)),
         c2a_pid=torch.where(do2a, chosen, state.c2a_pid),
@@ -298,7 +309,8 @@ def chain_deliver(state, sched: FallbackSchedule, t: int, n):
     return state, counts, classic_decide, classic_pid
 
 
-def fast_tally(state, sched: FallbackSchedule, e: int, t: int, n):
+def fast_tally(state, sched: FallbackSchedule, e: int, t: int, n,
+               group=SOLO):
     """The scripted fast round of row ``e`` at tick ``t``: ``(ok,
     win_pid, tally, quorum)``. A vote sent at its propose tick arrives
     one tick later; the reference's ``decided`` is ``ok & ~blocked``.
@@ -307,18 +319,19 @@ def fast_tally(state, sched: FallbackSchedule, e: int, t: int, n):
     delivered = state.member & (pid >= 0) & (sched.prop_tick[e] + 1 <= t)
     safe_pid = pid.clamp(0, sched.table_mask.shape[1] - 1).long()
     per_vote = segmented_vote_count(sched.table_hi[e][safe_pid],
-                                    sched.table_lo[e][safe_pid], delivered)
-    total = delivered.sum().to(torch.int32)
+                                    sched.table_lo[e][safe_pid], delivered,
+                                    group)
+    total = group.sum(delivered.sum()).to(torch.int32)
     quorum = fast_quorum(n)
-    best = per_vote.max()
+    best = group.max(per_vote.max())
     ok = (total >= quorum) & (best >= quorum)
-    win_pid = torch.where(delivered & (per_vote >= quorum), pid,
-                          I32_MAX).min()
+    win_pid = group.min(torch.where(delivered & (per_vote >= quorum), pid,
+                                    I32_MAX).min())
     tally = torch.where(total > 0, best, 0).to(torch.int32)
     return ok, win_pid, tally, quorum
 
 
-def phase1a_deliver(state, t: int):
+def phase1a_deliver(state, t: int, group=SOLO):
     """Phase-1a delivery at tick ``t`` (last in the delivery phase: the
     broadcast was a task-phase send) on a tick that did not decide:
     acceptors below the coordinator's rank promise. Returns ``(state,
@@ -328,7 +341,7 @@ def phase1a_deliver(state, t: int):
     promise = state.member & rank_lt(state.px_rnd_r, state.px_rnd_i,
                                      state.c1a_rank_r, state.c1a_rank_i) \
         & arr1a
-    n_promise = promise.sum().to(torch.int32)
+    n_promise = group.sum(promise.sum()).to(torch.int32)
     state = state._replace(
         px_rnd_r=torch.where(promise, state.c1a_rank_r, state.px_rnd_r),
         px_rnd_i=torch.where(promise, state.c1a_rank_i, state.px_rnd_i),
@@ -340,7 +353,7 @@ def phase1a_deliver(state, t: int):
 
 
 def task_phase(state, sched: FallbackSchedule, e: int, t: int, n,
-               send: bool, fire: bool):
+               send: bool, fire: bool, group=SOLO):
     """Task-phase sends of row ``e`` at tick ``t`` on a tick that did not
     decide, or whose decide made row ``e`` live: scripted proposes (vote
     broadcast, own-vote registration, timer arming), then timer fires
@@ -352,7 +365,8 @@ def task_phase(state, sched: FallbackSchedule, e: int, t: int, n,
     if send:
         pid = sched.prop_pid[e]
         sends = state.member & (pid >= 0) & (sched.prop_tick[e] == t)
-        n_send = i32(sends.sum())
+        n_send, any_send = group.sum(sends.sum()), group.any(sends.any())
+        n_send = i32(n_send)
         # The vote registers only while the slot's rank round is <= 1.
         reg = sends & (state.px_rnd_r <= 1)
         state = state._replace(
@@ -366,15 +380,16 @@ def task_phase(state, sched: FallbackSchedule, e: int, t: int, n,
         )
         counts["pxvote_senders"] = n_send
         counts["pxvote_recipients"] = torch.where(
-            sends.any(), n, torch.zeros_like(n))
+            any_send, n, torch.zeros_like(n))
     if fire:
         fires = state.member & (state.px_timer == t)
-        n_fire = i32(fires.sum())
-        coord = torch.argmax(fires.to(torch.uint8))
-        rank_i = classic_rank_index(state.uid_hi[coord], state.uid_lo[coord])
-        any_fire = fires.any()
-        at_coord = any_fire & (torch.arange(fires.shape[0],
-                                             device=fires.device) == coord)
+        n_fire = i32(group.sum(fires.sum()))
+        coord = group.first_true(fires)
+        rank_i = classic_rank_index(group.at(state.uid_hi, coord),
+                                    group.at(state.uid_lo, coord))
+        any_fire = group.any(fires.any())
+        at_coord = any_fire & (group.slots(fires.shape[0], fires.device)
+                               == coord)
         state = state._replace(
             px_timer=i32(torch.where(fires, I32_MAX, state.px_timer)),
             c1a_tick=i32(torch.where(any_fire, t, state.c1a_tick)),

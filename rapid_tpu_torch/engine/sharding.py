@@ -27,13 +27,21 @@ are the reference's shape logic, divisibility guards included.
   the reference replicates everything; the port then runs the whole
   fleet on the first device, which gives the values the replicated run
   computes.
-- **The slot axis runs on one device.** ``slot_mesh`` builds a mesh of
-  any size (the spec functions need one of eight), but ``shard_put`` and
-  every entry point take a slot mesh of one device only, which places
-  everything on that device. A larger one raises ``NotImplementedError``
-  (``require_slot_mesh``): splitting one cluster over cards needs one
-  process per card over ``torch.distributed``, the ROADMAP.md Queue 1
-  sharding item "the slot axis across cards".
+- **The slot axis runs on any mesh.** ``shard_put`` cuts one cluster's
+  tree into ``C / D`` contiguous slots per device (``SlotShards``; each
+  field's slot axis is ``state.SLOT_AXES``, ``spec_for``'s layout, and a
+  bare tensor's rows are its first axis). ``step.simulate`` and the
+  entry points above it run one thread per shard (``run_spmd``), each
+  under its device's context, on a shard-local tick: elementwise work on
+  the local slots, and every read across slots an explicit collective of
+  the shard's ``SlotGroup`` (gathers along the slot axis, exact integer
+  all-reduces, the 64-bit limb sums, the first set slot). On one card
+  repeated the shards run the same program and exchanges as on D cards.
+  When ``C`` does not divide the mesh (the divisibility guard) the
+  reference replicates every leaf; the port then runs the whole cluster
+  on the mesh's first device. A fleet on a slot mesh of more than one
+  device (each member's slots split) raises ``NotImplementedError``:
+  ROADMAP.md Queue 1 item 5, "fleets on a slot mesh".
 - ``constrain``, ``replicate``, ``constrain_tree`` and
   ``fleet_axis_constrain_tree`` annotate a layout for XLA's partitioner
   in the reference and change no value; here they return their input.
@@ -45,11 +53,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import sys
+import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree
 
+from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import resolve_device
 
 #: The slot axis: the partitioned capacity dimension.
@@ -127,8 +138,8 @@ def slot_mesh(n_devices: Optional[int] = None, devices=None,
     """A 1-D mesh over ``devices`` (default: every visible card, or
     ``n_devices`` entries of the CPU with ``device="cpu"``), axis name
     ``AXIS``. ``n_devices`` trims the list and raises ``ValueError`` when
-    fewer are there. Any size builds; the entry points run one device
-    (``require_slot_mesh``)."""
+    fewer are there. ``devices`` may repeat a device (four shards on one
+    card)."""
     return _mesh(n_devices, devices, device, AXIS, "slot")
 
 
@@ -138,17 +149,30 @@ def mesh_size(mesh) -> int:
 
 
 def require_slot_mesh(mesh) -> Optional[torch.device]:
-    """The device of a one-device slot mesh (None without a mesh); a
-    larger one raises ``NotImplementedError``."""
+    """The first device of a slot mesh (None without a mesh), where the
+    outputs of a run on it are joined; a mesh of another axis raises
+    ``ValueError``."""
     if mesh is None:
         return None
-    n = mesh_size(mesh)
-    if n != 1:
-        raise NotImplementedError(
-            f"a slot mesh of {n} devices: the slot axis across cards (the "
-            f"ROADMAP.md Queue 1 sharding item) is not ported; a slot mesh "
-            f"of one device and fleet meshes of any size run")
+    if AXIS not in mesh.shape:
+        raise ValueError(f"mesh must have the {AXIS!r} axis, got "
+                         f"{tuple(mesh.shape)}")
     return mesh.devices[0]
+
+
+def require_fleet_slot_mesh(mesh) -> Optional[torch.device]:
+    """The device of a one-device slot mesh for a fleet (None without a
+    mesh); a larger one raises ``NotImplementedError``: a fleet with each
+    member's slots split is not ported."""
+    dev = require_slot_mesh(mesh)
+    n = 0 if mesh is None else mesh_size(mesh)
+    if n > 1:
+        raise NotImplementedError(
+            f"a fleet on a slot mesh of {n} devices: fleets on a slot mesh "
+            f"(each member's slots split, ROADMAP.md Queue 1 item 5) are "
+            f"not ported; one cluster runs on a slot mesh of any size and "
+            f"a fleet on a fleet mesh of any size")
+    return dev
 
 
 def spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
@@ -198,13 +222,72 @@ def _move(tree, dev: torch.device):
         lambda x: x.to(dev) if torch.is_tensor(x) else x, tree)
 
 
+class SlotShards(NamedTuple):
+    """What ``shard_put`` returns on a slot mesh of more than one device:
+    one sub-tree per shard, in slot order, each shard's device, and the
+    whole slot universe's C. Shard ``s`` holds slots ``[s·C/D,
+    (s+1)·C/D)`` of every leaf with a slot axis and a whole copy of the
+    rest. A single shard is the whole tree on the mesh's first device
+    (the divisibility guard)."""
+
+    shards: tuple
+    devices: Tuple[torch.device, ...]
+    capacity: int
+
+
 def shard_put(tree, mesh, capacity: Optional[int] = None):
-    """Place a pytree on a one-device slot mesh: every tensor leaf moved
-    to its device. ``capacity`` defaults to the largest dimension, as in
-    the reference; a larger mesh raises ``NotImplementedError``."""
+    """Place a pytree on a slot mesh. ``capacity`` defaults to the
+    largest dimension, as in the reference. On one device every tensor
+    leaf moves there; on ``D`` devices the tree is split into
+    ``SlotShards`` by ``state.split_slots`` (the slot axis of each leaf,
+    ``state.slot_axis``), or, when ``capacity`` does not divide ``D``,
+    one whole shard on the mesh's first device."""
+    from rapid_tpu_torch.engine import state as state_mod
+
+    if isinstance(tree, SlotShards):
+        return tree
     if capacity is None:
-        _infer_capacity(_pytree.tree_leaves(tree))
-    return _move(tree, require_slot_mesh(mesh))
+        capacity = _infer_capacity(_pytree.tree_leaves(tree))
+    first = require_slot_mesh(mesh)
+    n_dev = mesh_size(mesh)
+    if n_dev == 1:
+        return _move(tree, first)
+    if capacity % n_dev:
+        return SlotShards((_move(tree, first),), (first,), capacity)
+    return SlotShards(
+        tuple(_move(part, dev) for part, dev in zip(
+            state_mod.split_slots(tree, capacity, n_dev), mesh.devices)),
+        mesh.devices, capacity)
+
+
+def slot_shards(tree, mesh, capacity: int):
+    """``tree`` as the ``SlotShards`` of a run on ``mesh``: placed by
+    ``shard_put`` unless it already is ``SlotShards`` (None stays
+    None)."""
+    if tree is None or isinstance(tree, SlotShards):
+        return tree
+    placed = shard_put(tree, mesh, capacity)
+    if isinstance(placed, SlotShards):
+        return placed
+    return SlotShards((placed,), (mesh.devices[0],), capacity)
+
+
+def shard_tuple(trees: Sequence, mesh, capacity: int) -> SlotShards:
+    """Several trees of one slot universe as one ``SlotShards`` whose
+    shard ``k`` is the tuple of their shards ``k`` (each placed by
+    ``slot_shards``; a None stays None in every shard). The trees must
+    come out on the same devices."""
+    parts = [slot_shards(t, mesh, capacity) for t in trees]
+    lead = next(p for p in parts if p is not None)
+    for p in parts:
+        if p is not None and (p.devices, p.capacity) != (lead.devices,
+                                                         lead.capacity):
+            raise ValueError(f"trees split over {p.devices} (C="
+                             f"{p.capacity}) and {lead.devices} (C="
+                             f"{lead.capacity}) do not run together")
+    none = (None,) * len(lead.shards)
+    return SlotShards(tuple(zip(*[none if p is None else p.shards
+                                  for p in parts])), lead.devices, capacity)
 
 
 def fleet_spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
@@ -222,8 +305,9 @@ def fleet_spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
 
 def fleet_shard_put(tree, mesh, capacity: int):
     """Place a fleet-stacked pytree on a one-device slot mesh
-    (``fleet_spec_for``'s layout; a larger mesh raises)."""
-    return _move(tree, require_slot_mesh(mesh))
+    (``fleet_spec_for``'s layout); a larger mesh raises
+    ``NotImplementedError`` (``require_fleet_slot_mesh``)."""
+    return _move(tree, require_fleet_slot_mesh(mesh))
 
 
 def fleet_axis_mesh(n_devices: Optional[int] = None, devices=None,
@@ -299,12 +383,13 @@ def fleet_shards(tree, fleet_mesh, fleet_size: int,
 
 
 def require_one_layout(mesh, fleet_mesh) -> None:
-    """The two layouts do not combine in one dispatch."""
+    """The two layouts do not combine in one dispatch, and a fleet takes
+    a slot mesh of one device only (``require_fleet_slot_mesh``)."""
     if mesh is not None and fleet_mesh is not None:
         raise ValueError(
             "mesh (slot-axis sharding) and fleet_mesh (fleet-axis "
             "sharding) are mutually exclusive routings")
-    require_slot_mesh(mesh)
+    require_fleet_slot_mesh(mesh)
 
 
 def device_context(dev: torch.device):
@@ -349,3 +434,311 @@ def state_shardings(state, mesh):
     capacity = int(state.member.shape[0])
     return _pytree.tree_map(
         lambda x: sharding_for(x, capacity, mesh), state)
+
+
+# ---------------------------------------------------------------------------
+# the slot axis: one thread per shard and the collectives between them
+# ---------------------------------------------------------------------------
+
+#: Seconds a shard waits at a collective for its turn before the run
+#: fails (a shard that raised aborts the wait at once).
+COLLECTIVE_TIMEOUT_S = 600.0
+
+#: Collectives made since the last reset, counted once per collective
+#: (by shard 0); ``chip_smoke.py`` reports it per tick.
+collectives = 0
+
+
+class ShardError(RuntimeError):
+    """A shard of a slot-mesh run raised, skipped a collective, left the
+    run early, or stopped while the others waited. ``rank`` names the
+    shard (the first that raised, else the one that skipped, left or
+    stopped), and the run has no result: nothing reruns it unsharded."""
+
+    def __init__(self, rank: int, size: int, message: str):
+        super().__init__(f"shard {rank} of {size}: {message}")
+        self.rank = rank
+        self.size = size
+
+
+class _Aborted(Exception):
+    """Another shard failed; this one stops at its next collective."""
+
+
+class _Stalled(Exception):
+    """A shard's wait for its turn outlasted the timeout."""
+
+
+class _Mismatch(Exception):
+    """A collective met shards at another collective."""
+
+    def __init__(self, message: str, odd: List[int]):
+        super().__init__(message)
+        self.odd = odd
+
+
+class _Rendezvous:
+    """What the shards of one run share: a turn that passes from rank to
+    rank (one semaphore each), a broken flag, and two buffers, used in
+    turns by consecutive collectives.
+
+    The shards meet at every collective in turns: each posts its part,
+    hands the turn on and waits for its own turn again, which comes back
+    only after every shard has posted. So one shard's host code runs at
+    a time, in rank order, as the interpreter's lock would allow anyway,
+    without the threads contending for it; each card's queued work runs
+    on while the host dispatches to the next shard. A shard can write a
+    buffer again only two collectives later, after every shard has taken
+    its turn between, so every read of it is done."""
+
+    def __init__(self, size: int, timeout: float):
+        self.size, self.timeout = size, timeout
+        self.turns = [threading.Semaphore(0) for _ in range(size)]
+        self.broken = False
+        self.buffers = ([None] * size, [None] * size)
+
+    def wait_turn(self, rank: int) -> None:
+        if not self.turns[rank].acquire(timeout=self.timeout):
+            self.abort()
+            raise _Stalled(f"shard {rank} waited {self.timeout} s for its "
+                           f"turn")
+        if self.broken:
+            raise _Aborted()
+
+    def pass_turn(self, rank: int) -> None:
+        self.turns[(rank + 1) % self.size].release()
+
+    def abort(self) -> None:
+        self.broken = True
+        for turn in self.turns:
+            turn.release()
+
+
+class SlotGroup:
+    """One shard's view of a slot-mesh run: its ``rank`` of ``size``,
+    its slots ``lo:hi`` of the ``capacity``, its ``device``, and the
+    collectives. Every shard calls the same collectives in the same
+    order (each host branch reads an all-reduced value); each exchange
+    carries the shard's count of collectives and the engine's line that
+    made it, so a shard that skips one fails the run at the next.
+
+    Reductions combine per-shard partials elementwise (any shape, one
+    exchange for several tensors): ``sum`` (exact, in the partials'
+    dtype), ``any``, ``max``, ``min``, and ``sum64`` of ``(hi, lo)`` limb
+    partials with ``hashing.add64``'s carry. ``all_gather`` concatenates
+    shards along the slot axis, ``first_true`` is the global index of a
+    mask's first set slot, ``at`` the value at one global slot, ``local``
+    takes this shard's slots of a whole tensor and ``slots`` this shard's
+    global slot indices. The methods are the whole interface the engine
+    uses, so another transport (one process per card) needs only
+    these."""
+
+    def __init__(self, rank: int, size: int, capacity: int,
+                 device: torch.device, rendezvous: _Rendezvous):
+        per = capacity // size
+        self.rank, self.size, self.capacity = rank, size, capacity
+        self.lo, self.hi = rank * per, (rank + 1) * per
+        self.device = device
+        self._rv = rendezvous
+        self._calls = 0
+
+    def _exchange(self, obj) -> list:
+        """Every shard's ``obj``, in rank order, checked to come from the
+        same collective (count and calling line) on every shard."""
+        global collectives
+        frame = sys._getframe(1)
+        while frame.f_code.co_filename == __file__:
+            frame = frame.f_back
+        tag = (self._calls, frame.f_code.co_filename, frame.f_lineno)
+        buf = self._rv.buffers[self._calls % 2]
+        self._calls += 1
+        if self.rank == 0:
+            collectives += 1
+        buf[self.rank] = (tag, obj)
+        self._rv.pass_turn(self.rank)
+        self._rv.wait_turn(self.rank)
+        got = list(buf)
+        odd = [r for r, entry in enumerate(got)
+               if entry is None or entry[0] != tag]
+        if odd:
+            raise _Mismatch(
+                f"collective {tag[0]} of shard {self.rank} ({tag[1]}:"
+                f"{tag[2]}) met shards {odd} at another collective or "
+                f"none: a shard skipped one or left", odd)
+        return [entry[1] for entry in got]
+
+    def _gathered(self, xs) -> List[List[torch.Tensor]]:
+        """For each tensor of ``xs``, every shard's, on this device."""
+        parts = self._exchange(tuple(xs))
+        return [[p[i].to(self.device) for p in parts]
+                for i in range(len(xs))]
+
+    def _reduce(self, xs, fold):
+        out = tuple(fold(torch.stack(ps)) for ps in self._gathered(xs))
+        return out[0] if len(out) == 1 else out
+
+    def all_gather(self, *xs, dim: int = 0):
+        """Each tensor of ``xs`` concatenated over the shards along
+        ``dim`` (its slot axis), on this shard's device."""
+        out = tuple(torch.cat(ps, dim=dim) for ps in self._gathered(xs))
+        return out[0] if len(out) == 1 else out
+
+    def sum(self, *xs):
+        return self._reduce(xs, lambda s: s.sum(dim=0, dtype=s.dtype))
+
+    def any(self, *xs):
+        return self._reduce(xs, lambda s: s.any(dim=0))
+
+    def max(self, *xs):
+        return self._reduce(xs, lambda s: s.amax(dim=0))
+
+    def min(self, *xs):
+        return self._reduce(xs, lambda s: s.amin(dim=0))
+
+    def sum64(self, hi, lo):
+        """The shards' ``(hi, lo)`` partial sums added mod 2**64 in rank
+        order, equal to the sum over the whole slot axis."""
+        his, los = self._gathered((hi, lo))
+        out_hi, out_lo = his[0], los[0]
+        for h, l in zip(his[1:], los[1:]):
+            out_hi, out_lo = hashing.add64(out_hi, out_lo, h, l)
+        return out_hi, out_lo
+
+    def first_true(self, mask):
+        """0-d int64: the global index of the first set slot of the
+        shards' ``mask``, 0 when none is set (``argmax`` of the whole
+        mask through uint8)."""
+        local = torch.argmax(mask.to(torch.uint8)) + self.lo
+        anys, idxs = self._gathered((mask.any(), local))
+        return torch.stack(idxs)[torch.argmax(
+            torch.stack(anys).to(torch.uint8))]
+
+    def at(self, x, index):
+        """The value at global slot ``index`` (0-d) of the shards' ``[C /
+        D]`` tensor ``x``: the owner's, all-reduced as a masked sum."""
+        mine = self.slots(x.shape[0], x.device) == index
+        return self.sum(torch.where(mine, x, torch.zeros_like(x)).sum(
+            dim=0, dtype=x.dtype))
+
+    def local(self, x, dim: int = 0):
+        """This shard's slots of a whole tensor, along ``dim``."""
+        return x.narrow(dim, self.lo, self.hi - self.lo)
+
+    def slots(self, n: int, device, dtype=torch.int64):
+        """This shard's ``n`` global slot indices."""
+        return torch.arange(self.lo, self.lo + n, dtype=dtype,
+                            device=device)
+
+
+class _Solo:
+    """The group of a run without a slot mesh: one shard holding every
+    slot, every collective the identity. It is the engine's functions'
+    default ``group``; with it they compute what they always did."""
+
+    rank, size, lo = 0, 1, 0
+
+    @staticmethod
+    def _same(xs):
+        return xs[0] if len(xs) == 1 else xs
+
+    def all_gather(self, *xs, dim: int = 0):
+        return self._same(xs)
+
+    def sum(self, *xs):
+        return self._same(xs)
+
+    any = max = min = sum
+
+    def sum64(self, hi, lo):
+        return hi, lo
+
+    def first_true(self, mask):
+        return torch.argmax(mask.to(torch.uint8))
+
+    def at(self, x, index):
+        return x[index]
+
+    def local(self, x, dim: int = 0):
+        return x
+
+    def slots(self, n: int, device, dtype=torch.int64):
+        return torch.arange(n, dtype=dtype, device=device)
+
+
+SOLO = _Solo()
+
+
+def run_spmd(fn: Callable, parts: SlotShards,
+             timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
+    """``fn(group, shard)`` for every shard of ``parts``, one thread
+    each, each under its device's context, meeting at every collective
+    in turns (``_Rendezvous``); returns the results in rank order. A
+    single shard runs ``fn(SOLO, shard)`` in this thread. When a shard
+    raises, the run is aborted, every other shard raises at its next
+    collective, and ``ShardError`` names the first shard that raised
+    (chained to its error). When a shard leaves the run or stops without
+    the collective the others wait at, their wait times out after
+    ``timeout`` seconds and ``ShardError`` names it. Nothing reruns."""
+    size = len(parts.shards)
+    if size == 1:
+        with device_context(parts.devices[0]):
+            return [fn(SOLO, parts.shards[0])]
+    rv = _Rendezvous(size, timeout)
+    results: list = [None] * size
+    errors: list = [None] * size
+    done = [False] * size
+    threads_per_shard = torch.get_num_threads()
+
+    def body(rank: int) -> None:
+        dev = parts.devices[rank]
+        group = SlotGroup(rank, size, parts.capacity, dev, rv)
+        # A new thread's CPU ops would otherwise take the default pool.
+        torch.set_num_threads(threads_per_shard)
+        try:
+            rv.wait_turn(rank)
+            with device_context(dev):
+                results[rank] = fn(group, parts.shards[rank])
+            done[rank] = True
+            rv.pass_turn(rank)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors[rank] = exc
+            rv.abort()
+
+    threads = [threading.Thread(target=body, args=(r,), daemon=True,
+                                name=f"slot-shard-{r}")
+               for r in range(size)]
+    for th in threads:
+        th.start()
+    rv.pass_turn(size - 1)
+    for th in threads:
+        # Once the run is broken every live shard stops at its next
+        # collective; one that does not return within the timeout hangs.
+        while th.is_alive() and not rv.broken:
+            th.join(timeout=1.0)
+        th.join(timeout=timeout)
+    hung = [r for r, th in enumerate(threads) if th.is_alive()]
+    secondary = (_Aborted, _Stalled, _Mismatch)
+    raised = [r for r, e in enumerate(errors) if e is not None
+              and not isinstance(e, secondary)]
+    if raised:
+        rank = raised[0]
+        err = errors[rank]
+        raise ShardError(rank, size, f"{type(err).__name__}: {err}") \
+            from err
+    failed = [r for r, e in enumerate(errors) if e is not None]
+    if hung:
+        raise ShardError(hung[0], size, f"shards {hung} did not reach a "
+                         f"collective or return within {timeout} s")
+    if failed:
+        left = [r for r in range(size) if done[r]]
+        first = errors[failed[0]]
+        if left:
+            rank, why = left[0], (f"shards {left} left the run while "
+                                  f"shards {failed} waited at a collective")
+        elif isinstance(first, _Mismatch):
+            rank, why = first.odd[0], str(first)
+        else:
+            rank, why = failed[0], (f"the collectives timed out after "
+                                    f"{timeout} s")
+        raise ShardError(rank, size, why) from first
+    return results

@@ -650,3 +650,111 @@ def pad_delay_rules(faults: EngineFaults, r: int) -> EngineFaults:
         delay_end=grow("delay_end", (), torch.int32),
         delay_seed_hi=limb(faults.delay_seed_hi),
         delay_seed_lo=limb(faults.delay_seed_lo))
+
+
+# ---------------------------------------------------------------------------
+# the slot axis of every leaf: split over a slot mesh and joined back
+# ---------------------------------------------------------------------------
+
+#: The slot axis of every engine field that has one (``EngineState``,
+#: ``EngineFaults``, ``StepLog``, ``churn.ChurnSchedule``,
+#: ``paxos.FallbackSchedule``); every other field is replicated. It is
+#: ``sharding.spec_for``'s layout, the first axis of length C. ``StepLog``'s
+#: ``[C]`` rows count from the end, so a log stacked ``[T, C]`` splits and
+#: joins the same way.
+SLOT_AXES = {
+    **dict.fromkeys((
+        "member", "uid_hi", "uid_lo", "mfp_hi", "mfp_lo", "idfp_hi",
+        "idfp_lo", "ring_order", "ring_rank", "subj_idx", "obs_idx",
+        "gk_idx", "fd_active", "fd_first", "fc", "notified",
+        "pending_flush", "pending_deliver", "churn_flush", "churn_deliver",
+        "reports", "voters", "px_rnd_r", "px_rnd_i", "px_vrnd_r",
+        "px_vrnd_i", "px_vval", "px_crnd_r", "px_crnd_i", "px_cval",
+        "px_timer", "px_pos", "c1b_mask"), 0),
+    **dict.fromkeys(("proposal", "decision"), -1),
+    **dict.fromkeys(("crash_tick", "drop_targets"), 0),
+    **dict.fromkeys(("link_src", "link_dst", "delay_src", "delay_dst"), 1),
+    **dict.fromkeys((
+        "join_tick", "join_epoch", "leave_tick", "leave_epoch",
+        "redraw_tick", "redraw_hi", "redraw_lo", "redraw_idfp_hi",
+        "redraw_idfp_lo"), 0),
+    **dict.fromkeys(("prop_tick", "prop_pid", "prop_delay"), 1),
+    "table_mask": 2,
+}
+
+
+def slot_axis(name: Optional[str], x: torch.Tensor) -> Optional[int]:
+    """The slot axis of leaf ``x`` of the field ``name`` (``SLOT_AXES``),
+    or None for a replicated leaf. A bare tensor (``name`` None, such as
+    a sub-kernel's output) has its rows on its first axis, a 0-d one
+    none."""
+    if name is None:
+        return 0 if x.dim() else None
+    return SLOT_AXES.get(name)
+
+
+def _map_named(fn, *trees, name=None):
+    """``fn(name, *leaves)`` over the tensor leaves of engine trees of one
+    structure (NamedTuples, ``EngineFaults``, tuples, lists, dicts), with
+    each leaf's field name; the first tree's other leaves are kept."""
+    first = trees[0]
+    if torch.is_tensor(first):
+        return fn(name, *trees)
+    if isinstance(first, EngineFaults):
+        return _faults_unflatten(
+            [_map_named(fn, *[getattr(t, f) for t in trees], name=f)
+             for f in EngineFaults.FIELDS], _faults_flatten(first)[1])
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*[_map_named(fn, *vs, name=f) for f, *vs in
+                             zip(first._fields, *trees)])
+    if isinstance(first, (tuple, list)):
+        return type(first)(_map_named(fn, *vs, name=name)
+                           for vs in zip(*trees))
+    if isinstance(first, dict):
+        return {k: _map_named(fn, *[t[k] for t in trees], name=k)
+                for k in first}
+    return first
+
+
+def split_slots(tree, capacity: int, parts: int) -> list:
+    """``tree`` cut into ``parts`` trees of contiguous slots: each leaf
+    with a slot axis of length ``capacity`` (``slot_axis``) narrowed to
+    ``capacity / parts`` slots, the others shared whole."""
+    per = capacity // parts
+
+    def cut(k):
+        def piece(name, x):
+            axis = slot_axis(name, x)
+            if axis is None or x.shape[axis] != capacity:
+                return x
+            return x.narrow(axis, k * per, per)
+        return _map_named(piece, tree)
+
+    return [cut(k) for k in range(parts)]
+
+
+def join_slots(trees: Sequence, device):
+    """The inverse of ``split_slots`` on ``device``: leaves with a slot
+    axis concatenated along it in shard order, the others taken from the
+    first shard."""
+    def whole(name, *xs):
+        axis = None if len(xs) == 1 else slot_axis(name, xs[0])
+        if axis is None:
+            return xs[0].to(device)
+        return torch.cat([x.to(device) for x in xs], dim=axis)
+
+    return _map_named(whole, *trees)
+
+
+def gather_slots(tree, group):
+    """``tree`` of one shard with every leaf that has a slot axis
+    all-gathered along it (``group.all_gather``): the whole tree on this
+    shard's device. A group of one shard gives ``tree``."""
+    if group.size == 1:
+        return tree
+
+    def whole(name, x):
+        axis = slot_axis(name, x)
+        return x if axis is None else group.all_gather(x, dim=axis)
+
+    return _map_named(whole, tree)

@@ -56,10 +56,22 @@ hashed once on a tick that needs them); each branch runs only under its
 variant. With
 ``invariant_checks`` every tick packs ``invariants.check_step`` into
 ``inv_bits`` (else the constant 0); with ``flight_recorder_window > 0``
-``simulate`` also returns the run's ``recorder.RecorderState``. A slot
-mesh of one device (``sharding.slot_mesh``) runs on that device; a larger
-one raises ``NotImplementedError`` (the slot axis across cards, the
-sharding item of ``ROADMAP.md`` Queue 1).
+``simulate`` also returns the run's ``recorder.RecorderState``.
+
+On a slot mesh (``sharding.slot_mesh``) of one device the run stays on
+that device. On ``D`` devices each input is split into ``C / D`` slots
+per shard (``sharding.shard_put``) and ``sharding.run_spmd`` runs one
+thread per shard, each under its device's context: ``_step`` with the
+shard's ``SlotGroup`` does the elementwise work on its slots, and every
+read across slots is one of the group's collectives (the observers'
+reports and ``at_lo``, the vote tally's sorts, the topology rebuild on
+all-gathered tables; exact integer all-reduces for every count, the
+64-bit sums with ``add64``'s carry, the first set slot). Every host
+branch reads an all-reduced value, so the shards take the same branches
+and make the same collectives; each shard's ``_Host`` is built from the
+whole schedules and keeps the whole faults. The outputs are joined on
+the mesh's first device and equal the unsplit run bit for bit; host
+reads and launches per tick grow about ``D`` times.
 
 ``fleet_body`` runs a stacked fleet (``engine.fleet``): F members, the
 member axis first on every tensor, through one host loop. ``_FleetHost``
@@ -88,9 +100,11 @@ from rapid_tpu_torch.device import read_arrays, read_host, resolve_device
 from rapid_tpu_torch.engine import churn as churn_mod
 from rapid_tpu_torch.engine import (cut, invariants, monitor, paxos,
                                     recorder, sharding, votes)
+from rapid_tpu_torch.engine import state as state_mod
+from rapid_tpu_torch.engine.sharding import SOLO
 from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs, member_map)
-from rapid_tpu_torch.engine.topology import build_topology
+from rapid_tpu_torch.engine.topology import rebuild
 from rapid_tpu_torch.settings import Settings
 from rapid_tpu_torch.variants import hier, ring
 
@@ -101,24 +115,74 @@ PX_COUNTS = ("pxvote_senders", "pxvote_recipients", "px1a_senders",
 
 
 def require_scope(mesh=None) -> Optional[torch.device]:
-    """The device of a one-device slot mesh, None without one; a larger
-    slot mesh raises ``NotImplementedError`` (``sharding.
-    require_slot_mesh``)."""
+    """The first device of a slot mesh, where a run's outputs are joined;
+    None without one (``sharding.require_slot_mesh``)."""
     return sharding.require_slot_mesh(mesh)
 
 
-class _Host:
-    """What the host knows of a run between its ticks."""
+def _split(mesh, state=None) -> bool:
+    """Whether ``mesh`` is a slot mesh of more than one device; a
+    ``state`` split into ``SlotShards`` needs one."""
+    split = require_scope(mesh) is not None and sharding.mesh_size(mesh) > 1
+    if not split and isinstance(state, sharding.SlotShards):
+        raise ValueError("a state split into SlotShards runs on the slot "
+                         "mesh it was split over (mesh=)")
+    return split
 
-    def __init__(self, state: EngineState, churn, fallback):
-        arrays = [state.tick, state.epoch]
+
+def _mesh_parts(state, faults, churn, fallback, mesh,
+                dev) -> "sharding.SlotShards":
+    """``(state, faults, churn, fallback)`` as one ``SlotShards`` over
+    ``mesh`` (``sharding.shard_tuple``: each input split by
+    ``shard_put`` unless it already is ``SlotShards``), on devices of
+    ``dev``'s type."""
+    cap = (state.capacity if isinstance(state, sharding.SlotShards)
+           else int(state.member.shape[0]))
+    parts = sharding.shard_tuple((state, faults, churn, fallback), mesh, cap)
+    if parts.devices not in (mesh.devices, mesh.devices[:1]):
+        raise ValueError(f"the inputs are split over {parts.devices}, the "
+                         f"slot mesh holds {mesh.devices}")
+    for where in parts.devices:
+        if where.type != dev.type:
+            raise ValueError(f"the slot mesh holds {where}, the run was "
+                             f"asked for {dev}")
+    return parts
+
+
+def _run_mesh(state, faults, churn, fallback, mesh, dev, body):
+    """``body(group, state, faults, churn, fallback)`` on every shard of
+    a slot mesh (``sharding.run_spmd``); returns the shards' ``(state,
+    log)`` pairs joined on the mesh's first device."""
+    parts = _mesh_parts(state, faults, churn, fallback, mesh, dev)
+    out = sharding.run_spmd(lambda g, shard: body(g, *shard), parts)
+    home = parts.devices[0]
+    return (state_mod.join_slots([o[0] for o in out], home),
+            state_mod.join_slots([o[1] for o in out], home))
+
+
+class _Host:
+    """What the host knows of a run between its ticks. On a slot mesh
+    (``group``) each shard keeps one, built from the whole schedules
+    (all-gathered along their slot axes), so every shard knows the same
+    ticks; ``faults`` is kept whole, for the reads across slots."""
+
+    def __init__(self, state: EngineState, churn, fallback, faults=None,
+                 group=SOLO):
+        self.faults = state_mod.gather_slots(faults, group)
+        sched = {}
         if churn is not None:
-            arrays += [churn.join_tick, churn.leave_tick]
+            sched.update(join_tick=churn.join_tick,
+                         leave_tick=churn.leave_tick)
             if churn.redraw_tick is not None:
-                arrays.append(churn.redraw_tick)
+                sched["redraw_tick"] = churn.redraw_tick
         if fallback is not None:
-            arrays += [fallback.prop_tick, fallback.prop_pid,
-                       fallback.prop_delay, fallback.inst_epoch]
+            sched.update(prop_tick=fallback.prop_tick,
+                         prop_pid=fallback.prop_pid,
+                         prop_delay=fallback.prop_delay)
+        arrays = [state.tick, state.epoch,
+                  *state_mod.gather_slots(sched, group).values()]
+        if fallback is not None:
+            arrays.append(fallback.inst_epoch)
         got = read_arrays(*arrays)
         self.tick, self.epoch = int(got[0]), int(got[1])
         self.start = self.tick
@@ -142,32 +206,34 @@ class _Host:
         return t - 2 in self.inject_ticks or t <= self.start + 2
 
 
-def _view_change(state: EngineState, pmask, with_pos: bool):
+def _view_change(state: EngineState, pmask, with_pos: bool, group=SOLO):
     """The decided view: member XOR ``pmask``, the 64-bit sums, the
     topology rebuilt from the static ring order, and (with a fallback
-    schedule) the ring-0 positions."""
+    schedule) the ring-0 positions. On a slot mesh the limb sums are
+    added across shards (``group.sum64``) and the rebuild runs on the
+    all-gathered mask and ring tables; each shard keeps its rows."""
     removed = (pmask & state.member).to(torch.int64)
     joined = (pmask & ~state.member).to(torch.int64)
     member = state.member ^ pmask
-    rhi, rlo = hashing.sum64_axis(state.mfp_hi * removed,
-                                  state.mfp_lo * removed)
-    ahi, alo = hashing.sum64_axis(state.mfp_hi * joined,
-                                  state.mfp_lo * joined)
+    rhi, rlo = group.sum64(*hashing.sum64_axis(state.mfp_hi * removed,
+                                               state.mfp_lo * removed))
+    ahi, alo = group.sum64(*hashing.sum64_axis(state.mfp_hi * joined,
+                                               state.mfp_lo * joined))
     ms_hi, ms_lo = hashing.sub64(state.memsum_hi, state.memsum_lo, rhi, rlo)
     ms_hi, ms_lo = hashing.add64(ms_hi, ms_lo, ahi, alo)
     # Identifiers are remembered forever: joins add, removals never
     # subtract.
-    ihi, ilo = hashing.sum64_axis(state.idfp_hi * joined,
-                                  state.idfp_lo * joined)
+    ihi, ilo = group.sum64(*hashing.sum64_axis(state.idfp_hi * joined,
+                                               state.idfp_lo * joined))
     id_hi, id_lo = hashing.add64(state.idsum_hi, state.idsum_lo, ihi, ilo)
-    subj, obs, gk, fd_active, fd_first = build_topology(
-        member, state.ring_order, state.ring_rank)
+    subj, obs, gk, fd_active, fd_first = rebuild(
+        member, state.ring_order, state.ring_rank, group)
     out = dict(member=member, memsum_hi=ms_hi, memsum_lo=ms_lo,
                idsum_hi=id_hi, idsum_lo=id_lo, subj_idx=subj, obs_idx=obs,
                gk_idx=gk, fd_active=fd_active, fd_first=fd_first)
     if with_pos:
         out["px_pos"] = paxos.ring0_positions(member, state.ring_order,
-                                              state.ring_rank)
+                                              state.ring_rank, group)
     return out
 
 
@@ -185,7 +251,8 @@ def _px_resets(state: EngineState) -> dict:
         c1b_mask=torch.zeros_like(state.c1b_mask))
 
 
-def _scripted_round(state, fallback, host: _Host, e: int, t: int, n):
+def _scripted_round(state, fallback, host: _Host, e: int, t: int, n,
+                    group=SOLO):
     """Phase 0 on a live tick: ``(state, counts, sc, sc_known, sc_pid,
     tally)``. ``sc`` (0-d bool, or None when provably false) says whether
     the scripted instance decides; ``sc_known`` is its host value when
@@ -195,7 +262,7 @@ def _scripted_round(state, fallback, host: _Host, e: int, t: int, n):
     classic = classic_pid = None
     if fb.fired_before(e, t, 2, 3, 4):
         state, counts, classic, classic_pid = paxos.chain_deliver(
-            state, fallback, t, n)
+            state, fallback, t, n, group)
         if not fb.fired_before(e, t, 4):
             classic = None      # no phase 2b can land this tick
     ok = win_pid = None
@@ -204,7 +271,8 @@ def _scripted_round(state, fallback, host: _Host, e: int, t: int, n):
     if arrived:
         key = (host.epoch, arrived)
         if key not in host.tally:
-            host.tally = {key: paxos.fast_tally(state, fallback, e, t, n)}
+            host.tally = {key: paxos.fast_tally(state, fallback, e, t, n,
+                                                group)}
             entry = host.tally[key]
             host.tally[key] = entry + tuple(read_host(entry[0]))
         ok, win_pid, tally, _, ok_host = host.tally[key]
@@ -231,31 +299,46 @@ def step(state: EngineState, faults: EngineFaults, settings: Settings,
     ``paxos.FallbackSchedule`` of tensors on the state's device, or None.
     ``tick`` is ``state.tick`` as a host int, read from the state when
     omitted (the state's epoch and the schedules are read all the same).
+    On a slot mesh of ``D`` devices the inputs are split over it (or
+    given as ``sharding.SlotShards``), each shard ticks on its thread, and
+    the state and the log come back joined on the mesh's first device.
     """
-    require_scope(mesh)
-    host = _Host(state, churn, fallback)
-    if tick is not None:
-        host.tick = int(tick)
-    new, log = _step(state, faults, settings, host, churn, fallback)
-    return new, log
+    def body(group, state, faults, churn, fallback):
+        host = _Host(state, churn, fallback, faults, group)
+        if tick is not None:
+            host.tick = int(tick)
+        return _step(state, host.faults, settings, host, churn, fallback,
+                     group)
+
+    if _split(mesh, state):
+        return _run_mesh(state, faults, churn, fallback, mesh,
+                         mesh.devices[0], body)
+    return body(SOLO, state, faults, churn, fallback)
 
 
 def _step(state: EngineState, faults: EngineFaults, settings: Settings,
-          host: _Host, churn=None, fallback=None):
+          host: _Host, churn=None, fallback=None, group=SOLO):
     """One tick ``t = host.tick + 1``; returns ``(state, log)`` and
-    advances ``host`` past it."""
+    advances ``host`` past it. On a slot mesh ``group`` is the shard's
+    ``sharding.SlotGroup``: ``state`` and the schedules hold its slots,
+    ``faults`` the whole universe's (``_Host.faults``: a probe's subject
+    or an alert's sender may be any slot), every cross-slot read is one
+    of its collectives, and every branch reads an all-reduced value, so
+    all shards take the same branches; the log's ``[C]`` fields are the
+    shard's slots."""
     t = host.tick + 1
     dev = state.member.device
     c = state.member.shape[0]
     variant = settings.protocol_variant
-    n_groups, gid = hier.hier_group_count(c), None
+    n_groups, gid = hier.hier_group_count(group.size * c), None
     i32 = lambda x: x.to(torch.int32)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     no_slots = lambda: torch.zeros(c, dtype=torch.bool, device=dev)
-    crashed = monitor.crashed_at(faults, t)
+    crashed_all = monitor.crashed_at(faults, t)
+    crashed = group.local(crashed_all)
     tick_t = state.tick + 1
     if host.n_member is None:
-        host.n_member = i32(state.member.sum())
+        host.n_member = i32(group.sum(state.member.sum()))
     n_member = host.n_member
     px = {}
 
@@ -265,7 +348,7 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         e, live = host.fb.row(host.epoch)
         if live:
             state, px, sc, sc_known, sc_pid, px_tally = _scripted_round(
-                state, fallback, host, e, t, n_member)
+                state, fallback, host, e, t, n_member, group)
 
     # ---- phase 1: vote delivery and decision --------------------------
     votes_arriving = state.vote_pending & (state.announce_tick + 1 == t)
@@ -281,30 +364,31 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         if variant == "hier":
             gid = hier.group_ids(state.uid_hi, state.uid_lo, n_groups)
             decided, vote_tally = hier.hier_count_fast_round(
-                state.member, valid, gid, n_groups)
+                state.member, valid, gid, n_groups, group)
         else:
             decided, vote_tally = votes.count_fast_round(
                 state.phash_hi.expand(c), state.phash_lo.expand(c), valid,
-                n_member)
+                n_member, group)
         vote_quorum = votes.fast_quorum(n_member)
         # A decision needs an alive receiver to count the votes, and a
         # scripted decide this tick takes precedence.
-        alert = decided & alive_members.any()
+        any_alive = group.any(alive_members.any())
+        alert = decided & any_alive
         if sc is not None:
             alert = alert & ~sc
         # Vote delivery factors: every vote to every alive member; the
         # ring's two laps; hier's whole exchange as one factor, recipient 1.
         if variant == "hier":
-            gate = valid.any() & alive_members.any()
+            gate = group.any(valid.any()) & any_alive
             vote_senders_alive = torch.where(
                 gate, hier.hier_exchange_messages(
-                    valid, alive_members, gid, n_groups), zero)
+                    valid, alive_members, gid, n_groups, group), zero)
             vote_deliver_alive = i32(gate)
         else:
-            vote_senders_alive = (ring.ring_pair_factor(valid)
+            vote_senders_alive = (ring.ring_pair_factor(valid, group)
                                   if variant == "ring"
-                                  else i32(valid.sum()))
-            vote_deliver_alive = i32(alive_members.sum())
+                                  else i32(group.sum(valid.sum())))
+            vote_deliver_alive = i32(group.sum(alive_members.sum()))
         vote_pending = vote_pending & ~votes_arriving
     if fallback is not None:
         vote_tally = torch.maximum(vote_tally, px_tally)
@@ -336,7 +420,7 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         ck_false = torch.zeros_like(state.reports)
         mid = state._replace(
             tick=tick_t,
-            **_view_change(state, pmask, fallback is not None),
+            **_view_change(state, pmask, fallback is not None, group),
             fc=torch.zeros_like(state.fc), notified=ck_false,
             fd_gate=tick_t, pending_flush=ck_false,
             pending_deliver=ck_false,
@@ -348,7 +432,7 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
             **(_px_resets(state) if fallback is not None else {}))
         decision = pmask
         host.epoch += 1
-        host.n_member = n_member = i32(mid.member.sum())
+        host.n_member = n_member = i32(group.sum(mid.member.sum()))
         host.px_gauges = None
     else:
         mid = state._replace(tick=tick_t, vote_pending=vote_pending)
@@ -358,27 +442,29 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     if fallback is not None and not decide:
         e, live = host.fb.row(host.epoch)
         if live and host.fb.fired_before(e, t, 1):
-            mid, px["px1b_senders"] = paxos.phase1a_deliver(mid, t)
+            mid, px["px1b_senders"] = paxos.phase1a_deliver(mid, t, group)
 
     # ---- phase 2: alert delivery, aggregation, announce ----------------
-    src_alive = ~crashed
+    src_alive_all = ~crashed_all
+    src_alive = group.local(src_alive_all)
     batch_src = mid.pending_deliver.any(dim=1)
-    n_alive = i32((mid.member & src_alive).sum())
-    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive)
+    n_alive = i32(group.sum((mid.member & src_alive).sum()))
+    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive, group)
                       if variant == "ring"
-                      else i32((batch_src & src_alive).sum()))
-    delivered_down = cut.deliver_reports(mid, src_alive)
+                      else i32(group.sum((batch_src & src_alive).sum())))
+    delivered_down = cut.deliver_reports(mid, src_alive_all, group)
     delivered_up = None
     if churn is not None and host.churn_may_deliver(t):
-        churn_down, delivered_up = cut.deliver_churn_reports(mid, src_alive)
+        churn_down, delivered_up = cut.deliver_churn_reports(mid,
+                                                             src_alive_all)
         delivered_down = delivered_down | churn_down
     (reports, seen_down, announce_now, crossed, _explicit,
      implicit_added, announce) = cut.aggregate(
-        mid, delivered_down, delivered_up, n_alive > 0, settings)
+        mid, delivered_down, delivered_up, n_alive > 0, settings, group)
     mid = mid._replace(reports=reports, seen_down=seen_down)
     if announce:
         ph_hi, ph_lo = votes.proposal_fingerprint(crossed, mid.uid_hi,
-                                                  mid.uid_lo)
+                                                  mid.uid_lo, group)
         mid = mid._replace(
             announced=mid.announced | announce_now, proposal=crossed,
             announce_tick=tick_t,
@@ -393,14 +479,15 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         if gid is None:
             gid = hier.group_ids(mid.uid_hi, mid.uid_lo, n_groups)
         vote_senders = hier.hier_exchange_messages(
-            mid.member & src_alive, mid.member, gid, n_groups)
+            mid.member & src_alive, mid.member, gid, n_groups, group)
         vote_recipients = torch.ones_like(zero)
 
     # ---- phase 3: batch flush (1-tick quiescence) ----------------------
     flusher_mask = mid.pending_flush.any(dim=1)
-    flushers = (ring.ring_pair_factor(flusher_mask) if variant == "ring"
-                else i32(flusher_mask.sum()))
-    flush_recipients = torch.where(flusher_mask.any(), n_member_now, zero)
+    flushers = (ring.ring_pair_factor(flusher_mask, group)
+                if variant == "ring" else i32(group.sum(flusher_mask.sum())))
+    flush_recipients = torch.where(group.any(flusher_mask.any()), n_member_now,
+                                   zero)
     mid = mid._replace(pending_deliver=mid.pending_flush,
                        pending_flush=torch.zeros_like(mid.pending_flush),
                        churn_deliver=mid.churn_flush,
@@ -409,15 +496,15 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     # ---- phase 4a': scripted identifier redraws ------------------------
     if churn is not None and t in host.redraw_ticks:
         redraw_now = (churn.redraw_tick == t) & ~mid.member
-        any_redraw, slot = read_host(redraw_now.any(),
-                                     torch.argmax(redraw_now.to(torch.uint8)))
+        any_redraw, slot = read_host(group.any(redraw_now.any()),
+                                     group.first_true(redraw_now))
         if any_redraw:
-            mid = churn_mod.apply_redraws(mid, churn, slot)
+            mid = churn_mod.apply_redraws(mid, churn, slot, group)
 
     # ---- phase 4a: churn alert injection -------------------------------
     churn_injected = zero
     if churn is not None and t in host.inject_ticks:
-        flush, churn_injected = churn_mod.inject(mid, churn, t)
+        flush, churn_injected = churn_mod.inject(mid, churn, t, group)
         mid = mid._replace(churn_flush=flush)
 
     # ---- phase 4b: failure-detector interval ---------------------------
@@ -426,7 +513,7 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     if t % settings.fd_interval_ticks == 0:
         is_fd = t > mid.fd_gate
         fc, notified, notify_exp, sent, failed = monitor.monitor_tick(
-            mid, faults, settings, t)
+            mid, faults, settings, t, group)
         new = mid._replace(fc=torch.where(is_fd, fc, mid.fc),
                            notified=torch.where(is_fd, notified,
                                                 mid.notified),
@@ -442,12 +529,13 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         fire = live and not decide and t in host.fb.fire[e]
         if send or fire:
             new, task_counts = paxos.task_phase(new, fallback, e, t,
-                                                n_member_now, send, fire)
+                                                n_member_now, send, fire,
+                                                group)
             px.update(task_counts)
             host.px_gauges = None
         if host.px_gauges is None:
-            host.px_gauges = (i32((new.px_timer != I32_MAX).sum()),
-                              new.px_crnd_r.max())
+            host.px_gauges = (i32(group.sum((new.px_timer != I32_MAX).sum())),
+                              group.max(new.px_crnd_r.max()))
         px_timers_armed, px_coord_round = host.px_gauges
     if variant == "ring" and "pxvote_senders" in px:
         # The scripted fast-round votes ride the ring's two laps too.
@@ -463,16 +551,18 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
             classic_decide=false if sc is None else sc,
             fast_mask=state.proposal,
             classic_mask=pmask if sc_decide else no_slots(),
-            settings=settings)
+            settings=settings, group=group)
 
     if decide or host.config is None:
         host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
                                       new.memsum_hi, new.memsum_lo)
     cfg_hi, cfg_lo = host.config
-    alerts_in_flight = i32(
-        new.pending_flush.any(dim=1).sum()
-        + new.pending_deliver.any(dim=1).sum()
-        + new.churn_flush.sum() + new.churn_deliver.sum())
+    in_flight = group.sum(new.pending_flush.any(dim=1).sum(),
+                          new.pending_deliver.any(dim=1).sum(),
+                          new.churn_flush.sum(), new.churn_deliver.sum(),
+                          new.reports.sum())
+    alerts_in_flight = i32(in_flight[0] + in_flight[1] + in_flight[2]
+                           + in_flight[3])
     log = StepLog(
         tick=tick_t,
         announce_now=announce_now,
@@ -484,18 +574,18 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
         probes_sent=probes_sent, probes_failed=probes_failed,
         flushers=flushers, flush_recipients=flush_recipients,
         flushers_alive=flushers_alive,
-        deliver_alive=torch.where(batch_src.any(), n_alive, zero),
+        deliver_alive=torch.where(group.any(batch_src.any()), n_alive, zero),
         vote_senders=vote_senders, vote_recipients=vote_recipients,
         vote_senders_alive=vote_senders_alive,
         vote_deliver_alive=vote_deliver_alive,
         alerts_in_flight=alerts_in_flight,
-        cut_reports=i32(new.reports.sum()),
+        cut_reports=i32(in_flight[4]),
         implicit_reports=implicit_added,
         vote_tally=vote_tally, quorum=vote_quorum,
         epoch=new.epoch,
         churn_injected=churn_injected,
-        partitioned_edges=monitor.partitioned_edge_count(faults, new.member,
-                                                         t),
+        partitioned_edges=monitor.partitioned_edge_count(
+            faults, new.member, t, group),
         link_dropped=zero,
         px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
         inv_bits=inv_bits,
@@ -521,17 +611,44 @@ def simulate(state: EngineState, faults: EngineFaults, n_ticks: int,
     ``settings.flight_recorder_window > 0`` ``(final, logs, recorder)``.
     ``churn`` is a ``churn.ChurnSchedule`` and ``fallback`` a
     ``paxos.FallbackSchedule`` of tensors (``convert.from_reference``
-    moves a host schedule), or None."""
+    moves a host schedule), or None.
+
+    ``mesh`` is a slot mesh (``sharding.slot_mesh``). On one device the
+    inputs must lie there. On ``D`` devices each input is split over it
+    by ``sharding.shard_put`` (or given as its ``SlotShards``): one
+    thread per shard runs the shard-local tick, the final state and the
+    logs come back joined on the mesh's first device, and the flight
+    recorder folds the joined logs; every output equals the run without
+    a mesh bit for bit. When the capacity does not divide ``D`` the run
+    goes whole on the first device (the divisibility guard)."""
     return _simulate(state, faults, n_ticks, settings, churn, fallback,
                      mesh, device, None)
+
+
+def _ticks(group, state, faults, churn, fallback, n_ticks: int,
+           settings: Settings):
+    """``n_ticks`` ticks of one shard (of the whole state without a
+    group): ``(final, stacked logs)``."""
+    host = _Host(state, churn, fallback, faults, group)
+    logs = []
+    for _ in range(int(n_ticks)):
+        state, log = _step(state, host.faults, settings, host, churn,
+                           fallback, group)
+        logs.append(log)
+    return state, stack_logs(logs)
 
 
 def _simulate(state, faults, n_ticks: int, settings: Settings, churn,
               fallback, mesh, device, rec):
     """``simulate``, folding the logs into the recorder ``rec`` when one
     is given (``simulate_chunk``) and into a fresh one otherwise."""
-    on_mesh = require_scope(mesh)
     dev = resolve_device(device)
+    if _split(mesh, state):
+        state, logs = _run_mesh(
+            state, faults, churn, fallback, mesh, dev,
+            lambda g, *shard: _ticks(g, *shard, n_ticks, settings))
+        return _recorded(state, logs, settings, rec, mesh.devices[0])
+    on_mesh = require_scope(mesh)
     placed = [("state", state.member.device),
               ("faults", faults.crash_tick.device)]
     if churn is not None:
@@ -546,12 +663,15 @@ def _simulate(state, faults, n_ticks: int, settings: Settings, churn,
             raise ValueError(f"{name} lives on {where}, the slot mesh's "
                              f"device is {on_mesh} (sharding.shard_put "
                              f"places it)")
-    host = _Host(state, churn, fallback)
-    logs = []
-    for _ in range(int(n_ticks)):
-        state, log = _step(state, faults, settings, host, churn, fallback)
-        logs.append(log)
-    logs = stack_logs(logs)
+    state, logs = _ticks(SOLO, state, faults, churn, fallback, n_ticks,
+                         settings)
+    return _recorded(state, logs, settings, rec, dev)
+
+
+def _recorded(state, logs, settings: Settings, rec, dev):
+    """``(state, logs)``, and with ``settings.flight_recorder_window``
+    the logs folded into ``rec`` (a fresh recorder on ``dev`` when
+    None)."""
     if settings.flight_recorder_window:
         if rec is None:
             rec = recorder.init(settings, device=dev)
@@ -1021,8 +1141,9 @@ def fleet_body(state: EngineState, faults: EngineFaults, churn, fallback,
     and with ``settings.flight_recorder_window > 0`` ``(finals, logs,
     recorders)`` with ``[F, W, G]`` rings.
 
-    ``mesh`` is a one-device slot mesh (a larger one raises);
-    ``fleet_mesh`` splits the members over its devices
+    ``mesh`` is a one-device slot mesh (a larger one raises: fleets on
+    a slot mesh, ROADMAP.md Queue 1 item 5); ``fleet_mesh`` splits the
+    members over its devices
     (``sharding.fleet_axis_put``) and the outputs come back joined in
     member order on its first device. The two are mutually exclusive."""
     sharding.require_one_layout(mesh, fleet_mesh)

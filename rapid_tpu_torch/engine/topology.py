@@ -9,6 +9,10 @@ position's nearest member before and after it (``cummax``/``cummin``),
 and gather back. ``build_topology`` takes any number of leading
 (receiver) axes on ``member``: the per-receiver engine rebuilds every
 receiver's view in one batched call.
+
+On a slot mesh the rebuild stays replicated, as the reference pins it:
+``rebuild`` all-gathers the member mask and the ring tables, runs
+``build_topology`` on the whole universe and keeps the shard's rows.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from rapid_tpu_torch import hashing
+from rapid_tpu_torch.engine.sharding import SOLO
 
 
 def ring_permutations(uid_hi, uid_lo, k: int):
@@ -133,3 +138,11 @@ def build_topology(member, ring_order, ring_rank):
     stack = lambda cols: torch.stack(cols, dim=-1)
     return (stack(subj_cols), stack(obs_cols), stack(gk_cols),
             stack(fd_active_cols), stack(fd_first_cols))
+
+
+def rebuild(member, ring_order, ring_rank, group=SOLO):
+    """``build_topology``'s five tables for the rows of ``group``'s shard
+    (every row without a group): the member mask and the ring tables are
+    all-gathered, the rebuild runs whole, and the shard keeps its rows."""
+    out = build_topology(*group.all_gather(member, ring_order, ring_rank))
+    return tuple(group.local(x) for x in out)

@@ -7,27 +7,34 @@ sort the ``(hi, lo)`` vote hashes, mark run starts, and sum the valid
 votes of each run; no ``[C, C]`` comparison matrix is built.
 ``scan_vote_count`` gives the same tally through scans, as the ring
 variant's aggregation kernel does (``telemetry.profile``'s variant block).
+
+On a slot mesh (``group``) the sorts and scans run on the all-gathered
+votes, replicated, and each shard keeps its slots of the tally; the
+fingerprint's limb sums and the fast round's counts are all-reduced.
 """
 from __future__ import annotations
 
 import torch
 
 from rapid_tpu_torch import hashing
+from rapid_tpu_torch.engine.sharding import SOLO
 
 PROPOSAL_SEED = 0x70726F70
 
 
-def proposal_fingerprint(proposal_mask, uid_hi, uid_lo):
+def proposal_fingerprint(proposal_mask, uid_hi, uid_lo, group=SOLO):
     """64-bit fingerprint of a proposal mask, as 0-d ``(hi, lo)`` limbs:
     the order-independent sum of per-member hashes, finalised with
-    splitmix64."""
+    splitmix64; on a slot mesh each shard's partial sum is added with
+    ``group.sum64``."""
     phi, plo = hashing.hash64_limbs(uid_hi, uid_lo, seed=PROPOSAL_SEED)
     m = proposal_mask.reshape(-1).to(torch.int64)
     shi, slo = hashing.sum64_axis(phi.reshape(-1) * m, plo.reshape(-1) * m)
+    shi, slo = group.sum64(shi, slo)
     return hashing.splitmix64_limbs(shi, slo)
 
 
-def segmented_vote_count(vote_hi, vote_lo, valid):
+def segmented_vote_count(vote_hi, vote_lo, valid, group=SOLO):
     """i32 [C]: for each slot, the number of valid votes equal to its
     vote; invalid slots count 0.
 
@@ -38,8 +45,12 @@ def segmented_vote_count(vote_hi, vote_lo, valid):
     ``scatter_add``, exact in any order of accumulation. Every write is
     out of place and batches natively, so a fleet maps the function over
     its members (``torch.func.vmap``) in one op per step whatever their
-    number.
+    number. On a slot mesh the count runs on the all-gathered votes and
+    the shard's slots of it are returned.
     """
+    if group.size > 1:
+        return group.local(segmented_vote_count(
+            *group.all_gather(vote_hi, vote_lo, valid, dim=-1)), dim=-1)
     c = vote_hi.shape[-1]
     dev = vote_hi.device
     order, sval, starts = _sorted_runs(vote_hi, vote_lo, valid)
@@ -66,7 +77,7 @@ def _sorted_runs(vote_hi, vote_lo, valid):
     return order, valid[order].to(torch.int32), starts
 
 
-def scan_vote_count(vote_hi, vote_lo, valid):
+def scan_vote_count(vote_hi, vote_lo, valid, group=SOLO):
     """i32 [C]: ``segmented_vote_count``'s tally through scans, with no
     segment sum: the aggregation core of the ring variant.
 
@@ -75,8 +86,12 @@ def scan_vote_count(vote_hi, vote_lo, valid):
     the difference of the valid mask's prefix sums at its two ends, so an
     invalid slot sorted into a valid run's tail adds nothing and reads 0,
     as in the segment sum. Equal to ``segmented_vote_count`` on every
-    input.
+    input. On a slot mesh it runs on the all-gathered votes and returns
+    the shard's slots.
     """
+    if group.size > 1:
+        return group.local(scan_vote_count(
+            *group.all_gather(vote_hi, vote_lo, valid, dim=-1)), dim=-1)
     c = vote_hi.shape[-1]
     dev = vote_hi.device
     order, sval, starts = _sorted_runs(vote_hi, vote_lo, valid)
@@ -100,10 +115,12 @@ def fast_quorum(n_member):
     return (n - torch.div(n - 1, 4, rounding_mode="floor")).to(torch.int32)
 
 
-def count_fast_round(vote_hi, vote_lo, valid, n_member):
+def count_fast_round(vote_hi, vote_lo, valid, n_member, group=SOLO):
     """``(decided, winner_count)``: both the delivered votes and one
-    value's votes reach the fast quorum."""
+    value's votes reach the fast quorum; on a slot mesh the most common
+    vote's count and the total are all-reduced."""
     quorum = fast_quorum(n_member)
-    winner = segmented_vote_count(vote_hi, vote_lo, valid).max()
-    total = valid.sum().to(torch.int32)
+    winner = group.max(segmented_vote_count(vote_hi, vote_lo, valid,
+                                            group).max())
+    total = group.sum(valid.sum()).to(torch.int32)
     return (total >= quorum) & (winner >= quorum), winner

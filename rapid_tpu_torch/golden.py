@@ -388,13 +388,15 @@ def shared_run_record(name: str, final, logs, rec=None,
     return out
 
 
-def run_scenario(sc: SharedScenario, device="cuda") -> dict:
-    """Boot ``sc`` on ``device``, run it, and return its record."""
+def run_scenario(sc: SharedScenario, device="cuda", mesh=None) -> dict:
+    """Boot ``sc`` on ``device``, run it (on the slot mesh ``mesh`` when
+    given), and return its record."""
     from rapid_tpu_torch.engine import simulate
 
     boot = sc.boot(device=device)
     out = simulate(boot.state, boot.faults, sc.ticks, sc.settings(),
-                   churn=boot.churn, fallback=boot.fallback, device=device)
+                   churn=boot.churn, fallback=boot.fallback, mesh=mesh,
+                   device=device)
     return shared_run_record(sc.name, *out, plan=boot.plan)
 
 

@@ -151,78 +151,123 @@ def kernel_cases(state, faults, settings, fallback=None,
     tick where its host knows the phase does nothing, so the sub-kernels
     can add up to more than ``full_step``. ``fallback`` is a
     ``paxos.FallbackSchedule`` of tensors on the state's device; its
-    instance must be live at the state's epoch. ``mesh`` may be a slot
-    mesh of one device, on which the state lies; a larger one raises
-    ``NotImplementedError``, as the step does.
+    instance must be live at the state's epoch.
+
+    ``mesh`` is a slot mesh. On one device the state lies there. On
+    ``D`` devices the inputs are split over it (or given as
+    ``sharding.SlotShards``), each case's one argument is the
+    ``SlotShards`` of its inputs, and its function runs the sub-kernel on
+    every shard with the shard's ``SlotGroup`` (``sharding.run_spmd``),
+    as the step calls it there, and joins the outputs on the mesh's first
+    device; ``full_step`` is ``step.step`` on the mesh. Each sub-kernel
+    is written once, as ``fn(group, ...)``: without a split it runs with
+    ``sharding.SOLO`` on the inputs themselves.
     """
-    from rapid_tpu_torch.engine import cut, monitor, paxos, step, votes
-    from rapid_tpu_torch.engine.topology import build_topology
+    from rapid_tpu_torch.engine import (cut, monitor, paxos, sharding,
+                                        step, votes)
+    from rapid_tpu_torch.engine import state as state_mod
+    from rapid_tpu_torch.engine.topology import rebuild
 
-    step.require_scope(mesh)
-    t_now, epoch = (int(v) for v in read_arrays(state.tick, state.epoch))
+    trees, parts = (state, faults, fallback), None
+    if step._split(mesh):
+        cap = (state.capacity if isinstance(state, sharding.SlotShards)
+               else int(state.member.shape[0]))
+        trees = tuple(sharding.slot_shards(x, mesh, cap) for x in trees)
+        parts = sharding.shard_tuple(trees, mesh, cap)
+        home = parts.devices[0]
+        n = sum(sh[0].member.sum().to(home) for sh in parts.shards)
+        counts = [n.to(torch.int32).to(dev) for dev in parts.devices]
+        first = parts.shards[0]
+    else:
+        step.require_scope(mesh)
+        counts = [state.member.sum().to(torch.int32)]
+        first = trees
+    t_now, epoch = (int(v) for v in read_arrays(first[0].tick,
+                                                first[0].epoch))
     t = t_now + 1
-    c = state.member.shape[0]
-    n = state.member.sum().to(torch.int32)
+    members = lambda g: counts[g.rank]  # the tick's member count
 
-    def topology_rebuild(member, ring_order, ring_rank):
-        return build_topology(member, ring_order, ring_rank)
+    def case(name, fn, pick):
+        """``(name, run, args)`` for sub-kernel ``fn(group, *inputs)``,
+        its inputs picked from each shard's ``(state, faults,
+        fallback)``."""
+        if parts is None:
+            return name, lambda *a: fn(sharding.SOLO, *a), pick(*trees)
+        args = sharding.SlotShards(tuple(pick(*sh) for sh in parts.shards),
+                                   parts.devices, parts.capacity)
 
-    def monitor_kernel(state, faults):
-        return monitor.monitor_tick(state, faults, settings, t_now)
+        def run(shards):
+            out = sharding.run_spmd(lambda g, sh: fn(g, *sh), shards)
+            return state_mod.join_slots(out, shards.devices[0])
+        return name, run, (args,)
 
-    def cut_aggregate(state, faults):
-        src_alive = ~monitor.crashed_at(faults, t)
-        n_alive = (state.member & src_alive).sum().to(torch.int32)
-        return cut.aggregate(state, cut.deliver_reports(state, src_alive),
-                             None, n_alive > 0, settings)
+    def topology_rebuild(g, member, ring_order, ring_rank):
+        return rebuild(member, ring_order, ring_rank, g)
 
-    def vote_count(state, faults):
+    def monitor_kernel(g, state, faults):
+        return monitor.monitor_tick(
+            state, state_mod.gather_slots(faults, g), settings, t_now, g)
+
+    def cut_aggregate(g, state, faults):
+        src_alive = ~monitor.crashed_at(
+            state_mod.gather_slots(faults, g), t)
+        n_alive = g.sum((state.member & g.local(src_alive)).sum()).to(
+            torch.int32)
+        return cut.aggregate(state, cut.deliver_reports(state, src_alive, g),
+                             None, n_alive > 0, settings, g)
+
+    def vote_count(g, state, faults):
+        c = state.member.shape[0]
         valid = state.voters & ~monitor.crashed_at(faults, t) \
             & state.vote_pending
         return votes.count_fast_round(state.phash_hi.expand(c),
-                                      state.phash_lo.expand(c), valid, n)
+                                      state.phash_lo.expand(c), valid,
+                                      members(g), g)
 
+    state_faults = lambda s, f, _: (s, f)
     cases = [
-        ("topology_rebuild", topology_rebuild,
-         (state.member, state.ring_order, state.ring_rank)),
-        ("monitor", monitor_kernel, (state, faults)),
-        ("cut_aggregate", cut_aggregate, (state, faults)),
-        ("vote_count", vote_count, (state, faults)),
+        case("topology_rebuild", topology_rebuild,
+             lambda s, *_: (s.member, s.ring_order, s.ring_rank)),
+        case("monitor", monitor_kernel, state_faults),
+        case("cut_aggregate", cut_aggregate, state_faults),
+        case("vote_count", vote_count, state_faults),
     ]
     if fallback is None:
         def full_step(state, faults):
             return step.step(state, faults, settings, mesh=mesh,
                              tick=t_now)
 
-        return cases + [("full_step", full_step, (state, faults))]
+        return cases + [("full_step", full_step, trees[:2])]
 
-    e, live = paxos.instance_row(read_arrays(fallback.inst_epoch)[0], epoch)
+    e, live = paxos.instance_row(read_arrays(first[2].inst_epoch)[0], epoch)
     if not live:
         raise ValueError(f"the fallback schedule has no live instance at "
                          f"epoch {epoch}")
 
-    def paxos_chain_deliver(state, sched):
-        return paxos.chain_deliver(state, sched, t, n)
+    def paxos_chain_deliver(g, state, sched):
+        return paxos.chain_deliver(state, sched, t, members(g), g)
 
-    def paxos_fast_tally(state, sched):
-        return paxos.fast_tally(state, sched, e, t, n)
+    def paxos_fast_tally(g, state, sched):
+        return paxos.fast_tally(state, sched, e, t, members(g), g)
 
-    def paxos_phase1a_deliver(state, sched):
-        return paxos.phase1a_deliver(state, t)
+    def paxos_phase1a_deliver(g, state, sched):
+        return paxos.phase1a_deliver(state, t, g)
 
-    def paxos_task_phase(state, sched):
-        return paxos.task_phase(state, sched, e, t, n, True, True)
+    def paxos_task_phase(g, state, sched):
+        return paxos.task_phase(state, sched, e, t, members(g), True, True,
+                                g)
 
     def full_step(state, faults, sched):
         return step.step(state, faults, settings, None, sched, mesh,
                          tick=t_now)
 
+    state_sched = lambda s, _, fb: (s, fb)
     return cases + [
-        ("paxos_chain_deliver", paxos_chain_deliver, (state, fallback)),
-        ("paxos_fast_tally", paxos_fast_tally, (state, fallback)),
-        ("paxos_phase1a_deliver", paxos_phase1a_deliver, (state, fallback)),
-        ("paxos_task_phase", paxos_task_phase, (state, fallback)),
-        ("full_step", full_step, (state, faults, fallback)),
+        case("paxos_chain_deliver", paxos_chain_deliver, state_sched),
+        case("paxos_fast_tally", paxos_fast_tally, state_sched),
+        case("paxos_phase1a_deliver", paxos_phase1a_deliver, state_sched),
+        case("paxos_task_phase", paxos_task_phase, state_sched),
+        ("full_step", full_step, trees),
     ]
 
 
@@ -416,21 +461,56 @@ MULTICHIP_KERNELS = ("cut_aggregate", "vote_count", "full_step")
 
 def multichip_comparison(sizes: Sequence[int], settings,
                          n_devices: int = 8, repeats: int = 5,
-                         seed: int = 0,
-                         warmup_ticks: int = 8) -> Optional[Dict[str, object]]:
-    """The sharded-vs-single-device block, a slot-axis comparison:
-    ``None`` when the process sees fewer than ``n_devices`` CUDA devices,
-    as the reference answers with too few devices (the payload records
-    the absence). With enough devices it raises ``NotImplementedError``:
-    a slot mesh of more than one device is the slot axis across cards
-    (the ROADMAP.md Queue 1 sharding item); a one-device slot mesh and
-    fleet meshes run."""
-    if torch.cuda.device_count() < n_devices:
-        return None
-    raise NotImplementedError(
-        f"a {n_devices}-device slot mesh: the slot axis across cards (the "
-        f"ROADMAP.md Queue 1 sharding item) is not ported; the port runs "
-        f"a one-device slot mesh and fleet meshes")
+                         seed: int = 0, warmup_ticks: int = 8,
+                         devices=None,
+                         device="cuda") -> Optional[Dict[str, object]]:
+    """Sharded-vs-single-device wall clock for ``MULTICHIP_KERNELS``, the
+    reference's block: per size, each kernel once on the synthetic state
+    on one device and once with the state and faults ``shard_put`` on a
+    slot mesh (``kernel_cases`` on the mesh), both medians and the
+    speedup. Sizes whose capacity does not divide the mesh are skipped:
+    the sharder would replicate them.
+
+    The mesh is ``devices`` when given (a device may repeat: four shards
+    on one card), else ``n_devices`` visible cards; with fewer cards than
+    that the block is ``None``, as the reference answers with too few
+    devices (the payload records the absence)."""
+    from rapid_tpu_torch.engine import sharding
+
+    if devices is None:
+        if torch.cuda.device_count() < n_devices:
+            return None
+        mesh = sharding.slot_mesh(n_devices, device=device)
+    else:
+        mesh = sharding.slot_mesh(devices=devices)
+    n_dev = sharding.mesh_size(mesh)
+    entries: List[Dict[str, object]] = []
+    for n in sizes:
+        state, faults = synthetic_state(n, settings, seed=seed,
+                                        warmup_ticks=warmup_ticks,
+                                        device=mesh.devices[0])
+        c = int(state.member.shape[0])
+        if c % n_dev:
+            continue
+        plain = {name: (fn, args) for name, fn, args
+                 in kernel_cases(state, faults, settings)}
+        s_state = sharding.shard_put(state, mesh, c)
+        s_faults = sharding.shard_put(faults, mesh, c)
+        sharded = {name: (fn, args) for name, fn, args
+                   in kernel_cases(s_state, s_faults, settings, mesh=mesh)}
+        for kname in MULTICHIP_KERNELS:
+            base = measure_kernel(kname, *plain[kname], repeats=repeats)
+            shrd = measure_kernel(kname, *sharded[kname], repeats=repeats)
+            entries.append({
+                "kernel": kname,
+                "n": n,
+                "single_wall_median_s": base.wall_median_s,
+                "sharded_wall_median_s": shrd.wall_median_s,
+                "speedup": round(
+                    base.wall_median_s / shrd.wall_median_s, 3)
+                if shrd.wall_median_s else None,
+            })
+    return {"n_devices": n_dev, "axis": sharding.AXIS, "kernels": entries}
 
 
 def receiver_fleet_ticks(settings, n: int = 64,
@@ -644,7 +724,8 @@ def dominance_report(sizes: Sequence[int], settings, repeats: int = 5,
                           for r in runs},
         "multichip": multichip_comparison(
             sizes, settings, n_devices=multichip_devices, repeats=repeats,
-            seed=seed, warmup_ticks=warmup_ticks) if multichip else None,
+            seed=seed, warmup_ticks=warmup_ticks,
+            device=dev) if multichip else None,
         "receiver_memory": receiver_memory_block(
             settings, n=receiver_n, seed=seed, device=dev)
         if receiver_memory else None,

@@ -9,7 +9,8 @@ the live group aggregators and one relayed verdict per target
 (``hier_exchange_messages``). Per-group counts are a ``scatter_add``
 over the slots, where the reference builds a ``[G, C]`` one-hot.
 ``np_hier_decide`` is the numpy host twin of the decide bit, by
-``bincount``.
+``bincount``. On a slot mesh (``group``) each shard counts its slots
+and the ``[G]`` counts and the sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.engine import votes
+from rapid_tpu_torch.engine.sharding import SOLO
 
 #: Seed of the identity -> group hash ("hier" in ASCII).
 HIER_GROUP_SEED = 0x68696572
@@ -45,17 +47,18 @@ def _group_counts(gid, mask, n_groups: int):
         0, gid.long(), mask.to(torch.int32))
 
 
-def hier_count_fast_round(member, valid, gid, n_groups: int):
+def hier_count_fast_round(member, valid, gid, n_groups: int, group=SOLO):
     """``(decided, tally)``: the two-level decide rule over the
     announce-time ``member`` mask and the delivered ``valid`` votes, with
     ``gid`` from ``group_ids``; ``tally`` is the total of delivered
     votes."""
-    m_g = _group_counts(gid, member, n_groups)
-    v_g = _group_counts(gid, valid, n_groups)
+    m_g, v_g, tally = group.sum(
+        _group_counts(gid, member, n_groups),
+        _group_counts(gid, valid, n_groups), valid.sum())
     group_yes = (v_g >= votes.fast_quorum(m_g)) & (m_g > 0)
     n_live = (m_g > 0).sum().to(torch.int32)
     decided = group_yes.sum().to(torch.int32) >= votes.fast_quorum(n_live)
-    return decided, valid.sum().to(torch.int32)
+    return decided, tally.to(torch.int32)
 
 
 def np_hier_decide(member_mask, valid_mask, uid_hi, uid_lo,
@@ -74,11 +77,14 @@ def np_hier_decide(member_mask, valid_mask, uid_hi, uid_lo,
     return int(group_yes.sum()) >= n_live - (n_live - 1) // 4
 
 
-def hier_exchange_messages(voters, relay_targets, gid, n_groups: int):
+def hier_exchange_messages(voters, relay_targets, gid, n_groups: int,
+                           group=SOLO):
     """i32: messages of one hierarchical exchange: a vote per voter,
     ``G_live**2`` verdicts among the groups holding a voter, a relayed
     verdict per target; ``gid`` from ``group_ids``."""
-    g_live = (_group_counts(gid, voters, n_groups) > 0).sum().to(
-        torch.int32)
-    return (voters.sum().to(torch.int32) + g_live * g_live
-            + relay_targets.sum().to(torch.int32))
+    counts, n_voters, n_relay = group.sum(
+        _group_counts(gid, voters, n_groups), voters.sum(),
+        relay_targets.sum())
+    g_live = (counts > 0).sum().to(torch.int32)
+    return (n_voters.to(torch.int32) + g_live * g_live
+            + n_relay.to(torch.int32))

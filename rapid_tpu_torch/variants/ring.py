@@ -11,9 +11,13 @@ from __future__ import annotations
 
 import torch
 
+from rapid_tpu_torch.engine.sharding import SOLO
 
-def ring_pair_factor(any_mask):
+
+def ring_pair_factor(any_mask, group=SOLO):
     """i32: the ring's sender factor for one exchange, 2 when any slot of
     ``any_mask`` sends (one lap up, one down), else 0; a ``[F, C]`` mask
-    gives one factor per fleet member."""
-    return torch.where(any_mask.any(dim=-1), 2, 0).to(torch.int32)
+    gives one factor per fleet member. On a slot mesh the ``any`` is
+    all-reduced."""
+    return torch.where(group.any(any_mask.any(dim=-1)), 2,
+                       0).to(torch.int32)

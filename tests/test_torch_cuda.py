@@ -288,6 +288,23 @@ def test_shared_differential_on_card(card):
     assert plain(on_card) == plain(on_cpu)
 
 
+@pytest.mark.parametrize("name", ["shared_n1000_crash",
+                                  "shared_n1000_contested"])
+def test_two_slot_shards_on_card_equal_the_golden_file(card, name):
+    """One cluster's slots split two ways on one card (a slot mesh that
+    names the card twice) equal the golden file, which the unsplit run
+    and the reference give; no delivery kernel launches."""
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import sharding
+
+    sc = golden.SCENARIOS[name]
+    before = rx_account.deliver_launches + rx_account.launches
+    rec = golden.run_scenario(sc, device=card, mesh=sharding.slot_mesh(
+        devices=[card, card]))
+    assert rx_account.deliver_launches + rx_account.launches == before
+    assert golden.differences(rec, golden.load(sc.path)) == []
+
+
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_campaign_on_card_equals_cpu(card, pipeline):
     """A campaign straddling both modes (crash and partition members,

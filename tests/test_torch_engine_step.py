@@ -3,7 +3,8 @@
 and every final-state field, bit for bit (tolerance: exact), on crash
 bursts, probe drop with link windows, and two bursts whose decides follow
 one another; plus the host-side events and counters, the host reads per
-tick, and what the port still refuses."""
+tick, and a slot mesh of two devices (once refused) against the
+reference."""
 import importlib
 from dataclasses import dataclass
 from typing import Tuple
@@ -151,15 +152,25 @@ def test_step_reads_the_tick_when_not_given():
     (dict(mesh=sharding.slot_mesh(2, device="cpu")), "sharding item"),
 ])
 def test_out_of_slice_options_are_refused(kw, item):
-    uids, id_fp_sum = default_identities(8)
-    state = init_state(uids, id_fp_sum, Settings(), device="cpu")
-    faults = from_reference(RefFaults(np.full(8, I32_MAX, np.int32)),
-                            device="cpu")
-    settings = kw.pop("settings", Settings())
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        step.simulate(state, faults, 2, settings, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        step.step(state, faults, settings, **kw)
+    """The options this test once found refused now run: a slot mesh of
+    two devices (the Queue 1 sharding item, done) gives the reference's
+    logs and final state on the probe-drop and link-window run, and
+    ``step`` on it gives the unsplit tick."""
+    run = RUNS["n64_drop_two_way_and_flip_flop"]
+    state, faults = _reference_boot(run)
+    want_final, want_logs = ref_step.simulate(state, faults, run.ticks,
+                                              RefSettings())
+    port_state = from_reference(state, device="cpu")
+    port_faults = from_reference(faults, device="cpu")
+    final, logs = step.simulate(port_state, port_faults, run.ticks,
+                                Settings(), device="cpu", **kw)
+    _assert_same(logs, want_logs)
+    _assert_same(final, want_final)
+    got = step.step(port_state, port_faults, Settings(), **kw)
+    want = step.step(port_state, port_faults, Settings())
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("settings", [

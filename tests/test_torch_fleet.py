@@ -259,7 +259,8 @@ def test_refusals():
         fleet.stack_members([members[1], dropped])
     stacked = fleet.stack_members(members[:2])
     two = sharding.slot_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
+    with pytest.raises(NotImplementedError,
+                       match="fleets on a slot mesh.*Queue 1 item 5"):
         fleet.fleet_simulate(stacked, 4, settings, device="cpu", mesh=two)
     with pytest.raises(ValueError, match="'fleet' axis"):
         fleet.fleet_simulate(stacked, 4, settings, device="cpu",

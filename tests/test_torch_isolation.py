@@ -38,6 +38,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert "rapid_tpu_torch.engine.step" in result["modules"]
     assert "rapid_tpu_torch.engine.churn" in result["modules"]
     assert "rapid_tpu_torch.engine.sharding" in result["modules"]
+    assert "rapid_tpu_torch.multichip" in result["modules"]
     assert "rapid_tpu_torch.telemetry.metrics" in result["modules"]
     assert "rapid_tpu_torch.telemetry.lineage" in result["modules"]
     for name in ("events", "engine.adversary", "engine.diff",

@@ -110,9 +110,17 @@ def test_divergence_names_tick_and_field_on_both(tmp_path):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
-        diff.run_differential(8, {}, 4, device="cpu",
-                              mesh=sharding.slot_mesh(2, device="cpu"))
+    """Once refused, a slot mesh of two devices now runs the crash
+    differential and gives the reference's events, counters and config
+    id."""
+    got = diff.run_differential(16, {2: 3}, 130, device="cpu",
+                                mesh=sharding.slot_mesh(2, device="cpu"))
+    got.assert_identical()
+    want = ref_diff.run_differential(16, {2: 3}, 130)
+    assert [e.as_dict() for e in got.engine_events] == \
+        [e.as_dict() for e in want.engine_events]
+    assert got.engine_counters == want.engine_counters
+    assert got.engine_config_id == want.engine_config_id
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,13 @@ reference's, which run on the conftest's eight forced CPU devices.
   carry, an F=6 fleet that does not divide an 8-way mesh, and a
   reference fleet placed on its mesh and carried across by
   ``convert.from_reference``.
-- A one-device slot mesh: ``simulate`` and ``run_differential`` equal the
-  reference with and without its 8-way slot mesh; a slot mesh of two
-  raises ``NotImplementedError``, and both layouts together "mutually
-  exclusive".
+- Slot meshes: ``simulate``, ``step`` and ``run_differential`` on one
+  device and on two equal the reference with and without its 8-way slot
+  mesh; ``shard_put`` on two devices holds the slots the reference's
+  two-way placement puts on each; a fleet on a slot mesh of two raises
+  ``NotImplementedError`` ("fleets on a slot mesh"), and both layouts
+  together "mutually exclusive". ``tests/test_torch_slot_mesh.py`` holds
+  the slot axis at more sizes.
 - The shard loops enter each shard's device context around each of its
   ticks, in turns.
 
@@ -159,10 +162,49 @@ def test_meshes_and_their_refusals():
     with pytest.raises(ValueError, match="need 2 devices for the slot"):
         sharding.slot_mesh(2, devices=["cpu"])
     with pytest.raises(NotImplementedError,
-                       match="slot axis across cards.*Queue 1 sharding"):
-        sharding.shard_put(torch.zeros(4), slot)
-    with pytest.raises(NotImplementedError, match="slot axis across cards"):
+                       match="fleets on a slot mesh.*Queue 1 item 5"):
         sharding.fleet_shard_put(torch.zeros(4), slot, 4)
+
+
+def test_shard_put_on_two_devices_holds_the_reference_placement(
+        ref_meshes):
+    """``shard_put`` of a state and its faults on a two-device slot mesh:
+    each shard holds what the reference's two-way placement puts on that
+    device, leaf by leaf, and ``state.join_slots`` gives the whole back."""
+    from rapid_tpu_torch.engine.state import (crash_faults, init_state,
+                                              join_slots)
+    from rapid_tpu_torch.identity import default_identities
+
+    n = 32
+    uids, fp_sum = default_identities(n)
+    crash = [ref_state.I32_MAX] * n
+    crash[5] = 3
+    ref_mesh = ref_meshes[2][0]
+    two = sharding.slot_mesh(2, device="cpu")
+    for port_tree, ref_tree in (
+            (init_state(uids, fp_sum, Settings(), device="cpu"),
+             ref_state.init_state(uids, fp_sum, RefSettings())),
+            (crash_faults(crash, device="cpu"),
+             ref_state.crash_faults(crash))):
+        placed = sharding.shard_put(port_tree, two, n)
+        ref_placed = ref_sharding.shard_put(ref_tree, ref_mesh, n)
+        assert isinstance(placed, sharding.SlotShards)
+        assert placed.devices == two.devices and placed.capacity == n
+        fields = getattr(type(port_tree), "_fields", ("crash_tick",))
+        for k, shard in enumerate(placed.shards):
+            host = to_numpy(shard) if hasattr(shard, "_fields") else shard
+            for name in fields:
+                want = np.asarray(sorted(
+                    getattr(ref_placed, name).addressable_shards,
+                    key=lambda sh: sh.device.id)[k].data)
+                got = np.asarray(getattr(host, name))
+                assert got.dtype == want.dtype, name
+                assert got.shape == want.shape, name
+                assert np.array_equal(got, want), name
+        joined = join_slots(placed.shards, torch.device("cpu"))
+        for name in fields:
+            assert torch.equal(getattr(joined, name),
+                               getattr(port_tree, name)), name
 
 
 def test_fleet_axis_mesh_on_the_card_counts_the_cards(monkeypatch):
@@ -274,7 +316,7 @@ def test_both_layouts_together_are_mutually_exclusive(ref_meshes):
     want = fleet.fleet_simulate(stacked, 40, Settings(), device="cpu")
     for a, b in zip(got[1], want[1]):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="slot axis across cards"):
+    with pytest.raises(NotImplementedError, match="fleets on a slot mesh"):
         fleet.fleet_simulate(stacked, 40, Settings(),
                              mesh=sharding.slot_mesh(2, device="cpu"),
                              device="cpu")
@@ -421,9 +463,11 @@ def test_run_differential_on_a_one_device_slot_mesh(ref_meshes):
             [dataclasses.astuple(e) for e in want.engine_events]
         assert port.engine_counters == want.engine_counters
         assert port.engine_config_id == want.engine_config_id
-    with pytest.raises(NotImplementedError, match="Queue 1 sharding item"):
-        diff.run_differential(16, {2: 3}, 130, device="cpu",
-                              mesh=sharding.slot_mesh(2, device="cpu"))
+    two = diff.run_differential(16, {2: 3}, 130, device="cpu",
+                                mesh=sharding.slot_mesh(2, device="cpu"))
+    assert two.engine_counters == port.engine_counters
+    assert two.engine_events == port.engine_events
+    assert two.engine_config_id == port.engine_config_id
     got = diff.run_variant_differential(
         16, {2: 3}, 130, "ring", mesh=sharding.slot_mesh(1, device="cpu"),
         device="cpu")
@@ -465,9 +509,16 @@ def test_simulate_on_a_one_device_slot_mesh(ref_meshes):
     for want_final, want_logs in wants:
         _assert_same(logs, want_logs, "logs")
         _assert_same(final, want_final, "final")
-    with pytest.raises(NotImplementedError, match="slot axis across cards"):
-        simulate(state, faults_, 2, Settings(), device="cpu",
-                 mesh=sharding.slot_mesh(2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="slot axis across cards"):
-        step.step(state, faults_, Settings(),
-                  mesh=sharding.slot_mesh(2, device="cpu"))
+    two = sharding.slot_mesh(2, device="cpu")
+    final, logs = simulate(sharding.shard_put(state, two, n),
+                           sharding.shard_put(faults_, two, n), ticks,
+                           Settings(),
+                           fallback=from_reference(schedule, device="cpu"),
+                           mesh=two, device="cpu")
+    for want_final, want_logs in wants:
+        _assert_same(logs, want_logs, "logs on two devices")
+        _assert_same(final, want_final, "final on two devices")
+    got = step.step(state, faults_, Settings(), mesh=two)
+    want = step.step(state, faults_, Settings())
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
