@@ -5,15 +5,15 @@
 
 Phases; any failure, in this process or in a child, exits non-zero
 before the result lines. They run in this order: 1 and 2, the kernel
-times (below) and 16, on a card that is otherwise idle; then five child
+times (below) and 16, on a card that is otherwise idle; then six child
 processes start, phase 15 (``--planned``), phases 23, 24 and 28-32
 (``--group referee``), phases 25-27 (``--group campaign``), phase 34
-(``--group sharding``) and phase 35 (``--group slots``), while this
-process runs 3-14 and 17-22; once every child has ended and its lines
-are relayed, 33 runs alone. Each phase is bound by the host's dispatch
-and leaves the card idle most of the time, so the processes share it;
-the times of phases 3-32, 34 and 35 are taken beside the other
-processes' work.
+(``--group sharding``), phase 35 (``--group slots``) and phase 36
+(``--group fleet_slots``), while this process runs 3-14 and 17-22; once
+every child has ended and its lines are relayed, 33 runs alone. Each
+phase is bound by the host's dispatch and leaves the card idle most of
+the time, so the processes share it; the times of phases 3-32 and 34-36
+are taken beside the other processes' work.
 
 
 1. the card's name and power limit; build both delivery kernels
@@ -248,10 +248,11 @@ processes' work.
     kernels per tick over ticks 1-5; (b) phase 7 on ``slot_mesh(1)``,
     equal to its golden file; (c) the campaign at ``baseline.json``'s
     ``fleet`` entry with ``fleet_shard=1``, clean on its exact fields;
-    (d) ``fleet_axis_mesh(count + 1)`` raises ``ValueError``; a slot mesh
-    of two splits a tensor (``shard_put``) and runs one cluster (phase
-    35), and a fleet on it raises ``NotImplementedError`` ("fleets on a
-    slot mesh") in ``fleet_shard_put`` and ``fleet_body``;
+    (d) ``fleet_axis_mesh(count + 1)`` raises ``ValueError``, and so does
+    ``fleet_body`` given ``mesh`` and ``fleet_mesh`` together ("mutually
+    exclusive"); a slot mesh of two splits a tensor (``shard_put``) and
+    each member's slots of a fleet-stacked one (``fleet_shard_put``;
+    phases 35 and 36 run one cluster and fleets on it);
 35. the slot axis (``engine.sharding``'s ``SlotGroup`` and ``run_spmd``),
     in its own child process, on a slot mesh that names this card four
     times (``slot_mesh(devices=[card] * 4)``: four shards of 25,000 slots,
@@ -268,7 +269,22 @@ processes' work.
     each run equal to the golden file: ms per tick, host reads and
     collectives per tick, peak memory, and kernels per tick over ticks
     1-16 under ``torch.profiler``. No delivery kernel launches in the
-    phase.
+    phase;
+36. fleets on a slot mesh (``sharding.fleet_shard_put``, ``step.
+    run_fleet_slots``: every member's slots split, a thread per shard
+    running the fleet tick, its collectives vmap-aware), in its own child
+    process, on slot meshes that name this card D times: (a) pools 0 and
+    1 of phase 17 (F=256, C=48, 120 ticks, not cut) unsplit and on 2, 4
+    and 8 shards, each run equal to its golden file and to the unsplit
+    run in every leaf, and on 5 shards, which 48 slots do not divide, run
+    whole on one; (b) F=4 members at N=100,000 (a 1 % crash burst at tick
+    5 each, the slots drawn from seeds 0-3, 160 ticks) on 4 shards equal
+    to the unsplit fleet in every leaf, each member equal to its own
+    ``step.simulate``; (c) pool 0 and (b)'s fleet unsplit and on 4 shards
+    in turns (1, 4, 4, 1), every run held as above: ms per tick, host
+    reads and collectives per tick, peak memory, and kernels per tick
+    over ticks 1-5 under ``torch.profiler``; (d) both kernels' launches
+    counted from 0 around the phase: none.
 
 Before phase 16 the kernels are timed at C=1024 and 4096: device
 time per launch (CUDA graph replay), time per eager wrapper call, the
@@ -287,8 +303,9 @@ phase 23's runs (``referee_launches``), phase 25's campaign
 phase 27's runs (``committed_launches``), phase 28's receiver
 continuations (``checkpoint_launches``), phase 30's soaks per layout
 (``stream_launches``), phase 33 (``profile_launches``), phase 34's
-pools per layout (``shard_launches``) and phase 35
-(``slot_mesh_launches``, 0). The line
+pools per layout (``shard_launches``), phase 35
+(``slot_mesh_launches``, 0) and phase 36 (``fleet_slot_launches``, 0).
+The line
 before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
 repository beside it; it imports nothing of JAX.
@@ -344,6 +361,11 @@ SLOT_SMALL_WAYS = (8, 3)       # phase 35 (b): 3 does not divide N=1,000
 SLOT_TURNS = (1, 2, 4, 4, 2, 1)    # phase 35 (e): shards of phase 7, in turns
 SLOT_PROFILE_TICKS = 16        # phase 35 (e): ticks 1-16 under the profiler
 MULTICHIP_SIZES = (10_000, 100_000)   # phase 35 (d)
+FLEET_SLOT_POOLS = (0, 1)      # phase 36 (a): phase 17's shared pools ...
+FLEET_SLOT_WAYS = (2, 4, 8)    # ... each member's 48 slots on 2, 4, 8 shards
+FLEET_SLOT_GUARD = 5           # ... and on 5, which 48 does not divide
+FLEET_SLOT_TURNS = (1, 4, 4, 1)    # phase 36 (c): unsplit, 4 shards, turns
+WIDE_FLEET_F, WIDE_FLEET_N, WIDE_FLEET_TICKS = 4, 100_000, 160   # 36 (b)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 L2_BYTES = 50 * 2**20          # H100 L2 cache
 
@@ -2926,23 +2948,28 @@ def phase_sharding(rx_account, device) -> dict:
     if not isinstance(sharding.shard_put(x, two), sharding.SlotShards):
         raise AssertionError("phase 34: shard_put did not split over a "
                              "slot mesh of 2")
-    for what, call in (("fleet_shard_put",
-                        lambda: sharding.fleet_shard_put(x, two, 4)),
-                       ("fleet_body", lambda: step.fleet_body(
-                           x, x, x, x, 1, None, mesh=two))):
-        try:
-            call()
-        except NotImplementedError as exc:
-            if "fleets on a slot mesh" not in str(exc):
-                raise AssertionError(f"phase 34: {what} refused a slot mesh "
-                                     f"of 2 without naming the item: {exc}")
-        else:
-            raise AssertionError(f"phase 34: {what} ran a fleet on a slot "
-                                 f"mesh of 2")
+    # A fleet on a slot mesh of 2 splits each member's slots (phase 36
+    # runs it); the member axis stays whole.
+    members = torch.arange(8, device=device).reshape(2, 4)
+    split = sharding.fleet_shard_put(members, two, 4)
+    if [tuple(p.shape) for p in split.shards] != [(2, 2), (2, 2)] or \
+            not torch.equal(torch.cat(split.shards, dim=1), members):
+        raise AssertionError("phase 34: fleet_shard_put did not split each "
+                             "member's slots over a slot mesh of 2")
+    try:
+        step.fleet_body(x, x, x, x, 1, None, mesh=two,
+                        fleet_mesh=sharding.fleet_axis_mesh(devices=[device]))
+    except ValueError as exc:
+        if "mutually exclusive" not in str(exc):
+            raise AssertionError(f"phase 34: mesh with fleet_mesh refused "
+                                 f"for another reason: {exc}")
+    else:
+        raise AssertionError("phase 34: fleet_body took mesh and fleet_mesh "
+                             "together")
     log(f"phase 34: refusals hold: fleet_axis_mesh({too_many}) raised "
-        f"ValueError ({refused}); a fleet on a slot mesh of 2 raised "
-        f"NotImplementedError in fleet_shard_put and fleet_body; "
-        f"shard_put split a tensor over it")
+        f"ValueError ({refused}); mesh with fleet_mesh raised ValueError "
+        f"(mutually exclusive); shard_put split a tensor over a slot mesh "
+        f"of 2 and fleet_shard_put each member's slots")
     out["deliver_launches"] = {
         f"pool{pid}": {name: st["deliver_launches"]
                        for name, st in rows.items()}
@@ -3095,6 +3122,270 @@ def phase_slots(rx_account, device) -> dict:
     return out
 
 
+def fleet_slot_run(stacked, ticks: int, settings, device, rx_account,
+                   mesh=None) -> tuple:
+    """``fleet_simulate`` of ``stacked`` (placed on the slot mesh ``mesh``
+    by ``fleet_shard_put`` beforehand, so the run times no split), with
+    CUDA events around it, the host reads, collectives and both kernels'
+    launches counted over the run, and the allocator's peak: ``(out,
+    stats)``."""
+    import torch
+    from rapid_tpu_torch import device as device_mod
+    from rapid_tpu_torch.engine import fleet, sharding
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reads, coll = device_mod.host_reads, sharding.collectives
+    launches = rx_account.deliver_launches + rx_account.launches
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = fleet.fleet_simulate(stacked, ticks, settings, mesh=mesh,
+                               device=device)
+    end.record()
+    end.synchronize()
+    return out, {
+        "ms_per_tick": begin.elapsed_time(end) / ticks,
+        "host_reads_per_tick": (device_mod.host_reads - reads) / ticks,
+        "collectives_per_tick": (sharding.collectives - coll) / ticks,
+        "launches": rx_account.deliver_launches + rx_account.launches
+        - launches,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "run_peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def fleet_slot_layouts(stacked, capacity: int, device, ways) -> dict:
+    """``{shards: (mesh, placed)}``: the fleet unsplit (1) and placed by
+    ``fleet_shard_put`` on a slot mesh naming this card ``ways`` times."""
+    from rapid_tpu_torch.engine import sharding
+
+    out = {}
+    for w in ways:
+        if w == 1:
+            out[w] = (None, stacked)
+            continue
+        mesh = sharding.slot_mesh(devices=[device] * w)
+        out[w] = (mesh, sharding.fleet_shard_put(stacked, mesh, capacity))
+    return out
+
+
+def fleet_slot_profile(placed, settings, device, mesh, head: dict) -> dict:
+    """Kernels, host reads and device-busy time a tick over the first
+    ``FLEET_PROFILE_TICKS`` ticks of ``placed`` under ``torch.profiler``."""
+    from rapid_tpu_torch import profile
+    from rapid_tpu_torch.engine import fleet
+
+    def window():
+        return fleet.fleet_simulate(placed, FLEET_PROFILE_TICKS, settings,
+                                    mesh=mesh, device=device)[1].decide_now
+
+    return profile.profile_window(window, FLEET_PROFILE_TICKS, 5, head)
+
+
+def fleet_slot_turns(label: str, layouts: dict, ticks: int, settings,
+                     device, rx_account, check) -> dict:
+    """The layouts of ``FLEET_SLOT_TURNS`` in turns, each run held by
+    ``check(shards, out)`` and timed; each layout's profiled window runs
+    before its first timed run. Returns per layout its ms/tick runs, host
+    reads, collectives, peak memory and the window."""
+    rows = {}
+    for ways in FLEET_SLOT_TURNS:
+        mesh, placed = layouts[ways]
+        if ways not in rows:
+            rows[ways] = {"profile": fleet_slot_profile(
+                placed, settings, device, mesh, {"shards": ways}),
+                "ms_per_tick_turns": []}
+        out, st = fleet_slot_run(placed, ticks, settings, device, rx_account,
+                                 mesh)
+        check(ways, out)
+        del out
+        row = rows[ways]
+        row["ms_per_tick_turns"].append(st.pop("ms_per_tick"))
+        for key, value in st.items():
+            row[key] = max(row.get(key, value), value)
+    base = rows[1]["ms_per_tick_turns"]
+    for ways, row in rows.items():
+        turns = row["ms_per_tick_turns"]
+        row["ms_per_tick"] = sum(turns) / len(turns)
+        prof = row["profile"]
+        log(f"phase 36 (c): {label} on {ways} shard(s) of one card, in turns: "
+            f"{', '.join(f'{t:.3f}' for t in turns)} ms/tick (mean "
+            f"{row['ms_per_tick']:.3f}; "
+            f"{row['ms_per_tick'] / (sum(base) / len(base)):.2f}x unsplit), "
+            f"{row['host_reads_per_tick']:.3f} host reads/tick, "
+            f"{row['collectives_per_tick']:.2f} collectives/tick, peak "
+            f"{row['peak_bytes'] / 2**20:.1f} MiB "
+            f"({row['run_peak_bytes'] / 2**20:.1f} above the run's start); "
+            f"ticks 1-{FLEET_PROFILE_TICKS} under the profiler: "
+            f"{prof['device_kernels_per_tick']:.1f} kernels/tick, "
+            f"{prof['device_busy_ms_per_tick']:.3f} ms/tick device-busy, "
+            f"{prof['wall_ms_per_tick']:.3f} ms/tick wall")
+    return rows
+
+
+def wide_fleet(device):
+    """Phase 36 (b)'s fleet: ``WIDE_FLEET_F`` members at N=100,000, each
+    a 1 % crash burst at tick 5 (phase 7's shape) over 1,000 slots drawn
+    from seeds 0-3, lowered by ``fleet.lower_schedule`` and stacked."""
+    from rapid_tpu_torch import faults
+    from rapid_tpu_torch.engine import fleet
+    from rapid_tpu_torch.settings import Settings
+
+    members = []
+    for seed in range(WIDE_FLEET_F):
+        slots = np.random.default_rng(seed).choice(
+            WIDE_FLEET_N, WIDE_FLEET_N // 100, replace=False)
+        schedule = faults.AdversarySchedule(
+            n=WIDE_FLEET_N, crashes=tuple((int(s), 5) for s in
+                                          sorted(slots)), seed=seed)
+        members.append(fleet.lower_schedule(schedule, Settings(),
+                                            device=device))
+    return fleet.stack_members(members)
+
+
+def phase_fleet_slots(rx_account, device) -> dict:
+    """Phase 36: fleets on a slot mesh, every member's slots split over a
+    slot mesh that names this card D times
+    (``sharding.fleet_shard_put``, one thread per shard running the fleet
+    tick), in a child process of its own. (a) Pools 0 and 1 of phase 17
+    (F=256, C=48, 120 ticks, not cut) unsplit and on ``FLEET_SLOT_WAYS``
+    shards, each run equal to its golden file and to the unsplit run in
+    every leaf; on ``FLEET_SLOT_GUARD`` shards, which 48 slots do not
+    divide, the fleet runs whole on one. (b) ``wide_fleet`` on 4 shards,
+    equal to the unsplit fleet in every leaf, and each member equal to
+    ``step.simulate`` of ``fleet.member_of``. (c) Pool 0 and (b)'s fleet
+    unsplit and on 4 shards in turns (``FLEET_SLOT_TURNS``, every run
+    held as above): ms/tick, host reads and collectives a tick, kernels a
+    tick over a profiled window, peak memory. (d) Both kernels' launches
+    counted from 0 around the phase: 0."""
+    import torch
+    from rapid_tpu_torch import golden
+    from rapid_tpu_torch.engine import fleet, step
+    from rapid_tpu_torch.settings import Settings
+
+    zero_counts(rx_account)
+    out = {"pools": {}}
+    for pool_id in FLEET_SLOT_POOLS:
+        pool = golden.FLEET_POOLS[pool_id]
+        want = golden.load(pool.path)
+        members = golden.pool_inputs(want)
+        settings = golden.pool_settings(pool)
+        stacked = golden.lower_pool(pool, members, device=device)
+        ways = (1,) + FLEET_SLOT_WAYS + (FLEET_SLOT_GUARD,)
+        layouts = fleet_slot_layouts(stacked, pool.capacity, device, ways)
+        guard = layouts[FLEET_SLOT_GUARD][1]
+        if len(guard.shards) != 1:
+            raise AssertionError(f"phase 36: pool {pool_id} on "
+                                 f"{FLEET_SLOT_GUARD} shards split into "
+                                 f"{len(guard.shards)}")
+        unsplit = None
+        rows = out["pools"][pool_id] = {}
+
+        def check(w, res):
+            diff_ = golden.differences(
+                golden.fleet_run_record(pool, members, res), want)
+            if diff_:
+                raise AssertionError(f"phase 36: pool {pool_id} on {w} "
+                                     f"shard(s) differs from its golden "
+                                     f"file in {diff_[:8]}")
+            if unsplit is not None and not same_leaves(res, unsplit):
+                raise AssertionError(f"phase 36: pool {pool_id} on {w} "
+                                     f"shard(s) differs from the unsplit "
+                                     f"run")
+
+        for w in ways:
+            mesh, placed = layouts[w]
+            res, st = fleet_slot_run(placed, golden.FLEET_CAMPAIGN["ticks"],
+                                     settings, device, rx_account, mesh)
+            check(w, res)
+            if unsplit is None:
+                unsplit = res
+            del res
+            rows[w] = st
+            log(f"phase 36 (a): pool {pool_id} ({'/'.join(pool.kinds)}) "
+                f"F={len(members)} C={pool.capacity} on {w} shard(s)"
+                f"{' (whole on one: 48 slots do not divide 5)' if w == FLEET_SLOT_GUARD else ''}"
+                f" equals its golden file and the unsplit run: "
+                f"{st['ms_per_tick']:.3f} ms/tick, "
+                f"{st['host_reads_per_tick']:.3f} host reads/tick, "
+                f"{st['collectives_per_tick']:.2f} collectives/tick, peak "
+                f"{st['run_peak_bytes'] / 2**20:.1f} MiB above the run's "
+                f"start")
+        if pool_id == 0:
+            out["pool0_turns"] = fleet_slot_turns(
+                "pool 0", {w: layouts[w] for w in set(FLEET_SLOT_TURNS)},
+                golden.FLEET_CAMPAIGN["ticks"], settings, device, rx_account,
+                check)
+        del stacked, layouts, guard, unsplit
+
+    # (b) the headline width.
+    start = time.perf_counter()
+    wide = wide_fleet(device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - start
+    settings = Settings()
+    layouts = fleet_slot_layouts(wide, WIDE_FLEET_N, device,
+                                 set(FLEET_SLOT_TURNS))
+    whole, st_whole = fleet_slot_run(wide, WIDE_FLEET_TICKS, settings, device,
+                                     rx_account)
+    logs = whole[1]
+    decides = [logs.tick[i][logs.decide_now[i]].tolist()
+               for i in range(WIDE_FLEET_F)]
+    left = logs.n_member[:, -1].tolist()
+    if [len(d) for d in decides] != [1] * WIDE_FLEET_F or \
+            set(left) != {WIDE_FLEET_N * 99 // 100}:
+        raise AssertionError(f"phase 36 (b): the F={WIDE_FLEET_F} fleet "
+                             f"decided at {decides} leaving {left}")
+    mesh, placed = layouts[4]
+    split, st_split = fleet_slot_run(placed, WIDE_FLEET_TICKS, settings,
+                                     device, rx_account, mesh)
+    if not same_leaves(split, whole):
+        raise AssertionError("phase 36 (b): the N=100,000 fleet on 4 shards "
+                             "differs from the unsplit fleet")
+    del split
+    for i in range(WIDE_FLEET_F):
+        m = fleet.member_of(wide, i)
+        one = step.simulate(m.state, m.faults, WIDE_FLEET_TICKS, settings,
+                            churn=m.churn, fallback=m.fallback,
+                            device=device)
+        if not same_leaves(one, (fleet.member_of(whole[0], i),
+                                 fleet.member_logs(whole[1], i))):
+            raise AssertionError(f"phase 36 (b): member {i} differs from "
+                                 f"its own step.simulate run")
+    log(f"phase 36 (b): F={WIDE_FLEET_F} at N={WIDE_FLEET_N:,} (a 1 % crash "
+        f"burst at tick 5 each, seeds 0-{WIDE_FLEET_F - 1}), "
+        f"{WIDE_FLEET_TICKS} ticks: on 4 shards equal to the unsplit fleet "
+        f"in every leaf, every member equal to its own step.simulate, "
+        f"deciding at ticks {[d[0] for d in decides]} and leaving "
+        f"{WIDE_FLEET_N * 99 // 100:,}; "
+        f"unsplit {st_whole['ms_per_tick']:.3f} ms/tick, peak "
+        f"{st_whole['run_peak_bytes'] / 2**20:.1f} MiB above the start; 4 "
+        f"shards {st_split['ms_per_tick']:.3f} ms/tick, peak "
+        f"{st_split['run_peak_bytes'] / 2**20:.1f} MiB; setup {setup:.1f} s")
+
+    def check_wide(w, res):
+        if not same_leaves(res, whole):
+            raise AssertionError(f"phase 36 (c): the N=100,000 fleet on {w} "
+                                 f"shard(s) differs from the unsplit fleet")
+
+    out["wide"] = {"setup_s": setup, "unsplit": st_whole, "split4": st_split,
+                   "turns": fleet_slot_turns(
+                       f"F={WIDE_FLEET_F} N={WIDE_FLEET_N:,}", layouts,
+                       WIDE_FLEET_TICKS, settings, device, rx_account,
+                       check_wide)}
+    del wide, layouts, placed, whole, logs
+    launches = rx_account.deliver_launches + rx_account.launches
+    if launches:
+        raise AssertionError(f"phase 36 launched a delivery kernel "
+                             f"{launches} times")
+    out["deliver_launches"] = rx_account.deliver_launches
+    out["account_launches"] = rx_account.launches
+    log("phase 36 (d): rx_deliver and rx_account launched 0 times over the "
+        "phase")
+    return out
+
+
 def group_referee(rx_account, device) -> dict:
     """Phases 23, 24 and 28-32, in a child process."""
     return {"referee_receiver": phase_referee_receiver(rx_account, device),
@@ -3121,7 +3412,8 @@ def group_campaign(rx_account, device) -> dict:
 #: timed: the phases are bound by the host's dispatch and leave the card
 #: idle most of the time, so five processes share it.
 GROUPS = {"referee": group_referee, "campaign": group_campaign,
-          "sharding": phase_sharding, "slots": phase_slots}
+          "sharding": phase_sharding, "slots": phase_slots,
+          "fleet_slots": phase_fleet_slots}
 CHILD_TIMEOUT_S = 1000
 
 
@@ -3289,6 +3581,7 @@ def main() -> int:
     stream = groups["referee"]["stream"]
     sharded = groups["sharding"]
     slots = groups["slots"]
+    fleet_slots = groups["fleet_slots"]
     campaign_run = groups["campaign"]["campaign"]
     replays = groups["campaign"]["replay"]
     committed_runs = groups["campaign"]["committed"]
@@ -3337,6 +3630,7 @@ def main() -> int:
         "profile_launches": observatory["deliver_launches"],
         "shard_launches": sharded["deliver_launches"],
         "slot_mesh_launches": slots["deliver_launches"],
+        "fleet_slot_launches": fleet_slots["deliver_launches"],
         "fleet_max_abs_err": err_fleet,
         "fleet_f256": {f"c{c}": t for c, t in fleet_times.items()},
     }, {
@@ -3364,7 +3658,7 @@ def main() -> int:
                     "campaign": campaign_run, "replay": replays,
                     "committed": committed_runs, "stream": stream,
                     "profile": observatory, "sharding": sharded,
-                    "slots": slots,
+                    "slots": slots, "fleet_slots": fleet_slots,
                     "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

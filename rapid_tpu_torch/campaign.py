@@ -52,9 +52,10 @@ How the reference's JAX-only parts map:
   the run's device type and splits every stacked dispatch over it
   (``fleet_axis_put``): whole members on each device, advanced in turns
   and joined in member order, so every non-wall field equals the
-  unsharded run's. On one card ``fleet_axis_mesh`` raises for D > 1. A
-  fleet with each member's slots split over a slot mesh is not ported
-  (``ROADMAP.md`` Queue 1 item 5, fleets on a slot mesh).
+  unsharded run's. On one card ``fleet_axis_mesh`` raises for D > 1.
+  The reference's campaign has no slot-mesh option either; a fleet with
+  each member's slots split runs through ``fleet.fleet_simulate(mesh=
+  sharding.slot_mesh(D))``.
 - *The recorder's host copy* is one copy of the dispatch's rings;
   triage slices exemplars out of it with ``recorder.member_recorder``.
 

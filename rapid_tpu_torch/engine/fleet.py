@@ -39,9 +39,10 @@ Meshes (``engine.sharding``): ``fleet_mesh`` splits the member axis over
 its devices, whole members on each (``fleet_axis_put``); the fleet loops
 advance the shards in turns and join the outputs in member order on the
 mesh's first device, equal to the unsplit run. ``mesh`` is a slot mesh
-of one device; a larger one (each member's slots split) raises
-``NotImplementedError``: "fleets on a slot mesh", ``ROADMAP.md`` Queue 1
-item 5. One cluster runs on a slot mesh of any size (``step.simulate``).
+of any size: on ``D`` devices every member's slots are split over it
+(``fleet_shard_put``, the member axis whole), one thread per shard runs
+the fleet tick (``step.run_fleet_slots``) and the outputs are joined
+along each leaf's slot axis, equal to the unsplit run.
 """
 from __future__ import annotations
 
@@ -310,19 +311,22 @@ def _shards(fleet, mesh, fleet_mesh, device) -> sharding.FleetShards:
     run takes, each checked to lie on its device, index included.
     Without a fleet mesh the whole fleet is one shard on ``device``, or
     on the one-device slot mesh's device."""
-    sharding.require_one_layout(mesh, fleet_mesh)
     dev = resolve_device(device)
     home = sharding.require_slot_mesh(mesh)
     if home is None:
         home = sharding.pinned(dev)
     shards = fleet if isinstance(fleet, sharding.FleetShards) else \
         sharding.fleet_shards(fleet, fleet_mesh, _fleet_size(fleet), home)
+    _check_placed(shards, dev)
+    return shards
+
+
+def _check_placed(shards, dev: torch.device) -> None:
     for tree, where in zip(shards.shards, shards.devices):
         if where.type != dev.type:
             raise ValueError(f"a fleet shard is placed on {where}, the run "
                              f"was asked for {dev}")
         _placed_on(tree, where)
-    return shards
 
 
 def _fleet_size(fleet) -> int:
@@ -340,11 +344,20 @@ def fleet_simulate(fleet: FleetMember, n_ticks: int, settings: Settings,
 
     ``fleet_mesh`` (``sharding.fleet_axis_mesh`` of ``device``'s type)
     splits the members over its devices; ``fleet`` may also be the
-    ``FleetShards`` that ``sharding.fleet_axis_put`` gave. The outputs
-    come back joined on the mesh's first device. ``mesh`` is a slot mesh
-    of one device, on which the fleet must lie."""
+    ``FleetShards`` that ``sharding.fleet_axis_put`` gave. ``mesh`` is a
+    slot mesh: on one device the fleet must lie there; on ``D`` devices
+    every member's slots are split over it (``sharding.fleet_shard_put``,
+    whose ``SlotShards`` ``fleet`` may also be) and one thread per shard
+    runs the fleet tick (``step.run_fleet_slots``). The outputs come back
+    joined on the mesh's first device, equal to the unsplit run's."""
     from rapid_tpu_torch.engine import step
 
+    sharding.require_one_layout(mesh, fleet_mesh)
+    if step._split(mesh, fleet):
+        dev = resolve_device(device)
+        parts = step._mesh_parts(fleet, mesh, dev, fleet=True)
+        _check_placed(parts, dev)
+        return step.run_fleet_slots(parts, int(n_ticks), settings)
     return step.run_fleet_shards(_shards(fleet, mesh, fleet_mesh, device),
                                  int(n_ticks), settings)
 

@@ -39,9 +39,17 @@ are the reference's shape logic, divisibility guards included.
   repeated the shards run the same program and exchanges as on D cards.
   When ``C`` does not divide the mesh (the divisibility guard) the
   reference replicates every leaf; the port then runs the whole cluster
-  on the mesh's first device. A fleet on a slot mesh of more than one
-  device (each member's slots split) raises ``NotImplementedError``:
-  ROADMAP.md Queue 1 item 5, "fleets on a slot mesh".
+  on the mesh's first device.
+- **Fleets run on a slot mesh too.** ``fleet_shard_put`` cuts every
+  member of a fleet-stacked tree the same way (``fleet_spec_for``'s
+  layout: the member axis first and never split, even where ``F == C``;
+  a field's slot axis is its ``SLOT_AXES`` axis plus one), and
+  ``step.fleet_body`` runs the fleet tick on each shard's thread. The
+  per-member phases run under ``torch.func.vmap`` (``state.member_map``),
+  so every collective is vmap-aware by design (``SlotGroup._unbatched``):
+  under ``vmap`` it exchanges plain tensors with the member axis in
+  front, one exchange for all members, and returns one result per
+  member.
 - ``constrain``, ``replicate``, ``constrain_tree`` and
   ``fleet_axis_constrain_tree`` annotate a layout for XLA's partitioner
   in the reference and change no value; here they return their input.
@@ -160,21 +168,6 @@ def require_slot_mesh(mesh) -> Optional[torch.device]:
     return mesh.devices[0]
 
 
-def require_fleet_slot_mesh(mesh) -> Optional[torch.device]:
-    """The device of a one-device slot mesh for a fleet (None without a
-    mesh); a larger one raises ``NotImplementedError``: a fleet with each
-    member's slots split is not ported."""
-    dev = require_slot_mesh(mesh)
-    n = 0 if mesh is None else mesh_size(mesh)
-    if n > 1:
-        raise NotImplementedError(
-            f"a fleet on a slot mesh of {n} devices: fleets on a slot mesh "
-            f"(each member's slots split, ROADMAP.md Queue 1 item 5) are "
-            f"not ported; one cluster runs on a slot mesh of any size and "
-            f"a fleet on a fleet mesh of any size")
-    return dev
-
-
 def spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
     """The spec of one leaf: the first capacity-sized axis on ``AXIS``,
     everything else replicated. A capacity that does not divide the mesh
@@ -242,12 +235,18 @@ def shard_put(tree, mesh, capacity: Optional[int] = None):
     ``SlotShards`` by ``state.split_slots`` (the slot axis of each leaf,
     ``state.slot_axis``), or, when ``capacity`` does not divide ``D``,
     one whole shard on the mesh's first device."""
-    from rapid_tpu_torch.engine import state as state_mod
-
     if isinstance(tree, SlotShards):
         return tree
     if capacity is None:
         capacity = _infer_capacity(_pytree.tree_leaves(tree))
+    return _put(tree, mesh, capacity, fleet=False)
+
+
+def _put(tree, mesh, capacity: int, fleet: bool):
+    """``shard_put`` (``fleet``: ``fleet_shard_put``) of a tree that is
+    not split yet."""
+    from rapid_tpu_torch.engine import state as state_mod
+
     first = require_slot_mesh(mesh)
     n_dev = mesh_size(mesh)
     if n_dev == 1:
@@ -256,28 +255,30 @@ def shard_put(tree, mesh, capacity: Optional[int] = None):
         return SlotShards((_move(tree, first),), (first,), capacity)
     return SlotShards(
         tuple(_move(part, dev) for part, dev in zip(
-            state_mod.split_slots(tree, capacity, n_dev), mesh.devices)),
+            state_mod.split_slots(tree, capacity, n_dev, fleet),
+            mesh.devices)),
         mesh.devices, capacity)
 
 
-def slot_shards(tree, mesh, capacity: int):
+def slot_shards(tree, mesh, capacity: int, fleet: bool = False):
     """``tree`` as the ``SlotShards`` of a run on ``mesh``: placed by
-    ``shard_put`` unless it already is ``SlotShards`` (None stays
-    None)."""
+    ``shard_put`` (``fleet``: ``fleet_shard_put``) unless it already is
+    ``SlotShards`` (None stays None)."""
     if tree is None or isinstance(tree, SlotShards):
         return tree
-    placed = shard_put(tree, mesh, capacity)
+    placed = _put(tree, mesh, capacity, fleet)
     if isinstance(placed, SlotShards):
         return placed
     return SlotShards((placed,), (mesh.devices[0],), capacity)
 
 
-def shard_tuple(trees: Sequence, mesh, capacity: int) -> SlotShards:
+def shard_tuple(trees: Sequence, mesh, capacity: int,
+                fleet: bool = False) -> SlotShards:
     """Several trees of one slot universe as one ``SlotShards`` whose
     shard ``k`` is the tuple of their shards ``k`` (each placed by
     ``slot_shards``; a None stays None in every shard). The trees must
     come out on the same devices."""
-    parts = [slot_shards(t, mesh, capacity) for t in trees]
+    parts = [slot_shards(t, mesh, capacity, fleet) for t in trees]
     lead = next(p for p in parts if p is not None)
     for p in parts:
         if p is not None and (p.devices, p.capacity) != (lead.devices,
@@ -288,6 +289,19 @@ def shard_tuple(trees: Sequence, mesh, capacity: int) -> SlotShards:
     none = (None,) * len(lead.shards)
     return SlotShards(tuple(zip(*[none if p is None else p.shards
                                   for p in parts])), lead.devices, capacity)
+
+
+def on_mesh(parts: SlotShards, mesh, dev) -> SlotShards:
+    """``parts``, checked to be split over ``mesh`` (or whole on its
+    first device) on devices of ``dev``'s type."""
+    if parts.devices not in (mesh.devices, mesh.devices[:1]):
+        raise ValueError(f"the inputs are split over {parts.devices}, the "
+                         f"slot mesh holds {mesh.devices}")
+    for where in parts.devices:
+        if where.type != dev.type:
+            raise ValueError(f"the slot mesh holds {where}, the run was "
+                             f"asked for {dev}")
+    return parts
 
 
 def fleet_spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
@@ -304,10 +318,18 @@ def fleet_spec_for(shape: Sequence[int], capacity: int, mesh) -> tuple:
 
 
 def fleet_shard_put(tree, mesh, capacity: int):
-    """Place a fleet-stacked pytree on a one-device slot mesh
-    (``fleet_spec_for``'s layout); a larger mesh raises
-    ``NotImplementedError`` (``require_fleet_slot_mesh``)."""
-    return _move(tree, require_fleet_slot_mesh(mesh))
+    """Place a fleet-stacked pytree on a slot mesh under
+    ``fleet_spec_for``'s layout. On one device every tensor leaf moves
+    there; on ``D`` devices each member's slots are split as
+    ``shard_put`` splits one cluster's (``SlotShards``; a field's slot
+    axis is its ``state.SLOT_AXES`` axis plus one, a bare tensor's its
+    second axis), the member axis never, even where ``F == C``. When
+    ``capacity`` does not divide ``D`` the fleet is one whole shard on
+    the mesh's first device. ``capacity`` is explicit, so an ``F >= C``
+    fleet is not mistaken for the slot universe."""
+    if isinstance(tree, SlotShards):
+        return tree
+    return _put(tree, mesh, capacity, fleet=True)
 
 
 def fleet_axis_mesh(n_devices: Optional[int] = None, devices=None,
@@ -383,13 +405,13 @@ def fleet_shards(tree, fleet_mesh, fleet_size: int,
 
 
 def require_one_layout(mesh, fleet_mesh) -> None:
-    """The two layouts do not combine in one dispatch, and a fleet takes
-    a slot mesh of one device only (``require_fleet_slot_mesh``)."""
+    """The two layouts do not combine in one dispatch; ``mesh`` must be a
+    slot mesh (``require_slot_mesh``)."""
     if mesh is not None and fleet_mesh is not None:
         raise ValueError(
             "mesh (slot-axis sharding) and fleet_mesh (fleet-axis "
             "sharding) are mutually exclusive routings")
-    require_fleet_slot_mesh(mesh)
+    require_slot_mesh(mesh)
 
 
 def device_context(dev: torch.device):
@@ -514,6 +536,20 @@ class _Rendezvous:
             turn.release()
 
 
+#: functorch's own functions that read a tensor's ``vmap`` level and
+#: batch axis and move a level's axis out and back in (``torch.func.vmap``
+#: calls the last two around every mapped function). ``SlotGroup.
+#: _unbatched`` makes the collectives vmap-aware with them.
+_FT = torch._C._functorch
+_MISSING = [name for name in ("maybe_get_level", "maybe_get_bdim",
+                              "get_unwrapped", "_remove_batch_dim",
+                              "_add_batch_dim") if not hasattr(_FT, name)]
+if _MISSING:
+    raise ImportError(f"torch {torch.__version__} lacks functorch's "
+                      f"{', '.join(_MISSING)}, which a slot mesh's "
+                      f"collectives use under vmap")
+
+
 class SlotGroup:
     """One shard's view of a slot-mesh run: its ``rank`` of ``size``,
     its slots ``lo:hi`` of the ``capacity``, its ``device``, and the
@@ -529,9 +565,11 @@ class SlotGroup:
     shards along the slot axis, ``first_true`` is the global index of a
     mask's first set slot, ``at`` the value at one global slot, ``local``
     takes this shard's slots of a whole tensor and ``slots`` this shard's
-    global slot indices. The methods are the whole interface the engine
-    uses, so another transport (one process per card) needs only
-    these."""
+    global slot indices. Under ``torch.func.vmap`` over a fleet's members
+    each collective makes one exchange of plain tensors with the member
+    axis in front, and each member gets the result of its own call
+    (``_unbatched``). The methods are the whole interface the engine uses, so
+    another transport (one process per card) needs only these."""
 
     def __init__(self, rank: int, size: int, capacity: int,
                  device: torch.device, rendezvous: _Rendezvous):
@@ -573,45 +611,82 @@ class SlotGroup:
         return [[p[i].to(self.device) for p in parts]
                 for i in range(len(xs))]
 
-    def _reduce(self, xs, fold):
-        out = tuple(fold(torch.stack(ps)) for ps in self._gathered(xs))
+    def _collect(self, op, lead: int, xs) -> tuple:
+        """Collective ``op`` of plain tensors ``xs`` whose first ``lead``
+        axes are members (``_unbatched``): the reductions are
+        elementwise, a gather's ``dim`` counts past them, and the first
+        set slot is found along the last axis."""
+        if op == "first_true":
+            (mask,) = xs
+            local = torch.argmax(mask.to(torch.uint8), dim=-1) + self.lo
+            anys, idxs = self._gathered((mask.any(dim=-1), local))
+            pick = torch.argmax(torch.stack(anys).to(torch.uint8), dim=0)
+            return (torch.stack(idxs).gather(0, pick.unsqueeze(0))
+                    .squeeze(0),)
+        if op == "sum64":
+            his, los = self._gathered(xs)
+            out_hi, out_lo = his[0], los[0]
+            for h, l in zip(his[1:], los[1:]):
+                out_hi, out_lo = hashing.add64(out_hi, out_lo, h, l)
+            return out_hi, out_lo
+        if isinstance(op, tuple):           # ("all_gather", dim)
+            dim = op[1] + lead if op[1] >= 0 else op[1]
+            return tuple(torch.cat(ps, dim=dim) for ps in self._gathered(xs))
+        return tuple(_FOLDS[op](torch.stack(ps)) for ps in self._gathered(xs))
+
+    def _call(self, op, xs):
+        if torch._C._are_functorch_transforms_active():
+            out = self._unbatched(op, 0, xs)
+        else:
+            out = self._collect(op, 0, xs)
         return out[0] if len(out) == 1 else out
+
+    def _unbatched(self, op, lead: int, xs) -> tuple:
+        """Collective ``op`` under ``vmap``, on the innermost level of
+        ``xs``: each input's batch axis of that level moved to the front
+        (an input not batched there broadcast), the collective applied a
+        level down with one more leading axis (``lead``), and each result
+        batched along axis 0 at that level. So every shard trades plain
+        tensors with the members in front, one exchange for all members,
+        whatever the levels' numbering, and each member gets the result
+        of its own call. Plain inputs go to ``_collect``."""
+        levels = [_FT.maybe_get_level(x) for x in xs]
+        level = max(levels)
+        if level < 0:
+            return self._collect(op, lead, xs)
+        x = xs[levels.index(level)]
+        size = _FT.get_unwrapped(x).shape[_FT.maybe_get_bdim(x)]
+        out = self._unbatched(op, lead + 1, [
+            _FT._remove_batch_dim(x, level, size, 0) for x in xs])
+        return tuple(_FT._add_batch_dim(o, 0, level) for o in out)
 
     def all_gather(self, *xs, dim: int = 0):
         """Each tensor of ``xs`` concatenated over the shards along
         ``dim`` (its slot axis), on this shard's device."""
-        out = tuple(torch.cat(ps, dim=dim) for ps in self._gathered(xs))
-        return out[0] if len(out) == 1 else out
+        return self._call(("all_gather", dim), xs)
 
     def sum(self, *xs):
-        return self._reduce(xs, lambda s: s.sum(dim=0, dtype=s.dtype))
+        return self._call("sum", xs)
 
     def any(self, *xs):
-        return self._reduce(xs, lambda s: s.any(dim=0))
+        return self._call("any", xs)
 
     def max(self, *xs):
-        return self._reduce(xs, lambda s: s.amax(dim=0))
+        return self._call("max", xs)
 
     def min(self, *xs):
-        return self._reduce(xs, lambda s: s.amin(dim=0))
+        return self._call("min", xs)
 
     def sum64(self, hi, lo):
         """The shards' ``(hi, lo)`` partial sums added mod 2**64 in rank
         order, equal to the sum over the whole slot axis."""
-        his, los = self._gathered((hi, lo))
-        out_hi, out_lo = his[0], los[0]
-        for h, l in zip(his[1:], los[1:]):
-            out_hi, out_lo = hashing.add64(out_hi, out_lo, h, l)
-        return out_hi, out_lo
+        return self._call("sum64", (hi, lo))
 
     def first_true(self, mask):
         """0-d int64: the global index of the first set slot of the
-        shards' ``mask``, 0 when none is set (``argmax`` of the whole
-        mask through uint8)."""
-        local = torch.argmax(mask.to(torch.uint8)) + self.lo
-        anys, idxs = self._gathered((mask.any(), local))
-        return torch.stack(idxs)[torch.argmax(
-            torch.stack(anys).to(torch.uint8))]
+        shards' ``[C / D]`` ``mask``, 0 when none is set (``argmax`` of
+        the whole mask through uint8)."""
+        return self._call("first_true", (mask,))
 
     def at(self, x, index):
         """The value at global slot ``index`` (0-d) of the shards' ``[C /
@@ -628,6 +703,13 @@ class SlotGroup:
         """This shard's ``n`` global slot indices."""
         return torch.arange(self.lo, self.lo + n, dtype=dtype,
                             device=device)
+
+
+#: The elementwise folds over the stacked partials (shards first).
+_FOLDS = {"sum": lambda s: s.sum(dim=0, dtype=s.dtype),
+          "any": lambda s: s.any(dim=0),
+          "max": lambda s: s.amax(dim=0),
+          "min": lambda s: s.amin(dim=0)}
 
 
 class _Solo:

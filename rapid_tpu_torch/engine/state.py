@@ -683,14 +683,21 @@ SLOT_AXES = {
 }
 
 
-def slot_axis(name: Optional[str], x: torch.Tensor) -> Optional[int]:
+def slot_axis(name: Optional[str], x: torch.Tensor,
+              fleet: bool = False) -> Optional[int]:
     """The slot axis of leaf ``x`` of the field ``name`` (``SLOT_AXES``),
     or None for a replicated leaf. A bare tensor (``name`` None, such as
     a sub-kernel's output) has its rows on its first axis, a 0-d one
-    none."""
+    none. In a fleet-stacked tree (``fleet``) every leaf carries the
+    member axis first: a field's axis counts one further (one counted
+    from the end stays), and a bare tensor's rows are its second axis."""
+    lead = int(fleet)
     if name is None:
-        return 0 if x.dim() else None
-    return SLOT_AXES.get(name)
+        return lead if x.dim() > lead else None
+    axis = SLOT_AXES.get(name)
+    if axis is not None and axis >= 0:
+        axis += lead
+    return axis
 
 
 def _map_named(fn, *trees, name=None):
@@ -716,15 +723,17 @@ def _map_named(fn, *trees, name=None):
     return first
 
 
-def split_slots(tree, capacity: int, parts: int) -> list:
+def split_slots(tree, capacity: int, parts: int,
+                fleet: bool = False) -> list:
     """``tree`` cut into ``parts`` trees of contiguous slots: each leaf
-    with a slot axis of length ``capacity`` (``slot_axis``) narrowed to
-    ``capacity / parts`` slots, the others shared whole."""
+    with a slot axis of length ``capacity`` (``slot_axis``; ``fleet``: a
+    fleet-stacked tree) narrowed to ``capacity / parts`` slots, the
+    others shared whole."""
     per = capacity // parts
 
     def cut(k):
         def piece(name, x):
-            axis = slot_axis(name, x)
+            axis = slot_axis(name, x, fleet)
             if axis is None or x.shape[axis] != capacity:
                 return x
             return x.narrow(axis, k * per, per)
@@ -733,12 +742,12 @@ def split_slots(tree, capacity: int, parts: int) -> list:
     return [cut(k) for k in range(parts)]
 
 
-def join_slots(trees: Sequence, device):
+def join_slots(trees: Sequence, device, fleet: bool = False):
     """The inverse of ``split_slots`` on ``device``: leaves with a slot
     axis concatenated along it in shard order, the others taken from the
     first shard."""
     def whole(name, *xs):
-        axis = None if len(xs) == 1 else slot_axis(name, xs[0])
+        axis = None if len(xs) == 1 else slot_axis(name, xs[0], fleet)
         if axis is None:
             return xs[0].to(device)
         return torch.cat([x.to(device) for x in xs], dim=axis)
@@ -746,7 +755,7 @@ def join_slots(trees: Sequence, device):
     return _map_named(whole, *trees)
 
 
-def gather_slots(tree, group):
+def gather_slots(tree, group, fleet: bool = False):
     """``tree`` of one shard with every leaf that has a slot axis
     all-gathered along it (``group.all_gather``): the whole tree on this
     shard's device. A group of one shard gives ``tree``."""
@@ -754,7 +763,7 @@ def gather_slots(tree, group):
         return tree
 
     def whole(name, x):
-        axis = slot_axis(name, x)
+        axis = slot_axis(name, x, fleet)
         return x if axis is None else group.all_gather(x, dim=axis)
 
     return _map_named(whole, tree)

@@ -86,7 +86,13 @@ fleet_axis_mesh``) the loop keeps one ``_FleetHost`` per shard and
 advances the shards in turns (``sharding.run_shards``): each shard
 decides its branches from its own members, which is exact because every
 phase is a value identity for a member that does not need it; host
-reads per tick grow with D.
+reads per tick grow with D. Under a slot mesh of D devices every
+member's slots are split (``sharding.fleet_shard_put``) and
+``run_fleet_slots`` runs ``_fleet_step`` with each shard's
+``SlotGroup``, one thread per shard, as ``simulate`` runs ``_step``: the
+per-member phases take the group under ``member_map`` (a collective
+there makes one exchange for all members), and every host read is of an
+all-reduced or replicated ``[F]`` value.
 """
 from __future__ import annotations
 
@@ -130,30 +136,27 @@ def _split(mesh, state=None) -> bool:
     return split
 
 
-def _mesh_parts(state, faults, churn, fallback, mesh,
-                dev) -> "sharding.SlotShards":
-    """``(state, faults, churn, fallback)`` as one ``SlotShards`` over
-    ``mesh`` (``sharding.shard_tuple``: each input split by
-    ``shard_put`` unless it already is ``SlotShards``), on devices of
-    ``dev``'s type."""
-    cap = (state.capacity if isinstance(state, sharding.SlotShards)
-           else int(state.member.shape[0]))
-    parts = sharding.shard_tuple((state, faults, churn, fallback), mesh, cap)
-    if parts.devices not in (mesh.devices, mesh.devices[:1]):
-        raise ValueError(f"the inputs are split over {parts.devices}, the "
-                         f"slot mesh holds {mesh.devices}")
-    for where in parts.devices:
-        if where.type != dev.type:
-            raise ValueError(f"the slot mesh holds {where}, the run was "
-                             f"asked for {dev}")
-    return parts
+def _mesh_parts(inputs, mesh, dev,
+                fleet: bool = False) -> "sharding.SlotShards":
+    """``inputs``, ``(state, faults, churn, fallback)``, as one
+    ``SlotShards`` over ``mesh`` (``sharding.shard_tuple``: each input
+    split by ``shard_put``, or with ``fleet`` by ``fleet_shard_put``,
+    unless it already is ``SlotShards``), on devices of ``dev``'s type.
+    ``inputs`` may also be the ``SlotShards`` of all four together
+    (``fleet_shard_put`` of a ``fleet.FleetMember``)."""
+    if not isinstance(inputs, sharding.SlotShards):
+        state = inputs[0]
+        cap = (state.capacity if isinstance(state, sharding.SlotShards)
+               else int(state.member.shape[int(fleet)]))
+        inputs = sharding.shard_tuple(inputs, mesh, cap, fleet)
+    return sharding.on_mesh(inputs, mesh, dev)
 
 
 def _run_mesh(state, faults, churn, fallback, mesh, dev, body):
     """``body(group, state, faults, churn, fallback)`` on every shard of
     a slot mesh (``sharding.run_spmd``); returns the shards' ``(state,
     log)`` pairs joined on the mesh's first device."""
-    parts = _mesh_parts(state, faults, churn, fallback, mesh, dev)
+    parts = _mesh_parts((state, faults, churn, fallback), mesh, dev)
     out = sharding.run_spmd(lambda g, shard: body(g, *shard), parts)
     home = parts.devices[0]
     return (state_mod.join_slots([o[0] for o in out], home),
@@ -779,12 +782,19 @@ class _FleetHost:
     """What the host knows of a fleet run between its ticks: ``_Host``
     per member. Epochs and vote arrivals are ``[F]`` numpy arrays; the
     member counts, config-id limbs and Paxos gauges ``[F]`` tensors; each
-    read returns one ``[F]`` vector in the one transfer it already is."""
+    read returns one ``[F]`` vector in the one transfer it already is. On
+    a slot mesh (``group``) each shard keeps one, built from the whole
+    schedules (all-gathered along each member's slot axis), so every
+    shard knows the same ticks; ``faults`` is kept whole."""
 
-    def __init__(self, state: EngineState, churn, fallback):
-        got = read_arrays(state.tick, state.epoch, churn.join_tick,
-                          churn.leave_tick, fallback.prop_tick,
-                          fallback.prop_pid, fallback.prop_delay,
+    def __init__(self, state: EngineState, churn, fallback, faults=None,
+                 group=SOLO):
+        self.faults = state_mod.gather_slots(faults, group, fleet=True)
+        sched = state_mod.gather_slots(
+            dict(join_tick=churn.join_tick, leave_tick=churn.leave_tick,
+                 prop_tick=fallback.prop_tick, prop_pid=fallback.prop_pid,
+                 prop_delay=fallback.prop_delay), group, fleet=True)
+        got = read_arrays(state.tick, state.epoch, *sched.values(),
                           fallback.inst_epoch)
         if len(set(got[0].tolist())) != 1:
             raise ValueError("fleet members must start at one tick")
@@ -823,7 +833,7 @@ class _FleetHost:
 
 
 def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
-                host: _FleetHost, churn, fallback):
+                host: _FleetHost, churn, fallback, group=SOLO):
     """One tick of every member, the member axis first on every tensor.
 
     Each phase of ``_step`` runs when any member needs it: the host's
@@ -832,21 +842,31 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     and its result is taken where the mask holds. A member therefore
     gets exactly its own ``_step``, and the reference's ``vmap`` of its
     ``lax.cond``s, by construction.
+
+    On a slot mesh ``group`` is the shard's ``sharding.SlotGroup``, as
+    in ``_step``: the state and the schedules hold the shard's slots of
+    every member, ``faults`` every member's whole universe
+    (``_FleetHost.faults``), each reduction over slots is a collective
+    over ``[F]`` partials, the per-member phases take the group under
+    ``member_map`` (its collectives are vmap-aware), and every host read
+    is of an all-reduced or replicated ``[F]`` value, so all shards take
+    the same branches.
     """
     t = host.tick + 1
     dev = state.member.device
     f, c = state.member.shape
     variant = settings.protocol_variant
-    n_groups, gid = hier.hier_group_count(c), None
+    n_groups, gid = hier.hier_group_count(group.size * c), None
     i32 = lambda x: x.to(torch.int32)
     zero = torch.zeros(f, dtype=torch.int32, device=dev)
     no_slots = lambda: torch.zeros((f, c), dtype=torch.bool, device=dev)
     where = lambda m, a, b: torch.where(
         m.reshape(m.shape + (1,) * (a.dim() - 1)), a, b)
-    crashed = monitor.crashed_at(faults, t)
+    crashed_all = monitor.crashed_at(faults, t)
+    crashed = group.local(crashed_all, dim=1)
     tick_t = state.tick + 1
     if host.n_member is None:
-        host.n_member = i32(state.member.sum(dim=-1))
+        host.n_member = i32(group.sum(state.member.sum(dim=-1)))
     n_member = host.n_member
     fb = host.fb
     px = {}
@@ -860,8 +880,8 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     if chain.any():
         m = host.put(chain)
         new, counts, classic, classic_pid = member_map(
-            lambda s, r, n: paxos.chain_deliver(s, r, t, n), state, rows,
-            n_member)
+            lambda s, r, n: paxos.chain_deliver(s, r, t, n, group), state,
+            rows, n_member)
         state = _merge(m, new, state)
         px = {k: torch.where(m, v, zero) for k, v in counts.items()}
         sc = classic & host.put(fb.fired(e, live, t, 4))
@@ -873,7 +893,7 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
             # A member's tally is a function of its key alone, so all
             # members are recomputed when any key moves.
             host.tally = (keys,) + member_map(
-                lambda s, r, n: paxos.fast_tally(s, r, 0, t, n)[:3],
+                lambda s, r, n: paxos.fast_tally(s, r, 0, t, n, group)[:3],
                 state, rows, n_member)
         _, ok, win_pid, tally = host.tally
         am = host.put(arrived > 0)
@@ -902,29 +922,32 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
                              state.uid_hi, state.uid_lo)
             decided, tally = member_map(
                 lambda m, v, g: hier.hier_count_fast_round(m, v, g,
-                                                           n_groups),
+                                                           n_groups, group),
                 state.member, valid, gid)
         else:
             decided, tally = member_map(
                 lambda hi, lo, v, n: votes.count_fast_round(
-                    hi.expand(c), lo.expand(c), v, n),
+                    hi.expand(c), lo.expand(c), v, n, group),
                 state.phash_hi, state.phash_lo, valid, n_member)
         vote_tally = torch.where(va, tally, zero)
         vote_quorum = torch.where(va, votes.fast_quorum(n_member), zero)
-        alert = decided & alive_members.any(dim=-1) & va
+        any_valid, any_alive = group.any(valid.any(dim=-1),
+                                         alive_members.any(dim=-1))
+        alert = decided & any_alive & va
         if sc is not None:
             alert = alert & ~sc
         if variant == "hier":
-            gate = valid.any(dim=-1) & alive_members.any(dim=-1)
+            gate = any_valid & any_alive
             senders = torch.where(gate, member_map(
                 lambda v, a, g: hier.hier_exchange_messages(v, a, g,
-                                                            n_groups),
+                                                            n_groups, group),
                 valid, alive_members, gid), zero)
             recipients = i32(gate)
         else:
-            senders = (ring.ring_pair_factor(valid) if variant == "ring"
-                       else i32(valid.sum(dim=-1)))
-            recipients = i32(alive_members.sum(dim=-1))
+            senders = (ring.ring_pair_factor(valid, group)
+                       if variant == "ring"
+                       else i32(group.sum(valid.sum(dim=-1))))
+            recipients = i32(group.sum(alive_members.sum(dim=-1)))
         vote_senders_alive = torch.where(va, senders, zero)
         vote_deliver_alive = torch.where(va, recipients, zero)
         vote_pending = vote_pending & ~votes_arriving
@@ -950,8 +973,8 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         ck_false = torch.zeros_like(state.reports)
         decided_state = state._replace(
             tick=tick_t,
-            **member_map(lambda s, p: _view_change(s, p, True), state,
-                         pmask),
+            **member_map(lambda s, p: _view_change(s, p, True, group),
+                         state, pmask),
             fc=torch.zeros_like(state.fc), notified=ck_false,
             fd_gate=tick_t, pending_flush=ck_false,
             pending_deliver=ck_false,
@@ -964,7 +987,7 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         decision = pmask & decide_now[:, None]
         host.epoch = host.epoch + decide
         host.n_member = n_member = torch.where(
-            decide_now, i32(mid.member.sum(dim=-1)), n_member)
+            decide_now, i32(group.sum(mid.member.sum(dim=-1))), n_member)
         host.px_gauges = None
         e, live = fb.rows(host.epoch)
         rows = host.fallback_rows(fallback, mid)
@@ -976,36 +999,39 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     late = ~decide & fb.fired(e, live, t, 1)
     if late.any():
         m = host.put(late)
-        new, senders = member_map(lambda s: paxos.phase1a_deliver(s, t),
-                                  mid)
+        new, senders = member_map(
+            lambda s: paxos.phase1a_deliver(s, t, group), mid)
         mid = _merge(m, new, mid)
         px["px1b_senders"] = torch.where(m, senders, zero)
 
     # ---- phase 2: alert delivery, aggregation, announce ----------------
-    src_alive = ~crashed
+    src_alive_all = ~crashed_all
+    src_alive = group.local(src_alive_all, dim=1)
     batch_src = mid.pending_deliver.any(dim=-1)
-    n_alive = i32((mid.member & src_alive).sum(dim=-1))
-    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive)
+    n_alive = i32(group.sum((mid.member & src_alive).sum(dim=-1)))
+    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive, group)
                       if variant == "ring"
-                      else i32((batch_src & src_alive).sum(dim=-1)))
-    delivered_down = member_map(cut.deliver_reports, mid, src_alive)
+                      else i32(group.sum((batch_src & src_alive).sum(dim=-1))))
+    delivered_down = member_map(
+        lambda s, a: cut.deliver_reports(s, a, group), mid, src_alive_all)
     delivered_up = None
     if t - 2 in host.inject_ticks or t <= host.start + 2:
         # Off its own injection ticks a member's churn batch is empty, so
         # the delivery adds nothing there.
         churn_down, delivered_up = member_map(cut.deliver_churn_reports,
-                                              mid, src_alive)
+                                              mid, src_alive_all)
         delivered_down = delivered_down | churn_down
     (reports, seen_down, announce_now, crossed, _explicit,
      implicit_added) = member_map(
-        lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings),
+        lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings, group),
         mid, delivered_down, delivered_up, n_alive > 0)
     announce = read_arrays(announce_now)[0].astype(bool)
     mid = mid._replace(reports=reports, seen_down=seen_down)
     an = announce_now
     if announce.any():
-        ph_hi, ph_lo = member_map(votes.proposal_fingerprint, crossed,
-                                  mid.uid_hi, mid.uid_lo)
+        ph_hi, ph_lo = member_map(
+            lambda p, hi, lo: votes.proposal_fingerprint(p, hi, lo, group),
+            crossed, mid.uid_hi, mid.uid_lo)
         mid = mid._replace(
             announced=mid.announced | an,
             proposal=where(an, crossed, mid.proposal),
@@ -1023,15 +1049,18 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
             gid = member_map(lambda hi, lo: hier.group_ids(hi, lo, n_groups),
                              mid.uid_hi, mid.uid_lo)
         vote_senders = torch.where(an, member_map(
-            lambda v, m, g: hier.hier_exchange_messages(v, m, g, n_groups),
+            lambda v, m, g: hier.hier_exchange_messages(v, m, g, n_groups,
+                                                        group),
             mid.member & src_alive, mid.member, gid), zero)
         vote_recipients = torch.where(an, 1, zero).to(torch.int32)
 
     # ---- phase 3: batch flush (1-tick quiescence) ----------------------
     flusher_mask = mid.pending_flush.any(dim=-1)
-    flushers = (ring.ring_pair_factor(flusher_mask) if variant == "ring"
-                else i32(flusher_mask.sum(dim=-1)))
-    flush_recipients = torch.where(flusher_mask.any(dim=-1), n_member, zero)
+    flushers = (ring.ring_pair_factor(flusher_mask, group)
+                if variant == "ring"
+                else i32(group.sum(flusher_mask.sum(dim=-1))))
+    flush_recipients = torch.where(group.any(flusher_mask.any(dim=-1)),
+                                   n_member, zero)
     mid = mid._replace(pending_deliver=mid.pending_flush,
                        pending_flush=torch.zeros_like(mid.pending_flush),
                        churn_deliver=mid.churn_flush,
@@ -1042,7 +1071,7 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     churn_injected = zero
     if t in host.inject_ticks:
         flush, churn_injected = member_map(
-            lambda s, ch: churn_mod.inject(s, ch, t), mid, churn)
+            lambda s, ch: churn_mod.inject(s, ch, t, group), mid, churn)
         mid = mid._replace(churn_flush=flush)
 
     # ---- phase 4b: failure-detector interval ---------------------------
@@ -1051,8 +1080,8 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     if t % settings.fd_interval_ticks == 0:
         is_fd = t > mid.fd_gate
         fc, notified, notify_exp, sent, failed = member_map(
-            lambda s, fl: monitor.monitor_tick(s, fl, settings, t), mid,
-            faults)
+            lambda s, fl: monitor.monitor_tick(s, fl, settings, t, group),
+            mid, faults)
         new = mid._replace(fc=where(is_fd, fc, mid.fc),
                            notified=where(is_fd, notified, mid.notified),
                            pending_flush=notify_exp & is_fd[:, None, None])
@@ -1066,15 +1095,16 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
             m = host.put(due)
             stepped, task_counts = member_map(
                 lambda s, r, n: paxos.task_phase(
-                    s, r, 0, t, n, half == "send", half == "fire"),
+                    s, r, 0, t, n, half == "send", half == "fire", group),
                 new, rows, n_member)
             new = _merge(m, stepped, new)
             px.update({k: torch.where(m, v, zero)
                        for k, v in task_counts.items()})
             host.px_gauges = None
     if host.px_gauges is None:
-        host.px_gauges = (i32((new.px_timer != I32_MAX).sum(dim=-1)),
-                          new.px_crnd_r.amax(dim=-1))
+        host.px_gauges = (
+            i32(group.sum((new.px_timer != I32_MAX).sum(dim=-1))),
+            group.max(new.px_crnd_r.amax(dim=-1)))
     px_timers_armed, px_coord_round = host.px_gauges
     if variant == "ring" and "pxvote_senders" in px:
         px["pxvote_senders"] = torch.where(px["pxvote_senders"] > 0, 2,
@@ -1085,7 +1115,8 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         inv_bits = member_map(
             lambda pre, post, d, fd, cd, fm, cm: invariants.check_step(
                 pre, post, decide_now=d, fast_decide=fd, classic_decide=cd,
-                fast_mask=fm, classic_mask=cm, settings=settings),
+                fast_mask=fm, classic_mask=cm, settings=settings,
+                group=group),
             state, new, decide_now, fast, classic, state.proposal,
             pmask & classic[:, None])
 
@@ -1093,10 +1124,13 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
                                       new.memsum_hi, new.memsum_lo)
     cfg_hi, cfg_lo = host.config
-    alerts_in_flight = i32(
-        new.pending_flush.any(dim=-1).sum(dim=-1)
-        + new.pending_deliver.any(dim=-1).sum(dim=-1)
-        + new.churn_flush.sum(dim=-1) + new.churn_deliver.sum(dim=-1))
+    in_flight = group.sum(new.pending_flush.any(dim=-1).sum(dim=-1),
+                          new.pending_deliver.any(dim=-1).sum(dim=-1),
+                          new.churn_flush.sum(dim=-1),
+                          new.churn_deliver.sum(dim=-1),
+                          new.reports.sum(dim=(-2, -1)))
+    alerts_in_flight = i32(in_flight[0] + in_flight[1] + in_flight[2]
+                           + in_flight[3])
     log = StepLog(
         tick=tick_t,
         announce_now=announce_now,
@@ -1108,19 +1142,20 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         probes_sent=probes_sent, probes_failed=probes_failed,
         flushers=flushers, flush_recipients=flush_recipients,
         flushers_alive=flushers_alive,
-        deliver_alive=torch.where(batch_src.any(dim=-1), n_alive, zero),
+        deliver_alive=torch.where(group.any(batch_src.any(dim=-1)), n_alive,
+                                  zero),
         vote_senders=vote_senders, vote_recipients=vote_recipients,
         vote_senders_alive=vote_senders_alive,
         vote_deliver_alive=vote_deliver_alive,
         alerts_in_flight=alerts_in_flight,
-        cut_reports=i32(new.reports.sum(dim=(-2, -1))),
+        cut_reports=i32(in_flight[4]),
         implicit_reports=implicit_added,
         vote_tally=vote_tally, quorum=vote_quorum,
         epoch=new.epoch,
         churn_injected=churn_injected,
         partitioned_edges=member_map(
-            lambda fl, m: monitor.partitioned_edge_count(fl, m, t), faults,
-            new.member),
+            lambda fl, m: monitor.partitioned_edge_count(fl, m, t, group),
+            faults, new.member),
         link_dropped=zero,
         px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
         inv_bits=inv_bits,
@@ -1141,15 +1176,36 @@ def fleet_body(state: EngineState, faults: EngineFaults, churn, fallback,
     and with ``settings.flight_recorder_window > 0`` ``(finals, logs,
     recorders)`` with ``[F, W, G]`` rings.
 
-    ``mesh`` is a one-device slot mesh (a larger one raises: fleets on
-    a slot mesh, ROADMAP.md Queue 1 item 5); ``fleet_mesh`` splits the
-    members over its devices
-    (``sharding.fleet_axis_put``) and the outputs come back joined in
-    member order on its first device. The two are mutually exclusive."""
+    ``mesh`` is a slot mesh. On one device the inputs must lie there; on
+    ``D`` devices each input is split over it by
+    ``sharding.fleet_shard_put`` (or given as its ``SlotShards``), every
+    member's slots ``C / D`` a shard, and one thread per shard runs the
+    fleet tick (``run_fleet_slots``). ``fleet_mesh`` splits the members
+    over its devices (``sharding.fleet_axis_put``). Either way the
+    outputs come back joined on the mesh's first device and equal the
+    unsplit run. The two are mutually exclusive."""
     sharding.require_one_layout(mesh, fleet_mesh)
+    if _split(mesh, state):
+        return run_fleet_slots(_mesh_parts(
+            (state, faults, churn, fallback), mesh, mesh.devices[0],
+            fleet=True), n_ticks, settings)
     return run_fleet_shards(sharding.fleet_shards(
         (state, faults, churn, fallback), fleet_mesh, state.member.shape[0],
         state.member.device), n_ticks, settings)
+
+
+def _fleet_outputs(state, logs, settings: Settings):
+    """``(finals, logs)``, and with ``settings.flight_recorder_window``
+    the recorders folded from the joined logs."""
+    if settings.flight_recorder_window:
+        return state, logs, recorder.record_fleet_run(logs, settings,
+                                                      recorder.record_run)
+    return state, logs
+
+
+def _member_major(logs: List[StepLog]) -> StepLog:
+    """Per-tick ``[F, ...]`` fleet logs -> ``[F, T, ...]``."""
+    return StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
 
 
 def run_fleet_shards(parts: "sharding.FleetShards", n_ticks: int,
@@ -1160,25 +1216,49 @@ def run_fleet_shards(parts: "sharding.FleetShards", n_ticks: int,
     context, and the finals and logs joined in member order on the first
     shard's device."""
     hosts = []
-    for dev, (state, _, churn, fallback) in zip(parts.devices, parts.shards):
+    for dev, (state, faults, churn, fallback) in zip(parts.devices,
+                                                     parts.shards):
         with sharding.device_context(dev):
-            hosts.append(_FleetHost(state, churn, fallback))
+            hosts.append(_FleetHost(state, churn, fallback, faults))
     if len({h.tick for h in hosts}) != 1:
         raise ValueError("fleet members must start at one tick")
 
     def tick(k, state, _):
-        _, faults, churn, fallback = parts.shards[k]
-        return _fleet_step(state, faults, settings, hosts[k], churn,
+        _, _, churn, fallback = parts.shards[k]
+        return _fleet_step(state, hosts[k].faults, settings, hosts[k], churn,
                            fallback)
 
     finals, shard_logs = sharding.run_shards(
         parts.devices, [p[0] for p in parts.shards], n_ticks, tick)
     home = parts.devices[0]
-    state = sharding.join(finals, home)
-    logs = sharding.join(
-        [StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
-         for logs in shard_logs], home)
-    if settings.flight_recorder_window:
-        return state, logs, recorder.record_fleet_run(logs, settings,
-                                                      recorder.record_run)
-    return state, logs
+    return _fleet_outputs(
+        sharding.join(finals, home),
+        sharding.join([_member_major(logs) for logs in shard_logs], home),
+        settings)
+
+
+def run_fleet_slots(parts: "sharding.SlotShards", n_ticks: int,
+                    settings: Settings):
+    """``fleet_body`` over ``SlotShards`` of ``(state, faults, churn,
+    fallback)`` (``sharding.fleet_shard_put`` of a ``fleet.FleetMember``
+    is one): one thread per shard (``sharding.run_spmd``), each with its
+    ``_FleetHost`` and ``_fleet_step`` on its ``SlotGroup``, and the
+    finals and the ``[F, T, ...]`` logs joined along each leaf's slot
+    axis on the first shard's device. A single shard (the divisibility
+    guard) runs the whole fleet there."""
+    def body(group, shard):
+        state, faults, churn, fallback = shard
+        host = _FleetHost(state, churn, fallback, faults, group)
+        logs = []
+        for _ in range(int(n_ticks)):
+            state, log = _fleet_step(state, host.faults, settings, host,
+                                     churn, fallback, group)
+            logs.append(log)
+        return state, _member_major(logs)
+
+    out = sharding.run_spmd(body, parts)
+    home = parts.devices[0]
+    return _fleet_outputs(
+        state_mod.join_slots([o[0] for o in out], home, fleet=True),
+        state_mod.join_slots([o[1] for o in out], home, fleet=True),
+        settings)

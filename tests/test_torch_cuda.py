@@ -305,6 +305,29 @@ def test_two_slot_shards_on_card_equal_the_golden_file(card, name):
     assert golden.differences(rec, golden.load(sc.path)) == []
 
 
+def test_fleet_on_four_slot_shards_on_card_equals_unsplit(card):
+    """An F=4 fleet at N=64 (``random_adversary_schedule`` seeds 0-3, 80
+    ticks) with each member's slots split four ways on one card (a slot
+    mesh that names the card four times) equals the unsplit run on the
+    card in every leaf; no delivery kernel launches."""
+    from rapid_tpu_torch.engine import fleet, sharding
+    from rapid_tpu_torch.faults import random_adversary_schedule
+
+    settings = Settings(flight_recorder_window=16)
+    stacked = fleet.stack_members([
+        fleet.lower_schedule(random_adversary_schedule(64, s, 80), settings,
+                             device=card) for s in range(4)])
+    whole = fleet.fleet_simulate(stacked, 80, settings, device=card)
+    before = rx_account.deliver_launches + rx_account.launches
+    split = fleet.fleet_simulate(
+        stacked, 80, settings, device=card,
+        mesh=sharding.slot_mesh(devices=[card] * 4))
+    assert rx_account.deliver_launches + rx_account.launches == before
+    assert split[0].member.device == card
+    for a, b in zip(split, whole):
+        _same(a, b)
+
+
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_campaign_on_card_equals_cpu(card, pipeline):
     """A campaign straddling both modes (crash and partition members,

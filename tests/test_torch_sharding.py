@@ -15,10 +15,12 @@ reference's, which run on the conftest's eight forced CPU devices.
 - Slot meshes: ``simulate``, ``step`` and ``run_differential`` on one
   device and on two equal the reference with and without its 8-way slot
   mesh; ``shard_put`` on two devices holds the slots the reference's
-  two-way placement puts on each; a fleet on a slot mesh of two raises
-  ``NotImplementedError`` ("fleets on a slot mesh"), and both layouts
-  together "mutually exclusive". ``tests/test_torch_slot_mesh.py`` holds
-  the slot axis at more sizes.
+  two-way placement puts on each; a fleet on a slot mesh of two equals
+  the unsplit fleet, ``fleet_shard_put`` splits each member's slots (one
+  whole shard where they do not divide the mesh), and both layouts
+  together are "mutually exclusive". ``tests/test_torch_slot_mesh.py``
+  and ``tests/test_torch_fleet_slot_mesh.py`` hold the slot axis at more
+  sizes.
 - The shard loops enter each shard's device context around each of its
   ticks, in turns.
 
@@ -161,9 +163,18 @@ def test_meshes_and_their_refusals():
         sharding.fleet_axis_mesh(4, devices=["cpu"] * 3)
     with pytest.raises(ValueError, match="need 2 devices for the slot"):
         sharding.slot_mesh(2, devices=["cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="fleets on a slot mesh.*Queue 1 item 5"):
-        sharding.fleet_shard_put(torch.zeros(4), slot, 4)
+    # A fleet on a slot mesh: four slots do not divide eight devices, so
+    # the tensor is one whole shard on the first (the reference
+    # replicates it); eight slots split one a shard, the member axis whole.
+    whole = sharding.fleet_shard_put(torch.zeros(4), slot, 4)
+    assert isinstance(whole, sharding.SlotShards)
+    assert whole.devices == slot.devices[:1] and len(whole.shards) == 1
+    assert torch.equal(whole.shards[0], torch.zeros(4))
+    x = torch.arange(32).reshape(4, 8)
+    split = sharding.fleet_shard_put(x, slot, 8)
+    assert split.devices == slot.devices and split.capacity == 8
+    assert [tuple(part.shape) for part in split.shards] == [(4, 1)] * 8
+    assert torch.equal(torch.cat(split.shards, dim=1), x)
 
 
 def test_shard_put_on_two_devices_holds_the_reference_placement(
@@ -316,10 +327,14 @@ def test_both_layouts_together_are_mutually_exclusive(ref_meshes):
     want = fleet.fleet_simulate(stacked, 40, Settings(), device="cpu")
     for a, b in zip(got[1], want[1]):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="fleets on a slot mesh"):
-        fleet.fleet_simulate(stacked, 40, Settings(),
-                             mesh=sharding.slot_mesh(2, device="cpu"),
-                             device="cpu")
+    # A slot mesh of two splits every member's slots and equals the
+    # unsplit run.
+    split = fleet.fleet_simulate(stacked, 40, Settings(),
+                                 mesh=sharding.slot_mesh(2, device="cpu"),
+                                 device="cpu")
+    for part, whole in zip(split, want):
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="'fleet' axis"):
         fleet.fleet_simulate(stacked, 40, Settings(), fleet_mesh=one,
                              device="cpu")
