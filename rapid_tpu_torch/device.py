@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from rapid_tpu_torch.telemetry.trace import span
+
 
 class NoCudaDeviceError(RuntimeError):
     """A CUDA device was asked for (the default) and none is present."""
@@ -23,9 +25,11 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-#: Device-to-host reads made by ``read_host`` since the last reset. A
-#: read waits for the queued device work, so it is the cost of a host
-#: branch; ``chip_smoke.py`` and ``profile`` report it per tick.
+#: Device-to-host reads made by ``read_host`` and ``read_arrays`` since
+#: the last reset. A read waits for the queued device work, so it is the
+#: cost of a host branch; ``chip_smoke.py`` and ``profile`` report it per
+#: tick. Each read is one span ``rapid.read`` (``telemetry.trace``)
+#: around the transfer: the time the host is blocked.
 host_reads = 0
 
 
@@ -34,7 +38,9 @@ def read_host(*scalars):
     the host in one transfer (and counted in ``host_reads``)."""
     global host_reads
     host_reads += 1
-    return torch.stack([s.to(torch.int64) for s in scalars]).tolist()
+    flat = torch.stack([s.to(torch.int64) for s in scalars])
+    with span("rapid.read"):
+        return flat.tolist()
 
 
 def read_arrays(*tensors):
@@ -43,7 +49,8 @@ def read_arrays(*tensors):
     global host_reads
     host_reads += 1
     flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])
-    flat = flat.cpu().numpy()
+    with span("rapid.read"):
+        flat = flat.cpu().numpy()
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))

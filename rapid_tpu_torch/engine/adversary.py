@@ -37,6 +37,7 @@ from rapid_tpu_torch.engine.paxos import adversary_rngs
 from rapid_tpu_torch.faults import AdversarySchedule, ScriptedPropose, \
     delay_of_slots, validate_schedule
 from rapid_tpu_torch.settings import DEFAULT_SETTINGS, Settings
+from rapid_tpu_torch.telemetry.trace import span
 
 MASK64 = hashing.MASK64
 
@@ -155,25 +156,26 @@ class AdversaryRun:
         partitioned-edge and link-drop gauges — of a divergent tick."""
         from rapid_tpu_torch.telemetry.metrics import TickMetrics
 
-        ann = {e[0] for evs in self.events_by_slot for e in evs
-               if e[1] == "proposal"}
-        dec = {e[0] for evs in self.events_by_slot for e in evs
-               if e[1] == "view_change"}
-        out = []
-        for i, c in enumerate(self.tick_history):
-            tick = i + 1
-            px = self.phase_history[i]
-            out.append(TickMetrics(
-                tick=tick, source="engine", **c,
-                partitioned_edges=self.partitioned_edges[i],
-                link_dropped=self.link_dropped[i],
-                px_fast_vote_sent=px["fast_vote_sent"],
-                px_phase1a_sent=px["phase1a_sent"],
-                px_phase1b_sent=px["phase1b_sent"],
-                px_phase2a_sent=px["phase2a_sent"],
-                px_phase2b_sent=px["phase2b_sent"],
-                announce=tick in ann, decide=tick in dec))
-        return out
+        with span("rapid.fold"):
+            ann = {e[0] for evs in self.events_by_slot for e in evs
+                   if e[1] == "proposal"}
+            dec = {e[0] for evs in self.events_by_slot for e in evs
+                   if e[1] == "view_change"}
+            out = []
+            for i, c in enumerate(self.tick_history):
+                tick = i + 1
+                px = self.phase_history[i]
+                out.append(TickMetrics(
+                    tick=tick, source="engine", **c,
+                    partitioned_edges=self.partitioned_edges[i],
+                    link_dropped=self.link_dropped[i],
+                    px_fast_vote_sent=px["fast_vote_sent"],
+                    px_phase1a_sent=px["phase1a_sent"],
+                    px_phase1b_sent=px["phase1b_sent"],
+                    px_phase2a_sent=px["phase2a_sent"],
+                    px_phase2b_sent=px["phase2b_sent"],
+                    announce=tick in ann, decide=tick in dec))
+            return out
 
 
 class AdversaryEngine:

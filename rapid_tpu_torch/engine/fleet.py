@@ -63,6 +63,7 @@ from rapid_tpu_torch.engine.state import (
 from rapid_tpu_torch.faults import AdversarySchedule, validate_schedule
 from rapid_tpu_torch.identity import default_identities
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.telemetry.trace import span
 
 
 class FleetMember(NamedTuple):
@@ -164,7 +165,8 @@ def lower_schedule(schedule: AdversarySchedule, settings: Settings, *,
     per-edge arrival ticks). The universe is padded to
     ``settings.capacity`` when that exceeds ``schedule.n``."""
     dev = resolve_device(device)
-    validate_schedule(schedule)
+    with span("rapid.lower.validate"):
+        validate_schedule(schedule)
     if schedule.delays:
         raise ValueError("shared-state members do not support delay rules; "
                          "lower with lower_receiver_schedule instead")
@@ -186,20 +188,24 @@ def lower_schedule(schedule: AdversarySchedule, settings: Settings, *,
         # boot's own pad rule so both stay slot-aligned.
         uids = list(uids) + [hashing.hash64(i, seed=0x636170)
                              for i in range(len(id_fps) - len(uids))]
-    if default_universe:
-        key = (n, len(uids), id_fp_sum, eff, dev)
-        state = _BOOT_CACHE.get(key)
-        if state is None:
-            state = _BOOT_CACHE[key] = init_state(uids, id_fp_sum, eff,
-                                                  device=dev)
-        if id_fps is not None:
-            state = _patch_id_fps(state, id_fps, c)
-    else:
-        state = init_state(uids, id_fp_sum, eff, id_fps=id_fps, device=dev)
+    with span("rapid.lower.boot"):
+        if default_universe:
+            key = (n, len(uids), id_fp_sum, eff, dev)
+            state = _BOOT_CACHE.get(key)
+            if state is None:
+                state = _BOOT_CACHE[key] = init_state(uids, id_fp_sum, eff,
+                                                      device=dev)
+            if id_fps is not None:
+                state = _patch_id_fps(state, id_fps, c)
+        else:
+            state = init_state(uids, id_fp_sum, eff, id_fps=id_fps,
+                               device=dev)
     crash = np.full(c, I32_MAX, np.int64)
     crash[:n] = schedule.crash_tick_array()
-    faults = link_faults(crash.tolist(), schedule.windows, c, device=dev)
-    fallback = _compile_proposes(schedule, _uids_np_from_state(state), c)
+    with span("rapid.lower.faults"):
+        faults = link_faults(crash.tolist(), schedule.windows, c, device=dev)
+    with span("rapid.lower.proposes"):
+        fallback = _compile_proposes(schedule, _uids_np_from_state(state), c)
     return FleetMember(
         state=state, faults=faults,
         churn=_to_device(churn_mod.empty_schedule(c) if churn is None
@@ -293,10 +299,11 @@ def stack_members(members: Sequence[FleetMember], *,
     pids = _resolve_max(
         n_pids, max(m.fallback.table_mask.shape[1] for m in members),
         "n_pids")
-    return _stack([m._replace(faults=pad_link_windows(m.faults, w),
-                              fallback=_pad_fallback(m.fallback, n_inst,
-                                                     pids))
-                   for m in members])
+    with span("rapid.lower.stack"):
+        return _stack([m._replace(faults=pad_link_windows(m.faults, w),
+                                  fallback=_pad_fallback(m.fallback, n_inst,
+                                                         pids))
+                       for m in members])
 
 
 def _placed_on(tree, dev: torch.device) -> None:
@@ -353,13 +360,14 @@ def fleet_simulate(fleet: FleetMember, n_ticks: int, settings: Settings,
     from rapid_tpu_torch.engine import step
 
     sharding.require_one_layout(mesh, fleet_mesh)
-    if step._split(mesh, fleet):
-        dev = resolve_device(device)
-        parts = step._mesh_parts(fleet, mesh, dev, fleet=True)
-        _check_placed(parts, dev)
-        return step.run_fleet_slots(parts, int(n_ticks), settings)
-    return step.run_fleet_shards(_shards(fleet, mesh, fleet_mesh, device),
-                                 int(n_ticks), settings)
+    with span("rapid.fleet.dispatch"):
+        if step._split(mesh, fleet):
+            dev = resolve_device(device)
+            parts = step._mesh_parts(fleet, mesh, dev, fleet=True)
+            _check_placed(parts, dev)
+            return step.run_fleet_slots(parts, int(n_ticks), settings)
+        return step.run_fleet_shards(
+            _shards(fleet, mesh, fleet_mesh, device), int(n_ticks), settings)
 
 
 def member_of(tree, i: int):
@@ -543,11 +551,13 @@ def lower_receiver_schedule(schedule: AdversarySchedule, settings: Settings,
     if schedule.proposes:
         raise ValueError("per-receiver members do not support scripted "
                          "proposes; lower with lower_schedule instead")
-    validate_schedule(schedule, ring_depth=settings.delivery_ring_depth)
+    with span("rapid.lower.validate"):
+        validate_schedule(schedule, ring_depth=settings.delivery_ring_depth)
     n = schedule.n
     c = max(settings.capacity, n)
     eff = settings if settings.capacity == c else settings.with_(capacity=c)
-    check_receiver_budget(c, fleet_size, eff)
+    with span("rapid.lower.budget"):
+        check_receiver_budget(c, fleet_size, eff)
     default_universe = uids is None
     if uids is None:
         uids, default_sum = default_identities(n)
@@ -560,28 +570,32 @@ def lower_receiver_schedule(schedule: AdversarySchedule, settings: Settings,
         # once per shape (the packed carry leaves the table out, the
         # dense one takes the member's in its place).
         key = (n, id_fp_sum, eff, dev)
-        boot = _RX_BOOT_CACHE.get(key)
-        if boot is None:
-            boot = receiver.init_receiver_state(uids, id_fp_sum, eff,
-                                                seed=0, device=dev)
-            if not dense:
-                boot = rx_packed.pack_receiver_state(boot, eff)
-            _RX_BOOT_CACHE[key] = boot
-        table = torch.from_numpy(paxos.build_delay_table(
-            schedule.seed, c, receiver.N_DRAWS, eff)).to(dev)
+        with span("rapid.lower.boot"):
+            boot = _RX_BOOT_CACHE.get(key)
+            if boot is None:
+                boot = receiver.init_receiver_state(uids, id_fp_sum, eff,
+                                                    seed=0, device=dev)
+                if not dense:
+                    boot = rx_packed.pack_receiver_state(boot, eff)
+                _RX_BOOT_CACHE[key] = boot
+        with span("rapid.lower.delays"):
+            table = torch.from_numpy(paxos.build_delay_table(
+                schedule.seed, c, receiver.N_DRAWS, eff)).to(dev)
         state = (boot._replace(delay_table=table) if dense else
                  rx_packed.PackedReceiverBundle(packed=boot,
                                                 delay_table=table))
     else:
-        state = receiver.init_receiver_state(uids, id_fp_sum, eff,
-                                             seed=schedule.seed, device=dev)
-        if not dense:
-            state = rx_packed.bundle_from_dense(state, eff)
+        with span("rapid.lower.boot"):
+            state = receiver.init_receiver_state(
+                uids, id_fp_sum, eff, seed=schedule.seed, device=dev)
+            if not dense:
+                state = rx_packed.bundle_from_dense(state, eff)
     crash = np.full(c, I32_MAX, np.int64)
     crash[:n] = schedule.crash_tick_array()
-    faults = link_faults(crash.tolist(), schedule.windows, c,
-                         delays=schedule.delays, delay_seed=schedule.seed,
-                         device=dev)
+    with span("rapid.lower.faults"):
+        faults = link_faults(crash.tolist(), schedule.windows, c,
+                             delays=schedule.delays,
+                             delay_seed=schedule.seed, device=dev)
     return ReceiverMember(state=state, faults=faults)
 
 
@@ -611,9 +625,10 @@ def stack_receiver_members(members: Sequence[ReceiverMember], *,
     r = _resolve_max(n_delay_rules,
                      max(m.faults.n_delay_rules for m in members),
                      "n_delay_rules")
-    return _stack([m._replace(
-        faults=pad_delay_rules(pad_link_windows(m.faults, w), r))
-        for m in members])
+    with span("rapid.lower.stack"):
+        return _stack([m._replace(
+            faults=pad_delay_rules(pad_link_windows(m.faults, w), r))
+            for m in members])
 
 
 def receiver_fleet_simulate(fleet: ReceiverMember, n_ticks: int,
@@ -627,5 +642,6 @@ def receiver_fleet_simulate(fleet: ReceiverMember, n_ticks: int,
     in ``fleet_simulate``; ``fleet`` may be ``sharding.FleetShards``."""
     from rapid_tpu_torch.engine import receiver
 
-    return receiver.receiver_fleet_run(
-        _shards(fleet, None, fleet_mesh, device), int(n_ticks), settings)
+    with span("rapid.fleet.dispatch"):
+        return receiver.receiver_fleet_run(
+            _shards(fleet, None, fleet_mesh, device), int(n_ticks), settings)

@@ -59,6 +59,7 @@ from rapid_tpu_torch.engine.state import (
     config_id_limbs, flag_bit, member_map)
 from rapid_tpu_torch.engine.topology import build_topology
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.telemetry.trace import span
 
 #: Fallback-delay draws precomputed per slot (one per announce).
 N_DRAWS = 4
@@ -345,7 +346,8 @@ def receiver_step(rs: ReceiverState, faults: EngineFaults,
     and its equivalence to the oracle's send order). ``tick`` is
     ``rs.tick`` as a host int, read from the state when omitted."""
     t = (int(rs.tick) if tick is None else int(tick)) + 1
-    crashed, planes, acc = _deliver_all(rs, faults, t, settings)
+    with span("rapid.rx.deliver"):
+        crashed, planes, acc = _deliver_all(rs, faults, t, settings)
     return _tick(rs, faults, settings, t, crashed, planes, acc, False)
 
 
@@ -356,7 +358,8 @@ def fleet_step(rs: ReceiverState, faults: EngineFaults, settings: Settings,
     member as one batched call (``member_map``) with every row masked,
     and ``tick`` is the members' common ``rs.tick``."""
     t = int(tick) + 1
-    crashed, planes, acc = _deliver_all(rs, faults, t, settings)
+    with span("rapid.rx.deliver"):
+        crashed, planes, acc = _deliver_all(rs, faults, t, settings)
     return member_map(
         lambda r, fl, cr, pl, a: _tick(r, fl, settings, t, cr, pl, a, True),
         rs, faults, crashed, planes, acc)
@@ -402,442 +405,464 @@ def _tick(rs: ReceiverState, faults: EngineFaults, settings: Settings,
                        v.cfg_hi[:, None], v.cfg_lo[:, None])
 
     # ---- group 1: phase-2b delivery -> decide wave A --------------------
-    w2b_ring = rs.w2b[am]
-    w2b_rnd_r = rs.w2b_rnd[am]
-    w2b_mask_r = rs.w2b_mask[am]
-    w2b_cfg = cfg_gate(rs.w2b_cfg_hi[am], rs.w2b_cfg_lo[am])
-    gates = [dv2[slot].T & ~v.stopped[:, None] & w2b_cfg
-             for slot in (0, 1)]
-    g2b_any = (gates[0] | gates[1]).any(dim=1)
-    rnd0 = torch.where(gates[0], w2b_rnd_r[0][None, :], -1)
-    rnd1 = torch.where(gates[1], w2b_rnd_r[1][None, :], -1)
-    mx_in = torch.maximum(rnd0.amax(dim=1), rnd1.amax(dim=1))
-    mx = torch.maximum(v.p2_rnd, mx_in)
-    reset = mx > v.p2_rnd
-    use0 = gates[0] & (w2b_rnd_r[0][None, :] == mx[:, None])
-    use1 = gates[1] & (w2b_rnd_r[1][None, :] == mx[:, None])
-    low_seen = ((gates[0] & ~use0).any() | (gates[1] & ~use1).any()
-                | (reset & (v.p2_rnd >= 0) & v.p2_seen.any(dim=1)).any())
-    v.flags = v.flags | flag_bit(low_seen, FLAG_MULTI_2B_ROUNDS)
-    add = use0 | use1
-    v.p2_seen = (v.p2_seen & ~reset[:, None]) | add
-    a_star = _first_true(add)
-    pick0 = use0[ridx, a_star]
-    gathered = torch.where(pick0[:, None], w2b_mask_r[0][a_star],
-                           w2b_mask_r[1][a_star])
-    refresh = reset & add.any(dim=1)
-    v.p2_mask = torch.where(refresh[:, None], gathered, v.p2_mask)
-    v.p2_rnd = mx
-    dec_a = (_pop(v.p2_seen) > v.px_n // 2) & add.any(dim=1)
-    hosts_a = v.p2_mask & dec_a[:, None]
+    with span("rapid.rx.p2b"):
+        w2b_ring = rs.w2b[am]
+        w2b_rnd_r = rs.w2b_rnd[am]
+        w2b_mask_r = rs.w2b_mask[am]
+        w2b_cfg = cfg_gate(rs.w2b_cfg_hi[am], rs.w2b_cfg_lo[am])
+        gates = [dv2[slot].T & ~v.stopped[:, None] & w2b_cfg
+                 for slot in (0, 1)]
+        g2b_any = (gates[0] | gates[1]).any(dim=1)
+        rnd0 = torch.where(gates[0], w2b_rnd_r[0][None, :], -1)
+        rnd1 = torch.where(gates[1], w2b_rnd_r[1][None, :], -1)
+        mx_in = torch.maximum(rnd0.amax(dim=1), rnd1.amax(dim=1))
+        mx = torch.maximum(v.p2_rnd, mx_in)
+        reset = mx > v.p2_rnd
+        use0 = gates[0] & (w2b_rnd_r[0][None, :] == mx[:, None])
+        use1 = gates[1] & (w2b_rnd_r[1][None, :] == mx[:, None])
+        low_seen = ((gates[0] & ~use0).any() | (gates[1] & ~use1).any()
+                    | (reset & (v.p2_rnd >= 0) & v.p2_seen.any(dim=1)).any())
+        v.flags = v.flags | flag_bit(low_seen, FLAG_MULTI_2B_ROUNDS)
+        add = use0 | use1
+        v.p2_seen = (v.p2_seen & ~reset[:, None]) | add
+        a_star = _first_true(add)
+        pick0 = use0[ridx, a_star]
+        gathered = torch.where(pick0[:, None], w2b_mask_r[0][a_star],
+                               w2b_mask_r[1][a_star])
+        refresh = reset & add.any(dim=1)
+        v.p2_mask = torch.where(refresh[:, None], gathered, v.p2_mask)
+        v.p2_rnd = mx
+        dec_a = (_pop(v.p2_seen) > v.px_n // 2) & add.any(dim=1)
+        hosts_a = v.p2_mask & dec_a[:, None]
 
     # ---- group 2: apply decide wave A -----------------------------------
-    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_a, hosts_a, ridx, dense)
-    record_decides(dec_a, hosts_a, ncfg_hi, ncfg_lo)
+    with span("rapid.rx.decide_a"):
+        ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_a, hosts_a, ridx, dense)
+        record_decides(dec_a, hosts_a, ncfg_hi, ncfg_lo)
 
     # ---- group 3: phase-2a delivery -> accept chain -> 2b emission ------
-    w2a_ring = rs.w2a[am]
-    w2a_fp_hi_r, w2a_fp_lo_r = rs.w2a_fp_hi[am], rs.w2a_fp_lo[am]
-    w2a_mask_arr = rs.w2a_mask[am]
-    gate = (dv2a.T & ~v.stopped[:, None]
-            & cfg_gate(rs.w2a_cfg_hi[am], rs.w2a_cfg_lo[am]))
-    send2a_min = torch.where(gate, rs.w2a_tick[am][None, :],
-                             I32_MAX).amin(dim=1)
-    send2a_max = torch.where(gate, rs.w2a_tick[am][None, :], -1).amax(dim=1)
-    perm3 = _arrival_perm(w2a_ring.any(dim=1), rs.w2a_tick[am],
-                          rs.w2a_seq[am])
-    gate_s = gate[:, perm3]
-    rank_j = rs.rank_idx[perm3]
-    ge0 = ((v.px_rnd_r[:, None] < 2)
-           | ((v.px_rnd_r[:, None] == 2)
-              & (v.px_rnd_i[:, None] <= rank_j[None, :])))
-    ne0 = ~((v.px_vrnd_r[:, None] == 2)
-            & (v.px_vrnd_i[:, None] == rank_j[None, :]))
-    arrived = torch.where(gate_s, rank_j[None, :], -1)
-    accept = gate_s & ge0 & ne0 & (rank_j[None, :] > _prefmax_excl(arrived))
-    n_acc = _pop(accept)
-    v.flags = v.flags | flag_bit((n_acc > 2).any(), FLAG_MULTI_2A_ACCEPTS)
-    j1 = _first_true(accept)
-    j2 = _first_true(accept & (jidx[None, :] > j1[:, None]))
-    jl = c - 1 - _first_true(accept.flip(1))
-    c1, c2, cl = perm3[j1], perm3[j2], perm3[jl]
-    emit0 = n_acc >= 1
-    emit1 = n_acc >= 2
-    w2b_rnd_new = torch.stack([rs.rank_idx[c1], rs.rank_idx[c2]])
-    w2b_fp_hi_new = torch.stack([w2a_fp_hi_r[c1], w2a_fp_hi_r[c2]])
-    w2b_fp_lo_new = torch.stack([w2a_fp_lo_r[c1], w2a_fp_lo_r[c2]])
-    w2b_mask_new = torch.stack([w2a_mask_arr[c1], w2a_mask_arr[c2]])
-    w2b_cfg_hi_new, w2b_cfg_lo_new = v.cfg_hi, v.cfg_lo
-    # Recipient snapshot here: wave-B decides below must not shrink this
-    # tick's fan (the oracle sends 2b during 2a delivery).
-    w2b_fan = torch.stack([emit0[:, None] & v.member,
-                           emit1[:, None] & v.member])
-    send("p2b", _i32((emit0 * _pop(v.member)
-                      + emit1 * _pop(v.member)).sum()))
-    rank_last = rs.rank_idx[cl]
-    v.px_rnd_r = torch.where(emit0, 2, v.px_rnd_r)
-    v.px_rnd_i = torch.where(emit0, rank_last, v.px_rnd_i)
-    v.px_vrnd_r = torch.where(emit0, 2, v.px_vrnd_r)
-    v.px_vrnd_i = torch.where(emit0, rank_last, v.px_vrnd_i)
-    v.px_vv_fp_hi = torch.where(emit0, w2a_fp_hi_r[cl], v.px_vv_fp_hi)
-    v.px_vv_fp_lo = torch.where(emit0, w2a_fp_lo_r[cl], v.px_vv_fp_lo)
-    v.px_vv_set = v.px_vv_set | emit0
+    with span("rapid.rx.p2a"):
+        w2a_ring = rs.w2a[am]
+        w2a_fp_hi_r, w2a_fp_lo_r = rs.w2a_fp_hi[am], rs.w2a_fp_lo[am]
+        w2a_mask_arr = rs.w2a_mask[am]
+        gate = (dv2a.T & ~v.stopped[:, None]
+                & cfg_gate(rs.w2a_cfg_hi[am], rs.w2a_cfg_lo[am]))
+        send2a_min = torch.where(gate, rs.w2a_tick[am][None, :],
+                                 I32_MAX).amin(dim=1)
+        send2a_max = torch.where(gate, rs.w2a_tick[am][None, :],
+                                 -1).amax(dim=1)
+        perm3 = _arrival_perm(w2a_ring.any(dim=1), rs.w2a_tick[am],
+                              rs.w2a_seq[am])
+        gate_s = gate[:, perm3]
+        rank_j = rs.rank_idx[perm3]
+        ge0 = ((v.px_rnd_r[:, None] < 2)
+               | ((v.px_rnd_r[:, None] == 2)
+                  & (v.px_rnd_i[:, None] <= rank_j[None, :])))
+        ne0 = ~((v.px_vrnd_r[:, None] == 2)
+                & (v.px_vrnd_i[:, None] == rank_j[None, :]))
+        arrived = torch.where(gate_s, rank_j[None, :], -1)
+        accept = (gate_s & ge0 & ne0
+                  & (rank_j[None, :] > _prefmax_excl(arrived)))
+        n_acc = _pop(accept)
+        v.flags = v.flags | flag_bit((n_acc > 2).any(), FLAG_MULTI_2A_ACCEPTS)
+        j1 = _first_true(accept)
+        j2 = _first_true(accept & (jidx[None, :] > j1[:, None]))
+        jl = c - 1 - _first_true(accept.flip(1))
+        c1, c2, cl = perm3[j1], perm3[j2], perm3[jl]
+        emit0 = n_acc >= 1
+        emit1 = n_acc >= 2
+        w2b_rnd_new = torch.stack([rs.rank_idx[c1], rs.rank_idx[c2]])
+        w2b_fp_hi_new = torch.stack([w2a_fp_hi_r[c1], w2a_fp_hi_r[c2]])
+        w2b_fp_lo_new = torch.stack([w2a_fp_lo_r[c1], w2a_fp_lo_r[c2]])
+        w2b_mask_new = torch.stack([w2a_mask_arr[c1], w2a_mask_arr[c2]])
+        w2b_cfg_hi_new, w2b_cfg_lo_new = v.cfg_hi, v.cfg_lo
+        # Recipient snapshot here: wave-B decides below must not shrink this
+        # tick's fan (the oracle sends 2b during 2a delivery).
+        w2b_fan = torch.stack([emit0[:, None] & v.member,
+                               emit1[:, None] & v.member])
+        send("p2b", _i32((emit0 * _pop(v.member)
+                          + emit1 * _pop(v.member)).sum()))
+        rank_last = rs.rank_idx[cl]
+        v.px_rnd_r = torch.where(emit0, 2, v.px_rnd_r)
+        v.px_rnd_i = torch.where(emit0, rank_last, v.px_rnd_i)
+        v.px_vrnd_r = torch.where(emit0, 2, v.px_vrnd_r)
+        v.px_vrnd_i = torch.where(emit0, rank_last, v.px_vrnd_i)
+        v.px_vv_fp_hi = torch.where(emit0, w2a_fp_hi_r[cl], v.px_vv_fp_hi)
+        v.px_vv_fp_lo = torch.where(emit0, w2a_fp_lo_r[cl], v.px_vv_fp_lo)
+        v.px_vv_set = v.px_vv_set | emit0
 
     # ---- group 4: phase-1b delivery -> crossing + selection -> 2a -------
-    w1b_ring = rs.w1b[am]
-    w1b_set_r = rs.w1b_set[am]
-    gate = (dv1b.T & ~v.stopped[:, None] & (v.px_crnd_r[:, None] == 2)
-            & cfg_gate(rs.w1b_cfg_hi[am], rs.w1b_cfg_lo[am]))
-    new = gate & ~v.pb_seen
-    seq_in = rs.w1b_seq[am]      # send key: tick*(C+1) + promiser rx_pos
-    t1b = seq_in // (c + 1)
-    send1b_min = torch.where(new, t1b[None, :], I32_MAX).amin(dim=1)
-    send1b_max = torch.where(new, t1b[None, :], -1).amax(dim=1)
-    v.pb_seen = v.pb_seen | new
-    v.pb_vrnd_r = torch.where(new, rs.w1b_vrnd_r[am][None, :], v.pb_vrnd_r)
-    v.pb_vrnd_i = torch.where(new, rs.w1b_vrnd_i[am][None, :], v.pb_vrnd_i)
-    v.pb_fp_hi = torch.where(new, rs.w1b_fp_hi[am][None, :], v.pb_fp_hi)
-    v.pb_fp_lo = torch.where(new, rs.w1b_fp_lo[am][None, :], v.pb_fp_lo)
-    v.pb_set = torch.where(new, w1b_set_r[None, :], v.pb_set)
-    v.pb_seq = torch.where(new, seq_in[None, :], v.pb_seq)
+    with span("rapid.rx.p1b"):
+        w1b_ring = rs.w1b[am]
+        w1b_set_r = rs.w1b_set[am]
+        gate = (dv1b.T & ~v.stopped[:, None] & (v.px_crnd_r[:, None] == 2)
+                & cfg_gate(rs.w1b_cfg_hi[am], rs.w1b_cfg_lo[am]))
+        new = gate & ~v.pb_seen
+        seq_in = rs.w1b_seq[am]      # send key: tick*(C+1) + promiser rx_pos
+        t1b = seq_in // (c + 1)
+        send1b_min = torch.where(new, t1b[None, :], I32_MAX).amin(dim=1)
+        send1b_max = torch.where(new, t1b[None, :], -1).amax(dim=1)
+        v.pb_seen = v.pb_seen | new
+        v.pb_vrnd_r = torch.where(new, rs.w1b_vrnd_r[am][None, :], v.pb_vrnd_r)
+        v.pb_vrnd_i = torch.where(new, rs.w1b_vrnd_i[am][None, :], v.pb_vrnd_i)
+        v.pb_fp_hi = torch.where(new, rs.w1b_fp_hi[am][None, :], v.pb_fp_hi)
+        v.pb_fp_lo = torch.where(new, rs.w1b_fp_lo[am][None, :], v.pb_fp_lo)
+        v.pb_set = torch.where(new, w1b_set_r[None, :], v.pb_set)
+        v.pb_seq = torch.where(new, seq_in[None, :], v.pb_seq)
 
-    prior = v.pb_seen & ~new
-    prior_tot = _pop(prior)
-    prior_ne = _pop(prior & v.pb_set)
-    perm2 = torch.argsort(torch.where(w1b_ring.any(dim=1), seq_in, I32_MAX),
-                          stable=True)
-    new_s = new[:, perm2]
-    ne_new_s = new_s & w1b_set_r[perm2][None, :]
-    cum_tot = prior_tot[:, None] + torch.cumsum(new_s, dim=1,
-                                                dtype=torch.int32)
-    cum_ne = prior_ne[:, None] + torch.cumsum(ne_new_s, dim=1,
-                                              dtype=torch.int32)
-    thr = v.px_n // 2 + 1
-    elig = new_s & (cum_tot >= thr[:, None]) & (cum_ne >= 1)
-    cross = elig.any(dim=1) & ~v.px_cval_set
-    sstar = seq_in[perm2[_first_true(elig)]]
-    prefix = v.pb_seen & (v.pb_seq <= sstar[:, None])
+        prior = v.pb_seen & ~new
+        prior_tot = _pop(prior)
+        prior_ne = _pop(prior & v.pb_set)
+        perm2 = torch.argsort(
+            torch.where(w1b_ring.any(dim=1), seq_in, I32_MAX), stable=True)
+        new_s = new[:, perm2]
+        ne_new_s = new_s & w1b_set_r[perm2][None, :]
+        cum_tot = prior_tot[:, None] + torch.cumsum(new_s, dim=1,
+                                                    dtype=torch.int32)
+        cum_ne = prior_ne[:, None] + torch.cumsum(ne_new_s, dim=1,
+                                                  dtype=torch.int32)
+        thr = v.px_n // 2 + 1
+        elig = new_s & (cum_tot >= thr[:, None]) & (cum_ne >= 1)
+        cross = elig.any(dim=1) & ~v.px_cval_set
+        sstar = seq_in[perm2[_first_true(elig)]]
+        prefix = v.pb_seen & (v.pb_seq <= sstar[:, None])
 
-    mr = torch.where(prefix, v.pb_vrnd_r, -1).amax(dim=1)
-    at_mr = prefix & (v.pb_vrnd_r == mr[:, None])
-    mi = torch.where(at_mr, v.pb_vrnd_i, -1).amax(dim=1)
-    maxmask = at_mr & (v.pb_vrnd_i == mi[:, None])
-    collected = maxmask & v.pb_set
-    ncoll = _pop(collected)
-    pair_uneq, occ = _pb_occurrences(v.pb_fp_hi, v.pb_fp_lo, collected,
-                                     v.pb_seq, dense)
-    single = (ncoll >= 1) & ~pair_uneq
-    cand = collected & pair_uneq[:, None] & (occ == (v.px_n // 4)[:, None])
-    d_single, _ = _pick_min_seq(collected, v.pb_seq)
-    d_cand, has_cand = _pick_min_seq(cand, v.pb_seq)
-    d_fall, _ = _pick_min_seq(prefix & v.pb_set, v.pb_seq)
-    d_star = torch.where(single, d_single,
-                         torch.where(has_cand, d_cand, d_fall))
-    chosen_fp_hi = v.pb_fp_hi[ridx, d_star]
-    chosen_fp_lo = v.pb_fp_lo[ridx, d_star]
-    res_mask, _, miss = _registry_lookup(
-        v.reg_valid, v.reg_mask, v.reg_fp_hi, v.reg_fp_lo,
-        chosen_fp_hi, chosen_fp_lo, cross)
-    v.flags = v.flags | flag_bit(miss, FLAG_REGISTRY_MISS)
-    w2a_fp_hi_new = torch.where(cross, chosen_fp_hi, 0)
-    w2a_fp_lo_new = torch.where(cross, chosen_fp_lo, 0)
-    w2a_mask_new = res_mask
-    w2a_cfg_hi_new, w2a_cfg_lo_new = v.cfg_hi, v.cfg_lo
-    w2a_seq_new = v.ar_seq
-    # Snapshot before wave-B decides can shrink the view.
-    w2a_fan = cross[:, None] & v.member
-    v.px_cval_set = v.px_cval_set | cross
-    send("p2a", _i32((cross * _pop(v.member)).sum()))
+        mr = torch.where(prefix, v.pb_vrnd_r, -1).amax(dim=1)
+        at_mr = prefix & (v.pb_vrnd_r == mr[:, None])
+        mi = torch.where(at_mr, v.pb_vrnd_i, -1).amax(dim=1)
+        maxmask = at_mr & (v.pb_vrnd_i == mi[:, None])
+        collected = maxmask & v.pb_set
+        ncoll = _pop(collected)
+        with span("rapid.rx.match"):
+            pair_uneq, occ = _pb_occurrences(v.pb_fp_hi, v.pb_fp_lo,
+                                             collected, v.pb_seq, dense)
+        single = (ncoll >= 1) & ~pair_uneq
+        cand = collected & pair_uneq[:, None] & (occ == (v.px_n // 4)[:, None])
+        d_single, _ = _pick_min_seq(collected, v.pb_seq)
+        d_cand, has_cand = _pick_min_seq(cand, v.pb_seq)
+        d_fall, _ = _pick_min_seq(prefix & v.pb_set, v.pb_seq)
+        d_star = torch.where(single, d_single,
+                             torch.where(has_cand, d_cand, d_fall))
+        chosen_fp_hi = v.pb_fp_hi[ridx, d_star]
+        chosen_fp_lo = v.pb_fp_lo[ridx, d_star]
+        res_mask, _, miss = _registry_lookup(
+            v.reg_valid, v.reg_mask, v.reg_fp_hi, v.reg_fp_lo,
+            chosen_fp_hi, chosen_fp_lo, cross)
+        v.flags = v.flags | flag_bit(miss, FLAG_REGISTRY_MISS)
+        w2a_fp_hi_new = torch.where(cross, chosen_fp_hi, 0)
+        w2a_fp_lo_new = torch.where(cross, chosen_fp_lo, 0)
+        w2a_mask_new = res_mask
+        w2a_cfg_hi_new, w2a_cfg_lo_new = v.cfg_hi, v.cfg_lo
+        w2a_seq_new = v.ar_seq
+        # Snapshot before wave-B decides can shrink the view.
+        w2a_fan = cross[:, None] & v.member
+        v.px_cval_set = v.px_cval_set | cross
+        send("p2a", _i32((cross * _pop(v.member)).sum()))
 
     # ---- group 5: fast-vote delivery -> decide wave B -------------------
-    wv_ring = rs.wv[am]
-    wv_fp_hi_r, wv_fp_lo_r = rs.wv_fp_hi[am], rs.wv_fp_lo[am]
-    gate = (dvv.T & ~v.stopped[:, None]
-            & cfg_gate(rs.wv_cfg_hi[am], rs.wv_cfg_lo[am]))
-    process = gate & ~v.vt_seen
-    # A vote's send tick is its announce tick.
-    tv = rs.wv_seq[am] // (c + 1)
-    sendv_min = torch.where(process, tv[None, :], I32_MAX).amin(dim=1)
-    sendv_max = torch.where(process, tv[None, :], -1).amax(dim=1)
-    perm_v = torch.argsort(
-        torch.where(wv_ring.any(dim=1), rs.wv_seq[am], I32_MAX), stable=True)
-    proc_s = process[:, perm_v]
-    wv_hi_p = wv_fp_hi_r[perm_v]
-    wv_lo_p = wv_fp_lo_r[perm_v]
-    baseline = _vote_baseline(v.vt_fp_hi, v.vt_fp_lo, v.vt_seen,
-                              wv_hi_p, wv_lo_p, dense)
-    prior_tot = _pop(v.vt_seen)
-    # Arrival-prefix counts of equal fingerprints, in announce order.
-    fp_eq_wire = ((wv_hi_p[:, None] == wv_hi_p[None, :])
-                  & (wv_lo_p[:, None] == wv_lo_p[None, :]))
-    lower_tri = jidx[None, :] <= jidx[:, None]          # [j, j2]: j2 <= j
-    prefix_cnt = _matmul_count(proc_s, (fp_eq_wire & lower_tri).T)
-    count_after = baseline + prefix_cnt
-    total_after = prior_tot[:, None] + torch.cumsum(proc_s, dim=1,
-                                                    dtype=torch.int32)
-    quorum = v.px_n - (v.px_n - 1) // 4
-    trig = (proc_s & (count_after >= quorum[:, None])
-            & (total_after >= quorum[:, None]))
-    dec_b = trig.any(dim=1)
-    win = perm_v[_first_true(trig)]
-    hosts_b, _, miss = _registry_lookup(
-        v.reg_valid, v.reg_mask, v.reg_fp_hi, v.reg_fp_lo,
-        wv_fp_hi_r[win], wv_fp_lo_r[win], dec_b)
-    v.flags = v.flags | flag_bit(miss, FLAG_REGISTRY_MISS)
-    v.vt_seen = v.vt_seen | process
-    v.vt_fp_hi = torch.where(process, wv_fp_hi_r[None, :], v.vt_fp_hi)
-    v.vt_fp_lo = torch.where(process, wv_fp_lo_r[None, :], v.vt_fp_lo)
+    with span("rapid.rx.vote"):
+        wv_ring = rs.wv[am]
+        wv_fp_hi_r, wv_fp_lo_r = rs.wv_fp_hi[am], rs.wv_fp_lo[am]
+        gate = (dvv.T & ~v.stopped[:, None]
+                & cfg_gate(rs.wv_cfg_hi[am], rs.wv_cfg_lo[am]))
+        process = gate & ~v.vt_seen
+        # A vote's send tick is its announce tick.
+        tv = rs.wv_seq[am] // (c + 1)
+        sendv_min = torch.where(process, tv[None, :], I32_MAX).amin(dim=1)
+        sendv_max = torch.where(process, tv[None, :], -1).amax(dim=1)
+        perm_v = torch.argsort(
+            torch.where(wv_ring.any(dim=1), rs.wv_seq[am], I32_MAX),
+            stable=True)
+        proc_s = process[:, perm_v]
+        wv_hi_p = wv_fp_hi_r[perm_v]
+        wv_lo_p = wv_fp_lo_r[perm_v]
+        with span("rapid.rx.match"):
+            baseline = _vote_baseline(v.vt_fp_hi, v.vt_fp_lo, v.vt_seen,
+                                      wv_hi_p, wv_lo_p, dense)
+        prior_tot = _pop(v.vt_seen)
+        # Arrival-prefix counts of equal fingerprints, in announce order.
+        fp_eq_wire = ((wv_hi_p[:, None] == wv_hi_p[None, :])
+                      & (wv_lo_p[:, None] == wv_lo_p[None, :]))
+        lower_tri = jidx[None, :] <= jidx[:, None]          # [j, j2]: j2 <= j
+        prefix_cnt = _matmul_count(proc_s, (fp_eq_wire & lower_tri).T)
+        count_after = baseline + prefix_cnt
+        total_after = prior_tot[:, None] + torch.cumsum(proc_s, dim=1,
+                                                        dtype=torch.int32)
+        quorum = v.px_n - (v.px_n - 1) // 4
+        trig = (proc_s & (count_after >= quorum[:, None])
+                & (total_after >= quorum[:, None]))
+        dec_b = trig.any(dim=1)
+        win = perm_v[_first_true(trig)]
+        hosts_b, _, miss = _registry_lookup(
+            v.reg_valid, v.reg_mask, v.reg_fp_hi, v.reg_fp_lo,
+            wv_fp_hi_r[win], wv_fp_lo_r[win], dec_b)
+        v.flags = v.flags | flag_bit(miss, FLAG_REGISTRY_MISS)
+        v.vt_seen = v.vt_seen | process
+        v.vt_fp_hi = torch.where(process, wv_fp_hi_r[None, :], v.vt_fp_hi)
+        v.vt_fp_lo = torch.where(process, wv_fp_lo_r[None, :], v.vt_fp_lo)
 
     # ---- group 6: apply decide wave B -----------------------------------
-    ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_b, hosts_b, ridx, dense)
-    record_decides(dec_b, hosts_b, ncfg_hi, ncfg_lo)
+    with span("rapid.rx.decide_b"):
+        ncfg_hi, ncfg_lo = _apply_decides(v, t, dec_b, hosts_b, ridx, dense)
+        record_decides(dec_b, hosts_b, ncfg_hi, ncfg_lo)
 
     # ---- group 7: phase-1a delivery -> promises -> 1b emission ----------
-    w1a_ring = rs.w1a[am]
-    gate = (dv1a.T & ~v.stopped[:, None]
-            & cfg_gate(rs.w1a_cfg_hi[am], rs.w1a_cfg_lo[am]))
-    send1a_min = torch.where(gate, rs.w1a_tick[am][None, :],
-                             I32_MAX).amin(dim=1)
-    perm1 = _arrival_perm(w1a_ring.any(dim=1), rs.w1a_tick[am],
-                          rs.w1a_seq[am])
-    gate_s = gate[:, perm1]
-    rank_j = rs.rank_idx[perm1]
-    above_cur = ((v.px_rnd_r[:, None] < 2)
-                 | ((v.px_rnd_r[:, None] == 2)
-                    & (v.px_rnd_i[:, None] < rank_j[None, :])))
-    arrived = torch.where(gate_s, rank_j[None, :], -1)
-    promise_s = gate_s & above_cur & (rank_j[None, :]
-                                      > _prefmax_excl(arrived))
-    pr_any = promise_s.any(dim=1)
-    max_promised = torch.where(promise_s, rank_j[None, :], -1).amax(dim=1)
-    v.px_rnd_r = torch.where(pr_any, 2, v.px_rnd_r)
-    v.px_rnd_i = torch.where(pr_any, max_promised, v.px_rnd_i)
-    inv1 = torch.argsort(perm1)                  # the inverse permutation
-    promise = promise_s[:, inv1]                 # back to slot coordinates
-    w1b_new = promise
-    w1b_vrnd_r_new, w1b_vrnd_i_new = v.px_vrnd_r, v.px_vrnd_i
-    w1b_fp_hi_new, w1b_fp_lo_new = v.px_vv_fp_hi, v.px_vv_fp_lo
-    w1b_set_new = v.px_vv_set
-    w1b_cfg_hi_new, w1b_cfg_lo_new = v.cfg_hi, v.cfg_lo
-    send("p1b", _i32(promise.sum()))
+    with span("rapid.rx.p1a"):
+        w1a_ring = rs.w1a[am]
+        gate = (dv1a.T & ~v.stopped[:, None]
+                & cfg_gate(rs.w1a_cfg_hi[am], rs.w1a_cfg_lo[am]))
+        send1a_min = torch.where(gate, rs.w1a_tick[am][None, :],
+                                 I32_MAX).amin(dim=1)
+        perm1 = _arrival_perm(w1a_ring.any(dim=1), rs.w1a_tick[am],
+                              rs.w1a_seq[am])
+        gate_s = gate[:, perm1]
+        rank_j = rs.rank_idx[perm1]
+        above_cur = ((v.px_rnd_r[:, None] < 2)
+                     | ((v.px_rnd_r[:, None] == 2)
+                        & (v.px_rnd_i[:, None] < rank_j[None, :])))
+        arrived = torch.where(gate_s, rank_j[None, :], -1)
+        promise_s = gate_s & above_cur & (rank_j[None, :]
+                                          > _prefmax_excl(arrived))
+        pr_any = promise_s.any(dim=1)
+        max_promised = torch.where(promise_s, rank_j[None, :], -1).amax(dim=1)
+        v.px_rnd_r = torch.where(pr_any, 2, v.px_rnd_r)
+        v.px_rnd_i = torch.where(pr_any, max_promised, v.px_rnd_i)
+        inv1 = torch.argsort(perm1)                  # the inverse permutation
+        promise = promise_s[:, inv1]                 # back to slot coordinates
+        w1b_new = promise
+        w1b_vrnd_r_new, w1b_vrnd_i_new = v.px_vrnd_r, v.px_vrnd_i
+        w1b_fp_hi_new, w1b_fp_lo_new = v.px_vv_fp_hi, v.px_vv_fp_lo
+        w1b_set_new = v.px_vv_set
+        w1b_cfg_hi_new, w1b_cfg_lo_new = v.cfg_hi, v.cfg_lo
+        send("p1b", _i32(promise.sum()))
 
     # ---- cross-phase send-order guard -----------------------------------
-    # The fixed group order equals the oracle's send order only while a
-    # tick's processed arrivals left the wire in group order; a delayed
-    # older send behind a fresher earlier-processed group sets a flag. A
-    # gated 2b arrival counts as sent at t-1, the conservative maximum.
-    run_max = _i32(torch.where(g2b_any, t - 1, -1))
-    inv = send2a_min < run_max
-    run_max = torch.maximum(run_max, send2a_max)
-    inv |= send1b_min < run_max
-    run_max = torch.maximum(run_max, send1b_max)
-    inv |= sendv_min < run_max
-    run_max = torch.maximum(run_max, sendv_max)
-    inv |= send1a_min < run_max
-    v.flags = v.flags | flag_bit(inv.any(), FLAG_CROSS_PHASE_REORDER)
+    with span("rapid.rx.guard"):
+        # The fixed group order equals the oracle's send order only while a
+        # tick's processed arrivals left the wire in group order; a delayed
+        # older send behind a fresher earlier-processed group sets a flag. A
+        # gated 2b arrival counts as sent at t-1, the conservative maximum.
+        run_max = _i32(torch.where(g2b_any, t - 1, -1))
+        inv = send2a_min < run_max
+        run_max = torch.maximum(run_max, send2a_max)
+        inv |= send1b_min < run_max
+        run_max = torch.maximum(run_max, send1b_max)
+        inv |= sendv_min < run_max
+        run_max = torch.maximum(run_max, sendv_max)
+        inv |= send1a_min < run_max
+        v.flags = v.flags | flag_bit(inv.any(), FLAG_CROSS_PHASE_REORDER)
 
     # ---- group 8: batch delivery -> cut aggregation -> announce ---------
-    pd_ring = rs.pd[am]
-    recv = (dvpd.T & ~v.stopped[:, None] & ~v.announced[:, None]
-            & cfg_gate(rs.pd_cfg_hi[am], rs.pd_cfg_lo[am]))
-    # down[r, d, k] = any_s recv[r, s] & pd[s, k] & (pd_dst[s, k] == d)
-    onehot = (pd_ring[:, :, None]
-              & (rs.pd_dst[am][:, :, None] == ridx[None, None, :]))
-    down = (_matmul_count(recv, onehot.reshape(c, k * c)) > 0).reshape(
-        c, k, c).transpose(1, 2)
-    gate8 = ~v.announced & ~v.stopped
-    (v.reports, v.seen_down, any_new, in_flux, crossed) = \
-        cut.receiver_aggregate(v.reports, v.member, v.obs_full, down, gate8,
-                               v.seen_down, settings)
-    announce = (any_new & ~in_flux & crossed.any(dim=1)
-                & ~v.announced & ~v.stopped)
-    prop_fp_hi, prop_fp_lo = _proposal_fp_rows(crossed, v.uid_hi, v.uid_lo)
-    v.announced = v.announced | announce
-    v.ar_seq = torch.where(announce, t * (c + 1) + v.rx_pos, v.ar_seq)
-    v.reg_valid = v.reg_valid | announce
-    v.reg_mask = torch.where(announce[:, None], crossed, v.reg_mask)
-    v.reg_fp_hi = torch.where(announce, prop_fp_hi, v.reg_fp_hi)
-    v.reg_fp_lo = torch.where(announce, prop_fp_lo, v.reg_fp_lo)
-    wv_fp_hi_new = torch.where(announce, prop_fp_hi, 0)
-    wv_fp_lo_new = torch.where(announce, prop_fp_lo, 0)
-    wv_cfg_hi_new, wv_cfg_lo_new = v.cfg_hi, v.cfg_lo
-    wv_seq_new = v.ar_seq
-    wv_fan = announce[:, None] & v.member
-    send("fv", _i32((announce * _pop(v.member)).sum()))
-    # Seed the fast round unless classic activity already raised the rnd.
-    seed_px = announce & (v.px_rnd_r <= 1)
-    v.px_rnd_r = torch.where(seed_px, 1, v.px_rnd_r)
-    v.px_rnd_i = torch.where(seed_px, 1, v.px_rnd_i)
-    v.px_vrnd_r = torch.where(seed_px, 1, v.px_vrnd_r)
-    v.px_vrnd_i = torch.where(seed_px, 1, v.px_vrnd_i)
-    v.px_vv_fp_hi = torch.where(seed_px, prop_fp_hi, v.px_vv_fp_hi)
-    v.px_vv_fp_lo = torch.where(seed_px, prop_fp_lo, v.px_vv_fp_lo)
-    v.px_vv_set = v.px_vv_set | seed_px
-    # Arm the recovery timer with the slot's next precomputed delay draw.
-    d_idx = torch.clamp(v.draws, 0, N_DRAWS - 1).long()
-    m_idx = torch.clamp(v.px_n, 0, c).long()
-    delay = v.delay_table[ridx, d_idx, m_idx]
-    v.flags = v.flags | flag_bit((announce & (v.draws >= N_DRAWS)).any(),
-                              FLAG_DRAWS_EXHAUSTED)
-    v.px_timer = torch.where(announce, t + delay, v.px_timer)
-    v.draws = v.draws + _i32(announce)
-    ann_cfg_hi, ann_cfg_lo = v.cfg_hi, v.cfg_lo
-    ann_prop = crossed & announce[:, None]
+    with span("rapid.rx.batch"):
+        pd_ring = rs.pd[am]
+        recv = (dvpd.T & ~v.stopped[:, None] & ~v.announced[:, None]
+                & cfg_gate(rs.pd_cfg_hi[am], rs.pd_cfg_lo[am]))
+        # down[r, d, k] = any_s recv[r, s] & pd[s, k] & (pd_dst[s, k] == d)
+        onehot = (pd_ring[:, :, None]
+                  & (rs.pd_dst[am][:, :, None] == ridx[None, None, :]))
+        down = (_matmul_count(recv, onehot.reshape(c, k * c)) > 0).reshape(
+            c, k, c).transpose(1, 2)
+        gate8 = ~v.announced & ~v.stopped
+        (v.reports, v.seen_down, any_new, in_flux, crossed) = \
+            cut.receiver_aggregate(v.reports, v.member, v.obs_full, down,
+                                   gate8, v.seen_down, settings)
+        announce = (any_new & ~in_flux & crossed.any(dim=1)
+                    & ~v.announced & ~v.stopped)
+        prop_fp_hi, prop_fp_lo = _proposal_fp_rows(crossed, v.uid_hi, v.uid_lo)
+        v.announced = v.announced | announce
+        v.ar_seq = torch.where(announce, t * (c + 1) + v.rx_pos, v.ar_seq)
+        v.reg_valid = v.reg_valid | announce
+        v.reg_mask = torch.where(announce[:, None], crossed, v.reg_mask)
+        v.reg_fp_hi = torch.where(announce, prop_fp_hi, v.reg_fp_hi)
+        v.reg_fp_lo = torch.where(announce, prop_fp_lo, v.reg_fp_lo)
+        wv_fp_hi_new = torch.where(announce, prop_fp_hi, 0)
+        wv_fp_lo_new = torch.where(announce, prop_fp_lo, 0)
+        wv_cfg_hi_new, wv_cfg_lo_new = v.cfg_hi, v.cfg_lo
+        wv_seq_new = v.ar_seq
+        wv_fan = announce[:, None] & v.member
+        send("fv", _i32((announce * _pop(v.member)).sum()))
+        # Seed the fast round unless classic activity already raised the rnd.
+        seed_px = announce & (v.px_rnd_r <= 1)
+        v.px_rnd_r = torch.where(seed_px, 1, v.px_rnd_r)
+        v.px_rnd_i = torch.where(seed_px, 1, v.px_rnd_i)
+        v.px_vrnd_r = torch.where(seed_px, 1, v.px_vrnd_r)
+        v.px_vrnd_i = torch.where(seed_px, 1, v.px_vrnd_i)
+        v.px_vv_fp_hi = torch.where(seed_px, prop_fp_hi, v.px_vv_fp_hi)
+        v.px_vv_fp_lo = torch.where(seed_px, prop_fp_lo, v.px_vv_fp_lo)
+        v.px_vv_set = v.px_vv_set | seed_px
+        # Arm the recovery timer with the slot's next precomputed delay draw.
+        d_idx = torch.clamp(v.draws, 0, N_DRAWS - 1).long()
+        m_idx = torch.clamp(v.px_n, 0, c).long()
+        delay = v.delay_table[ridx, d_idx, m_idx]
+        v.flags = v.flags | flag_bit((announce & (v.draws >= N_DRAWS)).any(),
+                                  FLAG_DRAWS_EXHAUSTED)
+        v.px_timer = torch.where(announce, t + delay, v.px_timer)
+        v.draws = v.draws + _i32(announce)
+        ann_cfg_hi, ann_cfg_lo = v.cfg_hi, v.cfg_lo
+        ann_prop = crossed & announce[:, None]
 
     # ---- group 9: recovery timers fire -> 1a emission -------------------
-    fire = v.px_timer == t
-    v.px_crnd_r = torch.where(fire, 2, v.px_crnd_r)
-    v.px_timer = torch.where(fire, I32_MAX, v.px_timer)
-    w1a_cfg_hi_new, w1a_cfg_lo_new = v.cfg_hi, v.cfg_lo
-    w1a_seq_new = v.ar_seq
-    w1a_fan = fire[:, None] & v.member
-    send("p1a", _i32((fire * _pop(v.member)).sum()))
+    with span("rapid.rx.timers"):
+        fire = v.px_timer == t
+        v.px_crnd_r = torch.where(fire, 2, v.px_crnd_r)
+        v.px_timer = torch.where(fire, I32_MAX, v.px_timer)
+        w1a_cfg_hi_new, w1a_cfg_lo_new = v.cfg_hi, v.cfg_lo
+        w1a_seq_new = v.ar_seq
+        w1a_fan = fire[:, None] & v.member
+        send("p1a", _i32((fire * _pop(v.member)).sum()))
 
     # ---- group 10: failure detectors ------------------------------------
-    if t % settings.fd_interval_ticks == 0:
-        is_fd = (v.fd_gate < t) & ~v.stopped
-    else:
-        is_fd = torch.zeros_like(v.stopped)
-    at_thr = v.fc >= settings.fd_failure_threshold
-    probing = v.own_fd_active & ~at_thr & is_fd[:, None]
-    subj = v.own_subj.long()
-    # Lazy per-edge reachability: W masked gathers, never a [C, C] plane.
-    probe_fail = (crashed[subj] | crashed[:, None]
-                  | monitor.link_blocked(faults, ridx[:, None].expand_as(subj),
-                                         subj, t))
-    probes_sent = _i32(probing.sum())
-    probes_failed = _i32((probing & probe_fail).sum())
-    v.fc = torch.where(probing & probe_fail, v.fc + 1, v.fc)
-    notify_now = v.own_fd_active & at_thr & ~v.notified & is_fd[:, None]
-    v.notified = v.notified | notify_now
-    pf_new = torch.gather(notify_now, 1, v.own_fd_first.long())
+    with span("rapid.rx.fd"):
+        if t % settings.fd_interval_ticks == 0:
+            is_fd = (v.fd_gate < t) & ~v.stopped
+        else:
+            is_fd = torch.zeros_like(v.stopped)
+        at_thr = v.fc >= settings.fd_failure_threshold
+        probing = v.own_fd_active & ~at_thr & is_fd[:, None]
+        subj = v.own_subj.long()
+        # Lazy per-edge reachability: W masked gathers, never a [C, C] plane.
+        probe_fail = (crashed[subj] | crashed[:, None]
+                      | monitor.link_blocked(
+                          faults, ridx[:, None].expand_as(subj), subj, t))
+        probes_sent = _i32(probing.sum())
+        probes_failed = _i32((probing & probe_fail).sum())
+        v.fc = torch.where(probing & probe_fail, v.fc + 1, v.fc)
+        notify_now = v.own_fd_active & at_thr & ~v.notified & is_fd[:, None]
+        v.notified = v.notified | notify_now
+        pf_new = torch.gather(notify_now, 1, v.own_fd_first.long())
 
     # ---- group 11: batcher flush (last tick's queue -> the wire) --------
-    flush = rs.pf.any(dim=1) & ~v.stopped
-    pd_new = rs.pf & flush[:, None]
-    pd_dst_new = rs.pf_dst
-    pd_cfg_hi_new, pd_cfg_lo_new = rs.pf_cfg_hi, rs.pf_cfg_lo
-    pd_fan = flush[:, None] & v.member
-    sent["sent"] = sent["sent"] + _i32((flush * _pop(v.member)).sum())
-    v.pf = pf_new
-    v.pf_dst = v.own_subj
-    v.pf_cfg_hi, v.pf_cfg_lo = v.cfg_hi, v.cfg_lo
+    with span("rapid.rx.flush"):
+        flush = rs.pf.any(dim=1) & ~v.stopped
+        pd_new = rs.pf & flush[:, None]
+        pd_dst_new = rs.pf_dst
+        pd_cfg_hi_new, pd_cfg_lo_new = rs.pf_cfg_hi, rs.pf_cfg_lo
+        pd_fan = flush[:, None] & v.member
+        sent["sent"] = sent["sent"] + _i32((flush * _pop(v.member)).sum())
+        v.pf = pf_new
+        v.pf_dst = v.own_subj
+        v.pf_cfg_hi, v.pf_cfg_lo = v.cfg_hi, v.cfg_lo
 
     # ---- group 12: topology rebuild after decides -----------------------
-    # One read skips it on a tick without decides; ``dense`` rebuilds and
-    # keeps the old rows where the member decided nothing.
-    if dense or bool(dec["mask"].any()):
-        subj_all, obs_all, _gk, fda_all, fdf_all = build_topology(
-            v.member, rs.ring_order, rs.ring_rank)
-        pos_all = ring0_positions(v.member, rs.ring_order, rs.ring_rank)
-        pick = lambda new, old: torch.where(dec["mask"].any(), new, old)
-        v.obs_full = pick(obs_all, v.obs_full)
-        v.own_subj = pick(subj_all[ridx, ridx], v.own_subj)
-        v.own_fd_active = pick(fda_all[ridx, ridx], v.own_fd_active)
-        v.own_fd_first = pick(fdf_all[ridx, ridx], v.own_fd_first)
-        v.rx_pos = pick(pos_all[ridx, ridx], v.rx_pos)
+    with span("rapid.rx.rebuild"):
+        # One read skips it on a tick without decides; ``dense`` rebuilds and
+        # keeps the old rows where the member decided nothing.
+        if dense or bool(dec["mask"].any()):
+            subj_all, obs_all, _gk, fda_all, fdf_all = build_topology(
+                v.member, rs.ring_order, rs.ring_rank)
+            pos_all = ring0_positions(v.member, rs.ring_order, rs.ring_rank)
+            pick = lambda new, old: torch.where(dec["mask"].any(), new, old)
+            v.obs_full = pick(obs_all, v.obs_full)
+            v.own_subj = pick(subj_all[ridx, ridx], v.own_subj)
+            v.own_fd_active = pick(fda_all[ridx, ridx], v.own_fd_active)
+            v.own_fd_first = pick(fdf_all[ridx, ridx], v.own_fd_first)
+            v.rx_pos = pick(pos_all[ridx, ridx], v.rx_pos)
 
     # ---- finalize: rotate the delivery ring ------------------------------
-    # A message sent this tick lands in ring slot (t + 1 + delay) % D, the
-    # delay evaluated at send time. Slot ``am`` was consumed this tick and
-    # is cleared before inserts; a (slot, sender) overlap means two
-    # same-kind messages jittered onto one arrival tick: flagged.
-    dmat = monitor.delay_matrix(faults, t)
-    darange = torch.arange(D, device=dev)
-    keep = (darange != am)[:, None, None]
-    slot_hit = ((t + 1 + dmat) % D)[None, :, :] == darange[:, None, None]
-    hits = []
+    with span("rapid.rx.finalize"):
+        # A message sent this tick lands in ring slot (t + 1 + delay) % D, the
+        # delay evaluated at send time. Slot ``am`` was consumed this tick and
+        # is cleared before inserts; a (slot, sender) overlap means two
+        # same-kind messages jittered onto one arrival tick: flagged.
+        dmat = monitor.delay_matrix(faults, t)
+        darange = torch.arange(D, device=dev)
+        keep = (darange != am)[:, None, None]
+        slot_hit = ((t + 1 + dmat) % D)[None, :, :] == darange[:, None, None]
+        hits = []
 
-    def ring_put(ring, fan):
-        cleared = ring & keep
-        ins = slot_hit & fan[None]
-        landed = ins.any(dim=-1)
-        return cleared | ins, landed, (cleared.any(dim=-1) & landed).any()
+        def ring_put(ring, fan):
+            cleared = ring & keep
+            ins = slot_hit & fan[None]
+            landed = ins.any(dim=-1)
+            return cleared | ins, landed, (cleared.any(dim=-1) & landed).any()
 
-    def stamp(old, new, landed):
-        mask = landed.reshape(landed.shape + (1,) * (old.dim() - landed.dim()))
-        return torch.where(mask, new[None], old)
+        def stamp(old, new, landed):
+            mask = landed.reshape(landed.shape
+                                  + (1,) * (old.dim() - landed.dim()))
+            return torch.where(mask, new[None], old)
 
-    v.tick = torch.tensor(t, dtype=torch.int32, device=dev)
-    v.wv, landed, hit_old = ring_put(rs.wv, wv_fan)
-    hits.append(hit_old)
-    v.wv_fp_hi = stamp(rs.wv_fp_hi, wv_fp_hi_new, landed)
-    v.wv_fp_lo = stamp(rs.wv_fp_lo, wv_fp_lo_new, landed)
-    v.wv_cfg_hi = stamp(rs.wv_cfg_hi, wv_cfg_hi_new, landed)
-    v.wv_cfg_lo = stamp(rs.wv_cfg_lo, wv_cfg_lo_new, landed)
-    v.wv_seq = stamp(rs.wv_seq, wv_seq_new, landed)
+        v.tick = torch.tensor(t, dtype=torch.int32, device=dev)
+        v.wv, landed, hit_old = ring_put(rs.wv, wv_fan)
+        hits.append(hit_old)
+        v.wv_fp_hi = stamp(rs.wv_fp_hi, wv_fp_hi_new, landed)
+        v.wv_fp_lo = stamp(rs.wv_fp_lo, wv_fp_lo_new, landed)
+        v.wv_cfg_hi = stamp(rs.wv_cfg_hi, wv_cfg_hi_new, landed)
+        v.wv_cfg_lo = stamp(rs.wv_cfg_lo, wv_cfg_lo_new, landed)
+        v.wv_seq = stamp(rs.wv_seq, wv_seq_new, landed)
 
-    v.w1a, landed, hit_old = ring_put(rs.w1a, w1a_fan)
-    hits.append(hit_old)
-    v.w1a_cfg_hi = stamp(rs.w1a_cfg_hi, w1a_cfg_hi_new, landed)
-    v.w1a_cfg_lo = stamp(rs.w1a_cfg_lo, w1a_cfg_lo_new, landed)
-    v.w1a_seq = stamp(rs.w1a_seq, w1a_seq_new, landed)
-    v.w1a_tick = torch.where(landed, t, rs.w1a_tick)
+        v.w1a, landed, hit_old = ring_put(rs.w1a, w1a_fan)
+        hits.append(hit_old)
+        v.w1a_cfg_hi = stamp(rs.w1a_cfg_hi, w1a_cfg_hi_new, landed)
+        v.w1a_cfg_lo = stamp(rs.w1a_cfg_lo, w1a_cfg_lo_new, landed)
+        v.w1a_seq = stamp(rs.w1a_seq, w1a_seq_new, landed)
+        v.w1a_tick = torch.where(landed, t, rs.w1a_tick)
 
-    v.w1b, landed, hit_old = ring_put(rs.w1b, w1b_new)
-    hits.append(hit_old)
-    v.w1b_vrnd_r = stamp(rs.w1b_vrnd_r, w1b_vrnd_r_new, landed)
-    v.w1b_vrnd_i = stamp(rs.w1b_vrnd_i, w1b_vrnd_i_new, landed)
-    v.w1b_fp_hi = stamp(rs.w1b_fp_hi, w1b_fp_hi_new, landed)
-    v.w1b_fp_lo = stamp(rs.w1b_fp_lo, w1b_fp_lo_new, landed)
-    v.w1b_set = stamp(rs.w1b_set, w1b_set_new, landed)
-    v.w1b_cfg_hi = stamp(rs.w1b_cfg_hi, w1b_cfg_hi_new, landed)
-    v.w1b_cfg_lo = stamp(rs.w1b_cfg_lo, w1b_cfg_lo_new, landed)
-    # Promiser send key, stamped post-rebuild.
-    v.w1b_seq = stamp(rs.w1b_seq, t * (c + 1) + v.rx_pos, landed)
+        v.w1b, landed, hit_old = ring_put(rs.w1b, w1b_new)
+        hits.append(hit_old)
+        v.w1b_vrnd_r = stamp(rs.w1b_vrnd_r, w1b_vrnd_r_new, landed)
+        v.w1b_vrnd_i = stamp(rs.w1b_vrnd_i, w1b_vrnd_i_new, landed)
+        v.w1b_fp_hi = stamp(rs.w1b_fp_hi, w1b_fp_hi_new, landed)
+        v.w1b_fp_lo = stamp(rs.w1b_fp_lo, w1b_fp_lo_new, landed)
+        v.w1b_set = stamp(rs.w1b_set, w1b_set_new, landed)
+        v.w1b_cfg_hi = stamp(rs.w1b_cfg_hi, w1b_cfg_hi_new, landed)
+        v.w1b_cfg_lo = stamp(rs.w1b_cfg_lo, w1b_cfg_lo_new, landed)
+        # Promiser send key, stamped post-rebuild.
+        v.w1b_seq = stamp(rs.w1b_seq, t * (c + 1) + v.rx_pos, landed)
 
-    v.w2a, landed, hit_old = ring_put(rs.w2a, w2a_fan)
-    hits.append(hit_old)
-    v.w2a_fp_hi = stamp(rs.w2a_fp_hi, w2a_fp_hi_new, landed)
-    v.w2a_fp_lo = stamp(rs.w2a_fp_lo, w2a_fp_lo_new, landed)
-    v.w2a_mask = stamp(rs.w2a_mask, w2a_mask_new, landed)
-    v.w2a_cfg_hi = stamp(rs.w2a_cfg_hi, w2a_cfg_hi_new, landed)
-    v.w2a_cfg_lo = stamp(rs.w2a_cfg_lo, w2a_cfg_lo_new, landed)
-    v.w2a_seq = stamp(rs.w2a_seq, w2a_seq_new, landed)
-    v.w2a_tick = torch.where(landed, t, rs.w2a_tick)
+        v.w2a, landed, hit_old = ring_put(rs.w2a, w2a_fan)
+        hits.append(hit_old)
+        v.w2a_fp_hi = stamp(rs.w2a_fp_hi, w2a_fp_hi_new, landed)
+        v.w2a_fp_lo = stamp(rs.w2a_fp_lo, w2a_fp_lo_new, landed)
+        v.w2a_mask = stamp(rs.w2a_mask, w2a_mask_new, landed)
+        v.w2a_cfg_hi = stamp(rs.w2a_cfg_hi, w2a_cfg_hi_new, landed)
+        v.w2a_cfg_lo = stamp(rs.w2a_cfg_lo, w2a_cfg_lo_new, landed)
+        v.w2a_seq = stamp(rs.w2a_seq, w2a_seq_new, landed)
+        v.w2a_tick = torch.where(landed, t, rs.w2a_tick)
 
-    # 2b: the two payload lanes share one sender row (and cfg snapshot),
-    # so old/new overlap is checked per (slot, sender) across lanes.
-    cleared = rs.w2b & keep[:, None]
-    ins = slot_hit[:, None] & w2b_fan[None]
-    lane_landed = ins.any(dim=-1)                        # [D, 2, C]
-    sender_landed = lane_landed.any(dim=1)               # [D, C]
-    hits.append((cleared.any(dim=-1).any(dim=1) & sender_landed).any())
-    v.w2b = cleared | ins
-    v.w2b_rnd = stamp(rs.w2b_rnd, w2b_rnd_new, lane_landed)
-    v.w2b_fp_hi = stamp(rs.w2b_fp_hi, w2b_fp_hi_new, lane_landed)
-    v.w2b_fp_lo = stamp(rs.w2b_fp_lo, w2b_fp_lo_new, lane_landed)
-    v.w2b_mask = stamp(rs.w2b_mask, w2b_mask_new, lane_landed)
-    v.w2b_cfg_hi = stamp(rs.w2b_cfg_hi, w2b_cfg_hi_new, sender_landed)
-    v.w2b_cfg_lo = stamp(rs.w2b_cfg_lo, w2b_cfg_lo_new, sender_landed)
+        # 2b: the two payload lanes share one sender row (and cfg snapshot),
+        # so old/new overlap is checked per (slot, sender) across lanes.
+        cleared = rs.w2b & keep[:, None]
+        ins = slot_hit[:, None] & w2b_fan[None]
+        lane_landed = ins.any(dim=-1)                        # [D, 2, C]
+        sender_landed = lane_landed.any(dim=1)               # [D, C]
+        hits.append((cleared.any(dim=-1).any(dim=1) & sender_landed).any())
+        v.w2b = cleared | ins
+        v.w2b_rnd = stamp(rs.w2b_rnd, w2b_rnd_new, lane_landed)
+        v.w2b_fp_hi = stamp(rs.w2b_fp_hi, w2b_fp_hi_new, lane_landed)
+        v.w2b_fp_lo = stamp(rs.w2b_fp_lo, w2b_fp_lo_new, lane_landed)
+        v.w2b_mask = stamp(rs.w2b_mask, w2b_mask_new, lane_landed)
+        v.w2b_cfg_hi = stamp(rs.w2b_cfg_hi, w2b_cfg_hi_new, sender_landed)
+        v.w2b_cfg_lo = stamp(rs.w2b_cfg_lo, w2b_cfg_lo_new, sender_landed)
 
-    v.pd_bcast, landed, hit_old = ring_put(rs.pd_bcast, pd_fan)
-    hits.append(hit_old)
-    v.pd = stamp(rs.pd, pd_new, landed)
-    v.pd_dst = stamp(rs.pd_dst, pd_dst_new, landed)
-    v.pd_cfg_hi = stamp(rs.pd_cfg_hi, pd_cfg_hi_new, landed)
-    v.pd_cfg_lo = stamp(rs.pd_cfg_lo, pd_cfg_lo_new, landed)
+        v.pd_bcast, landed, hit_old = ring_put(rs.pd_bcast, pd_fan)
+        hits.append(hit_old)
+        v.pd = stamp(rs.pd, pd_new, landed)
+        v.pd_dst = stamp(rs.pd_dst, pd_dst_new, landed)
+        v.pd_cfg_hi = stamp(rs.pd_cfg_hi, pd_cfg_hi_new, landed)
+        v.pd_cfg_lo = stamp(rs.pd_cfg_lo, pd_cfg_lo_new, landed)
 
-    v.flags = v.flags | flag_bit(torch.stack(hits).any(),
-                                 FLAG_RING_COLLISION)
+        v.flags = v.flags | flag_bit(torch.stack(hits).any(),
+                                     FLAG_RING_COLLISION)
 
-    # The counters: one int32 vector, the deliveries' counts plus the
-    # sends, read as column views.
-    counts = acc + torch.stack([sent.get(name, zero) for name in _COUNTERS])
-    views = dict(zip(_COUNTERS, counts.unbind(-1)))
-    log = ReceiverStepLog(
-        tick=v.tick,
-        probes_sent=probes_sent, probes_failed=probes_failed,
-        partitioned_edges=monitor.partitioned_edge_count(faults, ~crashed, t),
-        **{name: views[name] for name in _COUNTERS},
-        announce=announce, ann_prop=ann_prop,
-        ann_cfg_hi=ann_cfg_hi, ann_cfg_lo=ann_cfg_lo,
-        decide=dec["mask"], dec_hosts=dec["hosts"],
-        dec_cfg_hi=dec["cfg_hi"], dec_cfg_lo=dec["cfg_lo"],
-        flags=v.flags,
-    )
-    nxt = ReceiverState(**{name: getattr(v, name)
-                           for name in ReceiverState._fields})
+        # The counters: one int32 vector, the deliveries' counts plus the
+        # sends, read as column views.
+        counts = acc + torch.stack([sent.get(name, zero)
+                                    for name in _COUNTERS])
+        views = dict(zip(_COUNTERS, counts.unbind(-1)))
+        log = ReceiverStepLog(
+            tick=v.tick,
+            probes_sent=probes_sent, probes_failed=probes_failed,
+            partitioned_edges=monitor.partitioned_edge_count(faults,
+                                                             ~crashed, t),
+            **{name: views[name] for name in _COUNTERS},
+            announce=announce, ann_prop=ann_prop,
+            ann_cfg_hi=ann_cfg_hi, ann_cfg_lo=ann_cfg_lo,
+            decide=dec["mask"], dec_hosts=dec["hosts"],
+            dec_cfg_hi=dec["cfg_hi"], dec_cfg_lo=dec["cfg_lo"],
+            flags=v.flags,
+        )
+        nxt = ReceiverState(**{name: getattr(v, name)
+                               for name in ReceiverState._fields})
     return nxt, log
 
 
@@ -862,8 +887,9 @@ def init_receiver_state(uids: Sequence[int], id_fp_sum: int,
         member_row, base.ring_order, base.ring_rank)
     pos = ring0_positions(member_row, base.ring_order, base.ring_rank)
     rank_idx = classic_rank_index(base.uid_hi, base.uid_lo)
-    delay_table = torch.from_numpy(
-        build_delay_table(seed, c, N_DRAWS, settings)).to(dev)
+    with span("rapid.lower.delays"):
+        delay_table = torch.from_numpy(
+            build_delay_table(seed, c, N_DRAWS, settings)).to(dev)
     cfg_hi, cfg_lo = config_id_limbs(base.idsum_hi, base.idsum_lo,
                                      base.memsum_hi, base.memsum_lo)
 
@@ -1169,30 +1195,32 @@ def receiver_run_payload(rs: ReceiverState, logs, n: int, n_ticks: int):
     from rapid_tpu_torch.device import read_arrays
     from rapid_tpu_torch.engine.adversary import AdversaryRun
 
-    events = receiver_events(logs)
-    counters = receiver_counters(logs)
-    phases = receiver_phase_counters(logs)
-    link_dropped, partitioned, member, stopped = read_arrays(
-        logs.link_dropped, logs.partitioned_edges, rs.member, rs.stopped)
-    totals = {k: sum(row[k] for row in counters)
-              for k in ("sent", "delivered", "dropped", "probes_sent",
-                        "probes_failed")}
-    totals["timeouts"] = 0
-    phase_totals = {k: sum(row[k] for row in phases) for k in phases[0]} \
-        if phases else {}
-    return AdversaryRun(
-        n=n, n_ticks=n_ticks,
-        events_by_slot=[events[s] for s in range(n)],
-        tick_history=counters,
-        phase_history=phases,
-        partitioned_edges=[int(x) for x in partitioned],
-        link_dropped=[int(x) for x in link_dropped],
-        config_ids=receiver_config_ids(rs)[:n],
-        members_by_slot=[frozenset(int(i) for i in np.nonzero(member[s])[0])
-                         for s in range(n)],
-        stopped=[bool(x) for x in stopped[:n]],
-        totals=totals, phase_totals=phase_totals,
-    )
+    with span("rapid.fold"):
+        events = receiver_events(logs)
+        counters = receiver_counters(logs)
+        phases = receiver_phase_counters(logs)
+        link_dropped, partitioned, member, stopped = read_arrays(
+            logs.link_dropped, logs.partitioned_edges, rs.member, rs.stopped)
+        totals = {k: sum(row[k] for row in counters)
+                  for k in ("sent", "delivered", "dropped", "probes_sent",
+                            "probes_failed")}
+        totals["timeouts"] = 0
+        phase_totals = {k: sum(row[k] for row in phases) for k in phases[0]} \
+            if phases else {}
+        return AdversaryRun(
+            n=n, n_ticks=n_ticks,
+            events_by_slot=[events[s] for s in range(n)],
+            tick_history=counters,
+            phase_history=phases,
+            partitioned_edges=[int(x) for x in partitioned],
+            link_dropped=[int(x) for x in link_dropped],
+            config_ids=receiver_config_ids(rs)[:n],
+            members_by_slot=[frozenset(int(i)
+                                       for i in np.nonzero(member[s])[0])
+                             for s in range(n)],
+            stopped=[bool(x) for x in stopped[:n]],
+            totals=totals, phase_totals=phase_totals,
+        )
 
 
 # The lowering lives with the fleets, as in the reference; callers of the

@@ -42,6 +42,7 @@ from rapid_tpu_torch.engine.state import (
     ReceiverState, ReceiverStepLog, flag_bit)
 from rapid_tpu_torch.engine.topology import build_topology
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.telemetry.trace import span
 
 #: Dense leaves that leave the packed carry entirely.
 OMITTED_FIELDS = ("obs_full", "delay_table", "epoch")
@@ -264,10 +265,11 @@ def _joined(shards, finals, logs):
     from rapid_tpu_torch.engine import sharding
 
     home = shards.devices[0]
-    return (sharding.join(finals, home),
-            sharding.join([ReceiverStepLog(*[torch.stack(col, dim=1)
-                                             for col in zip(*lg)])
-                           for lg in logs], home))
+    with span("rapid.fleet.join"):
+        return (sharding.join(finals, home),
+                sharding.join([ReceiverStepLog(*[torch.stack(col, dim=1)
+                                                 for col in zip(*lg)])
+                               for lg in logs], home))
 
 
 def fleet_simulate(bundle, faults, n_ticks: int, settings: Settings,
@@ -293,7 +295,8 @@ def fleet_run(shards, n_ticks: int, settings: Settings):
     from rapid_tpu_torch.engine import sharding
     from rapid_tpu_torch.engine.state import member_map
 
-    t0 = _start_tick(shards)
+    with span("rapid.fleet.host"):
+        t0 = _start_tick(shards)
 
     def tick(k, ps, i):
         bundle, faults = shards.shards[k]
@@ -328,7 +331,8 @@ def dense_fleet_run(shards, n_ticks: int, settings: Settings):
     from rapid_tpu_torch.engine import receiver as receiver_mod
     from rapid_tpu_torch.engine import sharding
 
-    t0 = _start_tick(shards)
+    with span("rapid.fleet.host"):
+        t0 = _start_tick(shards)
 
     def tick(k, rs, i):
         return receiver_mod.fleet_step(rs, shards.shards[k][1], settings,

@@ -70,6 +70,7 @@ from torch.utils import _pytree
 
 from rapid_tpu_torch import hashing
 from rapid_tpu_torch.device import resolve_device
+from rapid_tpu_torch.telemetry.trace import span
 
 #: The slot axis: the partitioned capacity dimension.
 AXIS = "slots"
@@ -435,7 +436,7 @@ def run_shards(devices: Sequence[torch.device], carries: List,
     logs: List[list] = [[] for _ in carries]
     for i in range(int(n_ticks)):
         for k, dev in enumerate(devices):
-            with device_context(dev):
+            with device_context(dev), span("rapid.fleet.tick"):
                 carries[k], log = tick(k, carries[k], i)
             logs[k].append(log)
     return carries, logs
@@ -446,8 +447,10 @@ def join(trees: Sequence, device: torch.device, dim: int = 0):
     ``device``; a single shard comes back as it is."""
     if len(trees) == 1:
         return trees[0]
-    return _pytree.tree_map(
-        lambda *xs: torch.cat([x.to(device) for x in xs], dim=dim), *trees)
+    with span("rapid.fleet.join"):
+        return _pytree.tree_map(
+            lambda *xs: torch.cat([x.to(device) for x in xs], dim=dim),
+            *trees)
 
 
 def state_shardings(state, mesh):

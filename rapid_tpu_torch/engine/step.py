@@ -112,6 +112,7 @@ from rapid_tpu_torch.engine.state import (
     I32_MAX, EngineFaults, EngineState, StepLog, config_id_limbs, member_map)
 from rapid_tpu_torch.engine.topology import rebuild
 from rapid_tpu_torch.settings import Settings
+from rapid_tpu_torch.telemetry.trace import span
 from rapid_tpu_torch.variants import hier, ring
 
 #: The classic-Paxos message factors of ``StepLog``.
@@ -872,295 +873,311 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
     px = {}
 
     # ---- phase 0: classic-chain deliveries and the scripted fast round
-    sc = sc_pid = None
-    px_tally = zero
-    e, live = fb.rows(host.epoch)
-    rows = host.fallback_rows(fallback, state)
-    chain = fb.fired(e, live, t, 2, 3, 4)
-    if chain.any():
-        m = host.put(chain)
-        new, counts, classic, classic_pid = member_map(
-            lambda s, r, n: paxos.chain_deliver(s, r, t, n, group), state,
-            rows, n_member)
-        state = _merge(m, new, state)
-        px = {k: torch.where(m, v, zero) for k, v in counts.items()}
-        sc = classic & host.put(fb.fired(e, live, t, 4))
-        sc_pid = classic_pid
-    arrived = fb.arrived(host.epoch, t)
-    if arrived.any():
-        keys = np.stack([host.epoch, arrived])
-        if host.tally is None or not np.array_equal(host.tally[0], keys):
-            # A member's tally is a function of its key alone, so all
-            # members are recomputed when any key moves.
-            host.tally = (keys,) + member_map(
-                lambda s, r, n: paxos.fast_tally(s, r, 0, t, n, group)[:3],
-                state, rows, n_member)
-        _, ok, win_pid, tally = host.tally
-        am = host.put(arrived > 0)
-        ok = ok & am
-        px_tally = torch.where(am, tally, zero)
-        if sc is None:
-            sc, sc_pid = ok, win_pid
-        else:
-            sc_pid = torch.where(sc, sc_pid, win_pid)
-            sc = sc | ok
+    with span("rapid.step.chain"):
+        sc = sc_pid = None
+        px_tally = zero
+        e, live = fb.rows(host.epoch)
+        rows = host.fallback_rows(fallback, state)
+        chain = fb.fired(e, live, t, 2, 3, 4)
+        if chain.any():
+            m = host.put(chain)
+            new, counts, classic, classic_pid = member_map(
+                lambda s, r, n: paxos.chain_deliver(s, r, t, n, group), state,
+                rows, n_member)
+            state = _merge(m, new, state)
+            px = {k: torch.where(m, v, zero) for k, v in counts.items()}
+            sc = classic & host.put(fb.fired(e, live, t, 4))
+            sc_pid = classic_pid
+        arrived = fb.arrived(host.epoch, t)
+        if arrived.any():
+            keys = np.stack([host.epoch, arrived])
+            if host.tally is None or not np.array_equal(host.tally[0], keys):
+                # A member's tally is a function of its key alone, so all
+                # members are recomputed when any key moves.
+                host.tally = (keys,) + member_map(
+                    lambda s, r, n: paxos.fast_tally(s, r, 0, t, n, group)[:3],
+                    state, rows, n_member)
+            _, ok, win_pid, tally = host.tally
+            am = host.put(arrived > 0)
+            ok = ok & am
+            px_tally = torch.where(am, tally, zero)
+            if sc is None:
+                sc, sc_pid = ok, win_pid
+            else:
+                sc_pid = torch.where(sc, sc_pid, win_pid)
+                sc = sc | ok
 
     # ---- phase 1: vote delivery and decision --------------------------
-    votes_arriving = state.vote_pending & (state.announce_tick + 1 == t)
-    arriving = host.arriving
-    if arriving is None:
-        arriving = read_arrays(votes_arriving)[0].astype(bool)
-    alert = None
-    vote_tally = vote_quorum = vote_senders_alive = vote_deliver_alive = zero
-    vote_pending = state.vote_pending
-    if arriving.any():
-        va = votes_arriving
-        alive_members = state.member & ~crashed
-        valid = state.voters & ~crashed
-        if variant == "hier":
-            gid = member_map(lambda hi, lo: hier.group_ids(hi, lo, n_groups),
-                             state.uid_hi, state.uid_lo)
-            decided, tally = member_map(
-                lambda m, v, g: hier.hier_count_fast_round(m, v, g,
-                                                           n_groups, group),
-                state.member, valid, gid)
-        else:
-            decided, tally = member_map(
-                lambda hi, lo, v, n: votes.count_fast_round(
-                    hi.expand(c), lo.expand(c), v, n, group),
-                state.phash_hi, state.phash_lo, valid, n_member)
-        vote_tally = torch.where(va, tally, zero)
-        vote_quorum = torch.where(va, votes.fast_quorum(n_member), zero)
-        any_valid, any_alive = group.any(valid.any(dim=-1),
-                                         alive_members.any(dim=-1))
-        alert = decided & any_alive & va
-        if sc is not None:
-            alert = alert & ~sc
-        if variant == "hier":
-            gate = any_valid & any_alive
-            senders = torch.where(gate, member_map(
-                lambda v, a, g: hier.hier_exchange_messages(v, a, g,
-                                                            n_groups, group),
-                valid, alive_members, gid), zero)
-            recipients = i32(gate)
-        else:
-            senders = (ring.ring_pair_factor(valid, group)
-                       if variant == "ring"
-                       else i32(group.sum(valid.sum(dim=-1))))
-            recipients = i32(group.sum(alive_members.sum(dim=-1)))
-        vote_senders_alive = torch.where(va, senders, zero)
-        vote_deliver_alive = torch.where(va, recipients, zero)
-        vote_pending = vote_pending & ~votes_arriving
-    vote_tally = torch.maximum(vote_tally, px_tally)
-    vote_quorum = torch.maximum(vote_quorum, votes.fast_quorum(n_member))
+    with span("rapid.step.decide"):
+        votes_arriving = state.vote_pending & (state.announce_tick + 1 == t)
+        arriving = host.arriving
+        if arriving is None:
+            arriving = read_arrays(votes_arriving)[0].astype(bool)
+        alert = None
+        vote_tally = vote_quorum = zero
+        vote_senders_alive = vote_deliver_alive = zero
+        vote_pending = state.vote_pending
+        if arriving.any():
+            va = votes_arriving
+            alive_members = state.member & ~crashed
+            valid = state.voters & ~crashed
+            if variant == "hier":
+                gid = member_map(
+                    lambda hi, lo: hier.group_ids(hi, lo, n_groups),
+                    state.uid_hi, state.uid_lo)
+                decided, tally = member_map(
+                    lambda m, v, g: hier.hier_count_fast_round(
+                        m, v, g, n_groups, group),
+                    state.member, valid, gid)
+            else:
+                decided, tally = member_map(
+                    lambda hi, lo, v, n: votes.count_fast_round(
+                        hi.expand(c), lo.expand(c), v, n, group),
+                    state.phash_hi, state.phash_lo, valid, n_member)
+            vote_tally = torch.where(va, tally, zero)
+            vote_quorum = torch.where(va, votes.fast_quorum(n_member), zero)
+            any_valid, any_alive = group.any(valid.any(dim=-1),
+                                             alive_members.any(dim=-1))
+            alert = decided & any_alive & va
+            if sc is not None:
+                alert = alert & ~sc
+            if variant == "hier":
+                gate = any_valid & any_alive
+                senders = torch.where(gate, member_map(
+                    lambda v, a, g: hier.hier_exchange_messages(
+                        v, a, g, n_groups, group),
+                    valid, alive_members, gid), zero)
+                recipients = i32(gate)
+            else:
+                senders = (ring.ring_pair_factor(valid, group)
+                           if variant == "ring"
+                           else i32(group.sum(valid.sum(dim=-1))))
+                recipients = i32(group.sum(alive_members.sum(dim=-1)))
+            vote_senders_alive = torch.where(va, senders, zero)
+            vote_deliver_alive = torch.where(va, recipients, zero)
+            vote_pending = vote_pending & ~votes_arriving
+        vote_tally = torch.maximum(vote_tally, px_tally)
+        vote_quorum = torch.maximum(vote_quorum, votes.fast_quorum(n_member))
 
-    # One read settles which members decide.
-    false = torch.zeros(f, dtype=torch.bool, device=dev)
-    fast = false if alert is None else alert
-    classic = false if sc is None else sc
-    decide_now = fast | classic
-    decide = (read_arrays(decide_now)[0].astype(bool)
-              if alert is not None or sc is not None
-              else np.zeros(f, bool))
-    pmask = state.proposal
+        # One read settles which members decide.
+        false = torch.zeros(f, dtype=torch.bool, device=dev)
+        fast = false if alert is None else alert
+        classic = false if sc is None else sc
+        decide_now = fast | classic
+        decide = (read_arrays(decide_now)[0].astype(bool)
+                  if alert is not None or sc is not None
+                  else np.zeros(f, bool))
+        pmask = state.proposal
 
-    if decide.any():
-        if sc is not None:
-            n_pids = rows.table_mask.shape[2]
-            pick = rows.table_mask[:, 0][torch.arange(f, device=dev),
-                                         sc_pid.clamp(0, n_pids - 1).long()]
-            pmask = torch.where(sc[:, None], pick, state.proposal)
-        ck_false = torch.zeros_like(state.reports)
-        decided_state = state._replace(
-            tick=tick_t,
-            **member_map(lambda s, p: _view_change(s, p, True, group),
-                         state, pmask),
-            fc=torch.zeros_like(state.fc), notified=ck_false,
-            fd_gate=tick_t, pending_flush=ck_false,
-            pending_deliver=ck_false,
-            churn_flush=no_slots(), churn_deliver=no_slots(),
-            reports=ck_false, seen_down=false, announced=false,
-            proposal=no_slots(), vote_pending=vote_pending,
-            voters=no_slots(), epoch=state.epoch + 1, **_px_resets(state))
-        mid = _merge(decide_now, decided_state,
-                     state._replace(tick=tick_t, vote_pending=vote_pending))
-        decision = pmask & decide_now[:, None]
-        host.epoch = host.epoch + decide
-        host.n_member = n_member = torch.where(
-            decide_now, i32(group.sum(mid.member.sum(dim=-1))), n_member)
-        host.px_gauges = None
-        e, live = fb.rows(host.epoch)
-        rows = host.fallback_rows(fallback, mid)
-    else:
-        mid = state._replace(tick=tick_t, vote_pending=vote_pending)
-        decision = no_slots()
+        if decide.any():
+            if sc is not None:
+                n_pids = rows.table_mask.shape[2]
+                pick = rows.table_mask[:, 0][
+                    torch.arange(f, device=dev),
+                    sc_pid.clamp(0, n_pids - 1).long()]
+                pmask = torch.where(sc[:, None], pick, state.proposal)
+            ck_false = torch.zeros_like(state.reports)
+            decided_state = state._replace(
+                tick=tick_t,
+                **member_map(lambda s, p: _view_change(s, p, True, group),
+                             state, pmask),
+                fc=torch.zeros_like(state.fc), notified=ck_false,
+                fd_gate=tick_t, pending_flush=ck_false,
+                pending_deliver=ck_false,
+                churn_flush=no_slots(), churn_deliver=no_slots(),
+                reports=ck_false, seen_down=false, announced=false,
+                proposal=no_slots(), vote_pending=vote_pending,
+                voters=no_slots(), epoch=state.epoch + 1, **_px_resets(state))
+            mid = _merge(decide_now, decided_state,
+                         state._replace(tick=tick_t,
+                                        vote_pending=vote_pending))
+            decision = pmask & decide_now[:, None]
+            host.epoch = host.epoch + decide
+            host.n_member = n_member = torch.where(
+                decide_now, i32(group.sum(mid.member.sum(dim=-1))), n_member)
+            host.px_gauges = None
+            e, live = fb.rows(host.epoch)
+            rows = host.fallback_rows(fallback, mid)
+        else:
+            mid = state._replace(tick=tick_t, vote_pending=vote_pending)
+            decision = no_slots()
 
     # ---- phase 1b: late phase-1a delivery (a task-phase send) ----------
-    late = ~decide & fb.fired(e, live, t, 1)
-    if late.any():
-        m = host.put(late)
-        new, senders = member_map(
-            lambda s: paxos.phase1a_deliver(s, t, group), mid)
-        mid = _merge(m, new, mid)
-        px["px1b_senders"] = torch.where(m, senders, zero)
+    with span("rapid.step.late1a"):
+        late = ~decide & fb.fired(e, live, t, 1)
+        if late.any():
+            m = host.put(late)
+            new, senders = member_map(
+                lambda s: paxos.phase1a_deliver(s, t, group), mid)
+            mid = _merge(m, new, mid)
+            px["px1b_senders"] = torch.where(m, senders, zero)
 
     # ---- phase 2: alert delivery, aggregation, announce ----------------
-    src_alive_all = ~crashed_all
-    src_alive = group.local(src_alive_all, dim=1)
-    batch_src = mid.pending_deliver.any(dim=-1)
-    n_alive = i32(group.sum((mid.member & src_alive).sum(dim=-1)))
-    flushers_alive = (ring.ring_pair_factor(batch_src & src_alive, group)
-                      if variant == "ring"
-                      else i32(group.sum((batch_src & src_alive).sum(dim=-1))))
-    delivered_down = member_map(
-        lambda s, a: cut.deliver_reports(s, a, group), mid, src_alive_all)
-    delivered_up = None
-    if t - 2 in host.inject_ticks or t <= host.start + 2:
-        # Off its own injection ticks a member's churn batch is empty, so
-        # the delivery adds nothing there.
-        churn_down, delivered_up = member_map(cut.deliver_churn_reports,
-                                              mid, src_alive_all)
-        delivered_down = delivered_down | churn_down
-    (reports, seen_down, announce_now, crossed, _explicit,
-     implicit_added) = member_map(
-        lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings, group),
-        mid, delivered_down, delivered_up, n_alive > 0)
-    announce = read_arrays(announce_now)[0].astype(bool)
-    mid = mid._replace(reports=reports, seen_down=seen_down)
-    an = announce_now
-    if announce.any():
-        ph_hi, ph_lo = member_map(
-            lambda p, hi, lo: votes.proposal_fingerprint(p, hi, lo, group),
-            crossed, mid.uid_hi, mid.uid_lo)
-        mid = mid._replace(
-            announced=mid.announced | an,
-            proposal=where(an, crossed, mid.proposal),
-            announce_tick=where(an, tick_t, mid.announce_tick),
-            vote_pending=mid.vote_pending | an,
-            voters=where(an, mid.member & src_alive, mid.voters),
-            phash_hi=where(an, ph_hi, mid.phash_hi),
-            phash_lo=where(an, ph_lo, mid.phash_lo))
-    vote_senders = torch.where(an, n_alive, zero)
-    vote_recipients = torch.where(an, n_member, zero)
-    if variant == "ring":
-        vote_senders = torch.where(an, 2, zero).to(torch.int32)
-    elif variant == "hier" and announce.any():
-        if gid is None:
-            gid = member_map(lambda hi, lo: hier.group_ids(hi, lo, n_groups),
-                             mid.uid_hi, mid.uid_lo)
-        vote_senders = torch.where(an, member_map(
-            lambda v, m, g: hier.hier_exchange_messages(v, m, g, n_groups,
-                                                        group),
-            mid.member & src_alive, mid.member, gid), zero)
-        vote_recipients = torch.where(an, 1, zero).to(torch.int32)
+    with span("rapid.step.deliver"):
+        src_alive_all = ~crashed_all
+        src_alive = group.local(src_alive_all, dim=1)
+        batch_src = mid.pending_deliver.any(dim=-1)
+        n_alive = i32(group.sum((mid.member & src_alive).sum(dim=-1)))
+        flushers_alive = (ring.ring_pair_factor(batch_src & src_alive, group)
+                          if variant == "ring"
+                          else i32(group.sum((batch_src & src_alive)
+                                             .sum(dim=-1))))
+        delivered_down = member_map(
+            lambda s, a: cut.deliver_reports(s, a, group), mid, src_alive_all)
+        delivered_up = None
+        if t - 2 in host.inject_ticks or t <= host.start + 2:
+            # Off its own injection ticks a member's churn batch is empty, so
+            # the delivery adds nothing there.
+            churn_down, delivered_up = member_map(cut.deliver_churn_reports,
+                                                  mid, src_alive_all)
+            delivered_down = delivered_down | churn_down
+        (reports, seen_down, announce_now, crossed, _explicit,
+         implicit_added) = member_map(
+            lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings,
+                                                    group),
+            mid, delivered_down, delivered_up, n_alive > 0)
+        announce = read_arrays(announce_now)[0].astype(bool)
+        mid = mid._replace(reports=reports, seen_down=seen_down)
+        an = announce_now
+        if announce.any():
+            ph_hi, ph_lo = member_map(
+                lambda p, hi, lo: votes.proposal_fingerprint(p, hi, lo, group),
+                crossed, mid.uid_hi, mid.uid_lo)
+            mid = mid._replace(
+                announced=mid.announced | an,
+                proposal=where(an, crossed, mid.proposal),
+                announce_tick=where(an, tick_t, mid.announce_tick),
+                vote_pending=mid.vote_pending | an,
+                voters=where(an, mid.member & src_alive, mid.voters),
+                phash_hi=where(an, ph_hi, mid.phash_hi),
+                phash_lo=where(an, ph_lo, mid.phash_lo))
+        vote_senders = torch.where(an, n_alive, zero)
+        vote_recipients = torch.where(an, n_member, zero)
+        if variant == "ring":
+            vote_senders = torch.where(an, 2, zero).to(torch.int32)
+        elif variant == "hier" and announce.any():
+            if gid is None:
+                gid = member_map(
+                    lambda hi, lo: hier.group_ids(hi, lo, n_groups),
+                    mid.uid_hi, mid.uid_lo)
+            vote_senders = torch.where(an, member_map(
+                lambda v, m, g: hier.hier_exchange_messages(v, m, g, n_groups,
+                                                            group),
+                mid.member & src_alive, mid.member, gid), zero)
+            vote_recipients = torch.where(an, 1, zero).to(torch.int32)
 
     # ---- phase 3: batch flush (1-tick quiescence) ----------------------
-    flusher_mask = mid.pending_flush.any(dim=-1)
-    flushers = (ring.ring_pair_factor(flusher_mask, group)
-                if variant == "ring"
-                else i32(group.sum(flusher_mask.sum(dim=-1))))
-    flush_recipients = torch.where(group.any(flusher_mask.any(dim=-1)),
-                                   n_member, zero)
-    mid = mid._replace(pending_deliver=mid.pending_flush,
-                       pending_flush=torch.zeros_like(mid.pending_flush),
-                       churn_deliver=mid.churn_flush,
-                       churn_flush=torch.zeros_like(mid.churn_flush))
+    with span("rapid.step.flush"):
+        flusher_mask = mid.pending_flush.any(dim=-1)
+        flushers = (ring.ring_pair_factor(flusher_mask, group)
+                    if variant == "ring"
+                    else i32(group.sum(flusher_mask.sum(dim=-1))))
+        flush_recipients = torch.where(group.any(flusher_mask.any(dim=-1)),
+                                       n_member, zero)
+        mid = mid._replace(pending_deliver=mid.pending_flush,
+                           pending_flush=torch.zeros_like(mid.pending_flush),
+                           churn_deliver=mid.churn_flush,
+                           churn_flush=torch.zeros_like(mid.churn_flush))
 
     # ---- phase 4a: churn alert injection -------------------------------
     # Off its own schedule's ticks a member injects nothing, so no mask.
-    churn_injected = zero
-    if t in host.inject_ticks:
-        flush, churn_injected = member_map(
-            lambda s, ch: churn_mod.inject(s, ch, t, group), mid, churn)
-        mid = mid._replace(churn_flush=flush)
+    with span("rapid.step.churn"):
+        churn_injected = zero
+        if t in host.inject_ticks:
+            flush, churn_injected = member_map(
+                lambda s, ch: churn_mod.inject(s, ch, t, group), mid, churn)
+            mid = mid._replace(churn_flush=flush)
 
     # ---- phase 4b: failure-detector interval ---------------------------
-    probes_sent = probes_failed = zero
-    new = mid
-    if t % settings.fd_interval_ticks == 0:
-        is_fd = t > mid.fd_gate
-        fc, notified, notify_exp, sent, failed = member_map(
-            lambda s, fl: monitor.monitor_tick(s, fl, settings, t, group),
-            mid, faults)
-        new = mid._replace(fc=where(is_fd, fc, mid.fc),
-                           notified=where(is_fd, notified, mid.notified),
-                           pending_flush=notify_exp & is_fd[:, None, None])
-        probes_sent = torch.where(is_fd, sent, zero)
-        probes_failed = torch.where(is_fd, failed, zero)
+    with span("rapid.step.monitor"):
+        probes_sent = probes_failed = zero
+        new = mid
+        if t % settings.fd_interval_ticks == 0:
+            is_fd = t > mid.fd_gate
+            fc, notified, notify_exp, sent, failed = member_map(
+                lambda s, fl: monitor.monitor_tick(s, fl, settings, t, group),
+                mid, faults)
+            new = mid._replace(fc=where(is_fd, fc, mid.fc),
+                               notified=where(is_fd, notified, mid.notified),
+                               pending_flush=notify_exp & is_fd[:, None, None])
+            probes_sent = torch.where(is_fd, sent, zero)
+            probes_failed = torch.where(is_fd, failed, zero)
 
     # ---- phase 4c: scripted proposes and fallback-timer fires ----------
-    for half, due in (("send", fb.sends(e, live, t)),
-                      ("fire", ~decide & fb.fires(e, live, t))):
-        if due.any():
-            m = host.put(due)
-            stepped, task_counts = member_map(
-                lambda s, r, n: paxos.task_phase(
-                    s, r, 0, t, n, half == "send", half == "fire", group),
-                new, rows, n_member)
-            new = _merge(m, stepped, new)
-            px.update({k: torch.where(m, v, zero)
-                       for k, v in task_counts.items()})
-            host.px_gauges = None
-    if host.px_gauges is None:
-        host.px_gauges = (
-            i32(group.sum((new.px_timer != I32_MAX).sum(dim=-1))),
-            group.max(new.px_crnd_r.amax(dim=-1)))
-    px_timers_armed, px_coord_round = host.px_gauges
-    if variant == "ring" and "pxvote_senders" in px:
-        px["pxvote_senders"] = torch.where(px["pxvote_senders"] > 0, 2,
-                                           zero).to(torch.int32)
+    with span("rapid.step.task"):
+        for half, due in (("send", fb.sends(e, live, t)),
+                          ("fire", ~decide & fb.fires(e, live, t))):
+            if due.any():
+                m = host.put(due)
+                stepped, task_counts = member_map(
+                    lambda s, r, n: paxos.task_phase(
+                        s, r, 0, t, n, half == "send", half == "fire", group),
+                    new, rows, n_member)
+                new = _merge(m, stepped, new)
+                px.update({k: torch.where(m, v, zero)
+                           for k, v in task_counts.items()})
+                host.px_gauges = None
+        if host.px_gauges is None:
+            host.px_gauges = (
+                i32(group.sum((new.px_timer != I32_MAX).sum(dim=-1))),
+                group.max(new.px_crnd_r.amax(dim=-1)))
+        px_timers_armed, px_coord_round = host.px_gauges
+        if variant == "ring" and "pxvote_senders" in px:
+            px["pxvote_senders"] = torch.where(px["pxvote_senders"] > 0, 2,
+                                               zero).to(torch.int32)
 
-    inv_bits = zero
-    if settings.invariant_checks:
-        inv_bits = member_map(
-            lambda pre, post, d, fd, cd, fm, cm: invariants.check_step(
-                pre, post, decide_now=d, fast_decide=fd, classic_decide=cd,
-                fast_mask=fm, classic_mask=cm, settings=settings,
-                group=group),
-            state, new, decide_now, fast, classic, state.proposal,
-            pmask & classic[:, None])
+    with span("rapid.step.log"):
+        inv_bits = zero
+        if settings.invariant_checks:
+            inv_bits = member_map(
+                lambda pre, post, d, fd, cd, fm, cm: invariants.check_step(
+                    pre, post, decide_now=d, fast_decide=fd, classic_decide=cd,
+                    fast_mask=fm, classic_mask=cm, settings=settings,
+                    group=group),
+                state, new, decide_now, fast, classic, state.proposal,
+                pmask & classic[:, None])
 
-    if decide.any() or host.config is None:
-        host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
-                                      new.memsum_hi, new.memsum_lo)
-    cfg_hi, cfg_lo = host.config
-    in_flight = group.sum(new.pending_flush.any(dim=-1).sum(dim=-1),
-                          new.pending_deliver.any(dim=-1).sum(dim=-1),
-                          new.churn_flush.sum(dim=-1),
-                          new.churn_deliver.sum(dim=-1),
-                          new.reports.sum(dim=(-2, -1)))
-    alerts_in_flight = i32(in_flight[0] + in_flight[1] + in_flight[2]
-                           + in_flight[3])
-    log = StepLog(
-        tick=tick_t,
-        announce_now=announce_now,
-        proposal=crossed & an[:, None],
-        decide_now=decide_now,
-        decision=decision,
-        config_hi=cfg_hi, config_lo=cfg_lo,
-        n_member=n_member,
-        probes_sent=probes_sent, probes_failed=probes_failed,
-        flushers=flushers, flush_recipients=flush_recipients,
-        flushers_alive=flushers_alive,
-        deliver_alive=torch.where(group.any(batch_src.any(dim=-1)), n_alive,
-                                  zero),
-        vote_senders=vote_senders, vote_recipients=vote_recipients,
-        vote_senders_alive=vote_senders_alive,
-        vote_deliver_alive=vote_deliver_alive,
-        alerts_in_flight=alerts_in_flight,
-        cut_reports=i32(in_flight[4]),
-        implicit_reports=implicit_added,
-        vote_tally=vote_tally, quorum=vote_quorum,
-        epoch=new.epoch,
-        churn_injected=churn_injected,
-        partitioned_edges=member_map(
-            lambda fl, m: monitor.partitioned_edge_count(fl, m, t, group),
-            faults, new.member),
-        link_dropped=zero,
-        px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
-        inv_bits=inv_bits,
-        **{name: px.get(name, zero) for name in PX_COUNTS},
-    )
+        if decide.any() or host.config is None:
+            host.config = config_id_limbs(new.idsum_hi, new.idsum_lo,
+                                          new.memsum_hi, new.memsum_lo)
+        cfg_hi, cfg_lo = host.config
+        in_flight = group.sum(new.pending_flush.any(dim=-1).sum(dim=-1),
+                              new.pending_deliver.any(dim=-1).sum(dim=-1),
+                              new.churn_flush.sum(dim=-1),
+                              new.churn_deliver.sum(dim=-1),
+                              new.reports.sum(dim=(-2, -1)))
+        alerts_in_flight = i32(in_flight[0] + in_flight[1] + in_flight[2]
+                               + in_flight[3])
+        log = StepLog(
+            tick=tick_t,
+            announce_now=announce_now,
+            proposal=crossed & an[:, None],
+            decide_now=decide_now,
+            decision=decision,
+            config_hi=cfg_hi, config_lo=cfg_lo,
+            n_member=n_member,
+            probes_sent=probes_sent, probes_failed=probes_failed,
+            flushers=flushers, flush_recipients=flush_recipients,
+            flushers_alive=flushers_alive,
+            deliver_alive=torch.where(group.any(batch_src.any(dim=-1)),
+                                      n_alive, zero),
+            vote_senders=vote_senders, vote_recipients=vote_recipients,
+            vote_senders_alive=vote_senders_alive,
+            vote_deliver_alive=vote_deliver_alive,
+            alerts_in_flight=alerts_in_flight,
+            cut_reports=i32(in_flight[4]),
+            implicit_reports=implicit_added,
+            vote_tally=vote_tally, quorum=vote_quorum,
+            epoch=new.epoch,
+            churn_injected=churn_injected,
+            partitioned_edges=member_map(
+                lambda fl, m: monitor.partitioned_edge_count(fl, m, t, group),
+                faults, new.member),
+            link_dropped=zero,
+            px_timers_armed=px_timers_armed, px_coord_round=px_coord_round,
+            inv_bits=inv_bits,
+            **{name: px.get(name, zero) for name in PX_COUNTS},
+        )
     host.tick = t
     host.arriving = announce
     return new, log
@@ -1205,7 +1222,8 @@ def _fleet_outputs(state, logs, settings: Settings):
 
 def _member_major(logs: List[StepLog]) -> StepLog:
     """Per-tick ``[F, ...]`` fleet logs -> ``[F, T, ...]``."""
-    return StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
+    with span("rapid.fleet.join"):
+        return StepLog(*[torch.stack(col, dim=1) for col in zip(*logs)])
 
 
 def run_fleet_shards(parts: "sharding.FleetShards", n_ticks: int,
@@ -1218,7 +1236,7 @@ def run_fleet_shards(parts: "sharding.FleetShards", n_ticks: int,
     hosts = []
     for dev, (state, faults, churn, fallback) in zip(parts.devices,
                                                      parts.shards):
-        with sharding.device_context(dev):
+        with sharding.device_context(dev), span("rapid.fleet.host"):
             hosts.append(_FleetHost(state, churn, fallback, faults))
     if len({h.tick for h in hosts}) != 1:
         raise ValueError("fleet members must start at one tick")
@@ -1248,11 +1266,13 @@ def run_fleet_slots(parts: "sharding.SlotShards", n_ticks: int,
     guard) runs the whole fleet there."""
     def body(group, shard):
         state, faults, churn, fallback = shard
-        host = _FleetHost(state, churn, fallback, faults, group)
+        with span("rapid.fleet.host"):
+            host = _FleetHost(state, churn, fallback, faults, group)
         logs = []
         for _ in range(int(n_ticks)):
-            state, log = _fleet_step(state, host.faults, settings, host,
-                                     churn, fallback, group)
+            with span("rapid.fleet.tick"):
+                state, log = _fleet_step(state, host.faults, settings, host,
+                                         churn, fallback, group)
             logs.append(log)
         return state, _member_major(logs)
 

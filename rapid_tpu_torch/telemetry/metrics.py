@@ -25,6 +25,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from rapid_tpu_torch.telemetry.trace import span
+
 #: Gauge value on sources that do not observe the gauge.
 UNOBSERVED = -1
 
@@ -236,6 +238,11 @@ class RunSummary:
 
 def summarize(metrics: Sequence[TickMetrics]) -> RunSummary:
     """Fold a TickMetrics stream into a RunSummary."""
+    with span("rapid.fold"):
+        return _summarize(metrics)
+
+
+def _summarize(metrics: Sequence[TickMetrics]) -> RunSummary:
     start_tick = metrics[0].tick - 1 if metrics else 0
     first_announce: Optional[int] = None
     first_decide: Optional[int] = None
@@ -329,11 +336,12 @@ def fleet_summaries(logs) -> List[RunSummary]:
     ``StepLog`` (``[F, T, ...]``): each member's slice through
     ``engine_metrics`` and ``summarize``, after one read of the fleet's
     fields to the host."""
-    logs = host_log(logs)
-    return [summarize(engine_metrics(SimpleNamespace(
-        _fields=logs._fields,
-        **{k: getattr(logs, k)[i] for k in logs._fields})))
-        for i in range(logs.tick.shape[0])]
+    with span("rapid.fold"):
+        logs = host_log(logs)
+        return [summarize(engine_metrics(SimpleNamespace(
+            _fields=logs._fields,
+            **{k: getattr(logs, k)[i] for k in logs._fields})))
+            for i in range(logs.tick.shape[0])]
 
 
 def merge_summaries(summaries: Sequence[RunSummary],

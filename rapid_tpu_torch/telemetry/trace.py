@@ -19,18 +19,135 @@ format (``{"traceEvents": [...]}``) that ``ui.perfetto.dev`` and
 The reference's ``jax_profiler_trace`` wraps a region in JAX's own
 tracer; it has no PyTorch form here, and ``rapid_tpu_torch.profile``
 (``torch.profiler``) stands in for it.
+
+**Program spans.** ``span(name)`` marks a phase of the program's host
+code (the fleet tick and its phases, the reads, the fold, the lowering;
+every name starts with ``rapid.``). Spans are off by default, and then a
+span is one check of a module flag and a shared null context.
+``enable_spans()`` turns them on: each span then stamps its start and
+end with ``time.time_ns()`` (the clock ``torch.profiler`` stamps host
+events with), appends ``(name, start_ns, end_ns, parent)`` to the
+record (``parent`` the index of the enclosing span of the same thread,
+-1 for none) and runs inside ``torch.profiler.record_function(name)``,
+so a profiler trace shows the phases too. ``take_spans()`` drains the
+record; ``disable_spans()`` turns spans off. ``wall_span`` is a span
+plus its slice on a ``TraceWriter``'s wall-clock track.
 """
 from __future__ import annotations
 
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rapid_tpu_torch.telemetry.metrics import host_log
+#: Whether spans are recorded (``enable_spans``/``disable_spans``).
+_spans_on = False
+#: The record spans append to while they are on.
+_record: Optional["SpanRecord"] = None
+#: What ``span`` returns while spans are off.
+_NULL_SPAN = nullcontext()
+
+
+class SpanRecord:
+    """The spans recorded while spans are on: ``entries`` is a list of
+    ``(name, start_ns, end_ns, parent)``, in the order the spans opened
+    (a span still open has ``end_ns`` None). ``parent`` indexes
+    ``entries``; each thread nests its own spans."""
+
+    def __init__(self) -> None:
+        self.entries: List[Tuple[str, int, Optional[int], int]] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _open(self) -> list:
+        """This thread's stack of ``(entries, index)`` of open spans."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _Span:
+    """One timed region; recorded in ``record`` when that is not None."""
+
+    __slots__ = ("name", "record", "start_ns", "end_ns", "_at", "_rf")
+
+    def __init__(self, name: str, record: Optional[SpanRecord]) -> None:
+        self.name = name
+        self.record = record
+
+    def __enter__(self) -> "_Span":
+        rec = self.record
+        if rec is not None:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self.start_ns = time.time_ns()
+        if rec is not None:
+            stack = rec._open()
+            entries = rec.entries
+            parent = (stack[-1][1] if stack and stack[-1][0] is entries
+                      else -1)
+            with rec._lock:
+                index = len(entries)
+                entries.append((self.name, self.start_ns, None, parent))
+            self._at = (entries, index)
+            stack.append(self._at)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        rec = self.record
+        if rec is not None:
+            entries, index = self._at
+            name, start, _, parent = entries[index]
+            entries[index] = (name, start, self.end_ns, parent)
+            rec._open().pop()
+            self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one phase of the program (module
+    docstring): a null context while spans are off."""
+    if not _spans_on:
+        return _NULL_SPAN
+    return _Span(name, _record)
+
+
+def enable_spans() -> SpanRecord:
+    """Turn spans on; returns the record they append to (the one already
+    in use when spans are on)."""
+    global _spans_on, _record
+    if _record is None:
+        _record = SpanRecord()
+        # A process's first record_function takes about 1.5 ms; paid
+        # here, it lies inside no span.
+        with torch.profiler.record_function("rapid.spans"):
+            pass
+    _spans_on = True
+    return _record
+
+
+def disable_spans() -> None:
+    """Turn spans off; the record keeps what it holds."""
+    global _spans_on
+    _spans_on = False
+
+
+def take_spans() -> List[Tuple[str, int, Optional[int], int]]:
+    """The record's entries, leaving it empty. A span open across the
+    call completes in the list returned; one opened later under it has
+    parent -1."""
+    if _record is None:
+        return []
+    with _record._lock:
+        out, _record.entries = _record.entries, []
+    return out
+
 
 VIRTUAL_PID = 1
 WALL_PID = 2
@@ -48,14 +165,15 @@ class TraceWriter:
 
     def __init__(self) -> None:
         self._events: List[Dict[str, object]] = []
-        self._wall_t0 = time.perf_counter()
+        self._wall_t0_ns = time.time_ns()
         self._meta_done: set = set()
 
     # -- wall clock ------------------------------------------------------
 
-    def wall_now_us(self) -> int:
-        """Microseconds since this writer was created (wall-clock axis)."""
-        return int((time.perf_counter() - self._wall_t0) * 1e6)
+    def wall_us(self, t_ns: int) -> int:
+        """``time.time_ns()`` stamp ``t_ns`` as microseconds since this
+        writer was created (wall-clock axis)."""
+        return (t_ns - self._wall_t0_ns) // 1000
 
     # -- metadata --------------------------------------------------------
 
@@ -121,21 +239,26 @@ class TraceWriter:
 @contextmanager
 def wall_span(writer: Optional[TraceWriter], name: str,
               args: Optional[Dict[str, object]] = None):
-    """Time a host-side region onto the wall-clock track.
+    """Time a host-side region onto the wall-clock track: the span
+    ``rapid.<name>`` (module docstring) and, with a ``writer``, its
+    slice ``name``, timed by the span.
 
-    No-op when ``writer`` is None, so instrumented call sites cost
-    nothing un-traced.
+    Without a writer it is the span alone, so instrumented call sites
+    cost one flag check un-traced.
     """
     if writer is None:
-        yield
+        with span("rapid." + name):
+            yield
         return
     writer.meta_process(WALL_PID, "host wall-clock")
     writer.meta_thread(WALL_PID, TID_WALL, "host")
-    t0 = writer.wall_now_us()
+    s = _Span("rapid." + name, _record if _spans_on else None)
     try:
-        yield
+        with s:
+            yield
     finally:
-        writer.slice(name, t0, writer.wall_now_us() - t0,
+        t0 = writer.wall_us(s.start_ns)
+        writer.slice(name, t0, writer.wall_us(s.end_ns) - t0,
                      WALL_PID, TID_WALL, args)
 
 
@@ -158,6 +281,8 @@ def _host_trace_log(logs):
     cols = {n: getattr(logs, n) for n in _TRACE_FIELDS}
     cols.update(proposal_slots=count(logs.proposal),
                 decision_slots=count(logs.decision))
+    from rapid_tpu_torch.telemetry.metrics import host_log
+
     return host_log(SimpleNamespace(_fields=names, **cols))
 
 
@@ -266,6 +391,8 @@ def lineage_trace_from_logs(logs, settings,
 
     writer = writer or TraceWriter()
     us_per_tick = settings.tick_ms * 1000
+    from rapid_tpu_torch.telemetry.metrics import host_log
+
     host = host_log(logs, lineage_lib._ENGINE_FIELDS + ("epoch",))
     ticks = host.tick
     epoch = host.epoch
