@@ -189,6 +189,21 @@ class FallbackTicks:
         arrive = _wrap32(tick.astype(np.int64) + 1)
         self.arrivals = [np.unique(arrive[e][voter[e]]) for e in rows]
 
+    @classmethod
+    def from_rows(cls, inst_epoch, send, fire) -> "FallbackTicks":
+        """The same object from each row's distinct send and fire ticks
+        (int32 arrays in any order), as ``split_keys`` gives them from
+        ``tick_keys``. Adding 1 is a bijection of 32-bit ticks, so the
+        distinct arrival ticks are the distinct send ticks plus 1,
+        wrapped."""
+        self = cls.__new__(cls)
+        self.inst_epoch = np.asarray(inst_epoch)
+        self.send = [set(s.tolist()) for s in send]
+        self.fire = [set(f.tolist()) for f in fire]
+        self.arrivals = [np.sort(_wrap32(s.astype(np.int64) + 1))
+                         for s in send]
+        return self
+
     def row(self, epoch: int) -> Tuple[int, bool]:
         return instance_row(self.inst_epoch, epoch)
 
@@ -199,6 +214,40 @@ class FallbackTicks:
 
     def fired_before(self, e: int, t: int, *lags: int) -> bool:
         return any(t - lag in self.fire[e] for lag in lags)
+
+
+_LOW32 = 0xFFFFFFFF
+
+
+def tick_keys(prop_tick, prop_pid, prop_delay):
+    """``FallbackTicks``' send and fire ticks of stacked schedules (leaves
+    ``[..., C]``, the leading axes flattened row-major into R rows),
+    derived on their device: one sorted int64 tensor of the distinct keys
+    of the voters' send (``prop_tick``, rows ``0..R-1``) and fire
+    (``prop_tick + prop_delay``, rows ``R..2R-1``) ticks, each key the row
+    in the high 32 bits and the tick's 32 bits, wrapped as ``_wrap32``
+    wraps them, in the low. A slot that does not vote adds the key
+    ``-1``. One sort serves both; the host splits the few keys with
+    ``split_keys``."""
+    voter = prop_pid >= 0
+    rows = voter[..., 0].numel()
+    key = torch.empty((2,) + voter.shape, dtype=torch.int64,
+                      device=voter.device)
+    key[0] = prop_tick
+    torch.add(key[0], prop_delay, out=key[1])
+    key &= _LOW32
+    key |= torch.arange(0, 2 * rows << 32, 1 << 32, device=key.device
+                        ).reshape((2,) + voter.shape[:-1] + (1,))
+    return torch.unique(key.masked_fill_(~voter, -1))
+
+
+def split_keys(keys: np.ndarray, rows: int) -> List[np.ndarray]:
+    """The int32 ticks of each of ``rows`` rows in sorted ``tick_keys``
+    keys read back to the host."""
+    keys = keys[keys >= 0]
+    at = np.searchsorted(keys >> 32, np.arange(rows + 1))
+    ticks = (keys & _LOW32).astype(np.uint32).view(np.int32)
+    return [ticks[a:b] for a, b in zip(at[:-1], at[1:])]
 
 
 def rank_lt(ar, ai, br, bi):

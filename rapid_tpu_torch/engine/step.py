@@ -115,6 +115,12 @@ from rapid_tpu_torch.settings import Settings
 from rapid_tpu_torch.telemetry.trace import span
 from rapid_tpu_torch.variants import hier, ring
 
+#: Values moved to the host by ``_FleetHost``'s start read since the last
+#: reset: the distinct ticks of the fleet's schedules and its ``[F]`` and
+#: ``[F, I]`` vectors, once per ``fleet_simulate`` call (and per shard).
+#: It counts the read's size, as ``device.host_reads`` counts reads.
+fleet_schedule_values = 0
+
 #: The classic-Paxos message factors of ``StepLog``.
 PX_COUNTS = ("pxvote_senders", "pxvote_recipients", "px1a_senders",
              "px1a_recipients", "px1b_senders", "px2a_senders",
@@ -728,10 +734,15 @@ class _FleetTicks:
     tick sets so that a tick on which no member can act is passed over
     without a loop over the members."""
 
-    def __init__(self, prop_tick, prop_pid, prop_delay, inst_epoch):
+    def __init__(self, inst_epoch, keys):
+        """From ``inst_epoch`` (``[F, I]``) and the ``paxos.tick_keys`` of
+        the ``[F, I, C]`` schedules, read back."""
         self.inst_epoch = np.asarray(inst_epoch)
-        self.per = [paxos.FallbackTicks(*rows) for rows in zip(
-            prop_tick, prop_pid, prop_delay, self.inst_epoch)]
+        f, i = self.inst_epoch.shape
+        rows = paxos.split_keys(keys, 2 * f * i)
+        self.per = [paxos.FallbackTicks.from_rows(
+            self.inst_epoch[m], rows[m * i:(m + 1) * i],
+            rows[(f + m) * i:(f + m + 1) * i]) for m in range(f)]
         self.fire_any = set().union(*(s for fb in self.per for s in fb.fire))
         self.send_any = set().union(*(s for fb in self.per for s in fb.send))
         self.arrive_any = set().union(*(a.tolist() for fb in self.per
@@ -786,26 +797,36 @@ class _FleetHost:
     read returns one ``[F]`` vector in the one transfer it already is. On
     a slot mesh (``group``) each shard keeps one, built from the whole
     schedules (all-gathered along each member's slot axis), so every
-    shard knows the same ticks; ``faults`` is kept whole."""
+    shard knows the same ticks; ``faults`` is kept whole.
+
+    The schedules' tick tables are derived on their device (the distinct
+    join and leave ticks, ``paxos.tick_keys``), and only those distinct
+    ticks are read, with the ``[F]`` ticks and epochs and the ``[F, I]``
+    instance epochs, in one transfer (``fleet_schedule_values``)."""
 
     def __init__(self, state: EngineState, churn, fallback, faults=None,
                  group=SOLO):
+        global fleet_schedule_values
         self.faults = state_mod.gather_slots(faults, group, fleet=True)
         sched = state_mod.gather_slots(
             dict(join_tick=churn.join_tick, leave_tick=churn.leave_tick,
                  prop_tick=fallback.prop_tick, prop_pid=fallback.prop_pid,
                  prop_delay=fallback.prop_delay), group, fleet=True)
-        got = read_arrays(state.tick, state.epoch, *sched.values(),
-                          fallback.inst_epoch)
+        inject = torch.unique(torch.cat([sched["join_tick"].reshape(-1),
+                                         sched["leave_tick"].reshape(-1)]))
+        arrays = [state.tick, state.epoch, fallback.inst_epoch, inject,
+                  paxos.tick_keys(sched["prop_tick"], sched["prop_pid"],
+                                  sched["prop_delay"])]
+        fleet_schedule_values += sum(a.numel() for a in arrays)
+        got = read_arrays(*arrays)
         if len(set(got[0].tolist())) != 1:
             raise ValueError("fleet members must start at one tick")
         self.dev = state.member.device
         self.tick = int(got[0][0])
         self.start = self.tick
         self.epoch = got[1].astype(np.int64)
-        self.inject_ticks = set(got[2].ravel().tolist()) | set(
-            got[3].ravel().tolist())
-        self.fb = _FleetTicks(*got[4:8])
+        self.inject_ticks = set(got[3].tolist())
+        self.fb = _FleetTicks(got[2], got[4])
         self.arriving = None    # bool [F]: fast-round votes arrive next tick
         self.n_member = None    # i32 [F]
         self.config = None      # config-id limbs, [F] each
