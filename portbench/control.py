@@ -9,12 +9,14 @@ configuration's timing guarantees broken: a monitor reports its subject
 after ``fd_failure_threshold - 1`` failed probes instead of
 ``fd_failure_threshold``, and a classic round decides one message delay
 early (``classic_round_ticks - 1``), the steps that would shave an
-interval off detection or a tick off the fallback. The faults break the program itself: ``unchanged`` makes its
-tick return the state it was given; ``half`` computes half of the fleet
-and repeats those members' outputs for the other half (in a fleet of one
-per-receiver member, half of its receivers); ``altered`` adds
-one to a counter of member 0 where the log is produced. Each must come
-out ``correct: false``; the script prints one JSON line per seed and
+interval off detection or a tick off the fallback. The faults break the
+program itself: ``unchanged`` makes each tick function the engine module
+declares (``TICK_FUNCTIONS``) return the state it was given; ``half``
+computes half of the fleet and repeats those members' outputs for the
+other half (in a fleet of one member, half of the rows of its processes'
+own state and logs); ``altered`` adds one to a counter of member 0 (the
+engine module's ``ALTERED_COLUMN``) where the log is produced. Each must
+come out ``correct: false``; the script prints one JSON line per seed and
 fault and exits 1 if any comes out correct. On a CPU-only machine it
 runs on the CPU (tests do, at a small size).
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import sys
 import time
@@ -37,7 +40,6 @@ elif str(ROOT) not in sys.path:
 import torch  # noqa: E402
 
 from portbench import run, system  # noqa: E402
-from portbench.reference import fold  # noqa: E402
 
 FAULTS = ("control", "unchanged", "half", "altered")
 
@@ -53,6 +55,7 @@ class ControlFleet:
         if "classic_round_ticks" in config:
             self.config["classic_round_ticks"] -= 1
         self.descs, self.ticks, self.device = descs, ticks, device
+        self.model = run.reference_of(config)
         self.lower_s = 0.0
 
     def dispatch(self):
@@ -60,7 +63,7 @@ class ControlFleet:
                                      self.device)
 
     def fold(self, out):
-        return [fold.member_summary(self.config["engine"], o) for o in out]
+        return [self.model.member_summary(o) for o in out]
 
     def outputs(self, out):
         return out
@@ -68,8 +71,9 @@ class ControlFleet:
 
 def _halved(out):
     """Half of the batch computed and its outputs repeated for the rest:
-    along the member axis of a fleet, or, in a fleet of one per-receiver
-    member, along the receiver axis of its per-receiver outputs."""
+    along the member axis of a fleet, or, in a fleet of one member, along
+    the axis of its processes (every axis as long as its final view's
+    ``member``, after the member axis)."""
     from torch.utils import _pytree
 
     finals, logs = out[0], out[1]
@@ -91,45 +95,61 @@ def _halved(out):
             _pytree.tree_map(rows(2), logs)) + tuple(out[2:])
 
 
-def _altered(out):
+def _altered(out, name: str):
     finals, logs = out[0], out[1]
-    name = "probes_sent" if hasattr(logs, "flushers") else "sent"
     col = getattr(logs, name).clone()
     col[0, col.shape[1] // 2] += 1
     return (finals, logs._replace(**{name: col})) + tuple(out[2:])
+
+
+def _frozen(tick):
+    def frozen(state, *args, **kw):
+        return state, tick(state, *args, **kw)[1]
+    return frozen
+
+
+def _freeze(ticks) -> list:
+    """Each ``(module, attribute)`` tick function made to return the
+    state it was given; ``[(module, attribute, function)]`` to put
+    back."""
+    saved = []
+    for module_name, name in ticks:
+        module = importlib.import_module(module_name)
+        tick = getattr(module, name)
+        saved.append((module, name, tick))
+        setattr(module, name, _frozen(tick))
+    return saved
 
 
 @contextlib.contextmanager
 def planted(fault: str):
     """Within the block, the harness drives ``fault`` in place of the
     program's timed path."""
-    from rapid_tpu_torch.engine import receiver, step
+    if fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    build = system.build
+    frozen = []
 
-    saved = (system.build, system.Fleet.dispatch, step._fleet_step,
-             receiver.fleet_step)
-    dispatch = saved[1]
-    try:
+    def planted_build(config, descs, ticks, device):
         if fault == "control":
-            system.build = lambda config, descs, ticks, device: ControlFleet(
-                config, descs, ticks, device)
-        elif fault == "unchanged":
-            def frozen_shared(state, *args, **kw):
-                return state, saved[2](state, *args, **kw)[1]
-
-            def frozen_receiver(rs, *args, **kw):
-                return rs, saved[3](rs, *args, **kw)[1]
-            step._fleet_step = frozen_shared
-            receiver.fleet_step = frozen_receiver
-        elif fault == "half":
-            system.Fleet.dispatch = lambda self: _halved(dispatch(self))
+            return ControlFleet(config, descs, ticks, device)
+        if fault == "unchanged":
+            frozen.extend(_freeze(system.engine_of(config).TICK_FUNCTIONS))
+        fleet = build(config, descs, ticks, device)
+        dispatch = fleet.dispatch
+        if fault == "half":
+            fleet.dispatch = lambda: _halved(dispatch())
         elif fault == "altered":
-            system.Fleet.dispatch = lambda self: _altered(dispatch(self))
-        else:
-            raise ValueError(f"unknown fault {fault!r}")
+            name = fleet.engine.ALTERED_COLUMN
+            fleet.dispatch = lambda: _altered(dispatch(), name)
+        return fleet
+    system.build = planted_build
+    try:
         yield
     finally:
-        (system.build, system.Fleet.dispatch, step._fleet_step,
-         receiver.fleet_step) = saved
+        system.build = build
+        for module, name, tick in reversed(frozen):
+            setattr(module, name, tick)
 
 
 def check(cell: str, seed: int, fault: str, seconds: float, dev,

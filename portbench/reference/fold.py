@@ -116,10 +116,3 @@ def summary(rows: list) -> dict:
                                   if r["link_dropped"] > 0),
     }
 
-
-def member_summary(engine: str, out: dict) -> dict:
-    """The summary of one member's reference outputs."""
-    if engine == "shared":
-        return summary(shared_ticks(out["columns"]))
-    return summary(receiver_ticks(out["columns"], out["announce"],
-                                  out["decide"]))

@@ -37,15 +37,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import ids
-from portbench.reference.shared import (OutOfScope, Universe, fast_quorum,
-                                        topology)
+from portbench.reference import OutOfScope, fold, ids, refuse_unmodelled
+from portbench.reference.shared import Universe, fast_quorum, topology
+
+#: The keys of a description this reference models; any other that is
+#: not empty is refused rather than answered wrongly.
+MODELLED = ("seed", "crashes", "windows")
 
 COLUMNS = (
     "sent", "delivered", "dropped", "probes_sent", "probes_failed",
     "fv_sent", "fv_delivered", "p1a_sent", "p1a_delivered", "p1b_sent",
     "p1b_delivered", "p2a_sent", "p2a_delivered", "p2b_sent",
     "p2b_delivered", "partitioned_edges", "link_dropped", "flags")
+
+
+def universe(config: dict, device) -> Universe:
+    return Universe(config["nodes"], config["K"], device)
+
+
+def member_summary(out: dict) -> dict:
+    """The summary of one member's outputs."""
+    return fold.summary(fold.receiver_ticks(out["columns"], out["announce"],
+                                            out["decide"]))
 
 
 class Windows:
@@ -103,10 +116,7 @@ class Views:
 def simulate(config: dict, desc: dict, ticks: int, uni: Universe) -> dict:
     """One member's run: per-tick counters, each process's announces and
     decides, and its final view, configuration id and stop flag."""
-    for key in ("proposes", "delays", "drop", "churn"):
-        if desc.get(key):
-            raise OutOfScope(f"the per-receiver reference does not model "
-                             f"{key}")
+    refuse_unmodelled(desc, MODELLED, "per-receiver")
     k, hi, lo = config["K"], config["H"], config["L"]
     fd_every = config["fd_interval_ticks"]
     threshold = config["fd_failure_threshold"]

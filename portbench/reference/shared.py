@@ -46,15 +46,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import ids
+from portbench.reference import OutOfScope, fold, ids, refuse_unmodelled
 
-#: What this reference does not model; a description with any of them
-#: is refused rather than answered wrongly.
-OUT_OF_SCOPE = ("windows", "churn", "delays", "drop")
-
-
-class OutOfScope(RuntimeError):
-    """The run needs what this reference does not model."""
+#: The keys of a description this reference models; any other that is
+#: not empty is refused rather than answered wrongly.
+MODELLED = ("seed", "crashes", "proposes")
 
 
 class Universe:
@@ -66,6 +62,15 @@ class Universe:
         self.member_fp = ids.hash64(uids, ids.SEED_MEMBER)
         self.orders = torch.from_numpy(ids.ring_orders(uids, k)).to(device)
         self.device = device
+
+
+def universe(config: dict, device) -> Universe:
+    return Universe(config["nodes"], config["K"], device)
+
+
+def member_summary(out: dict) -> dict:
+    """The summary of one member's outputs."""
+    return fold.summary(fold.shared_ticks(out["columns"]))
 
 
 def fast_quorum(n: int) -> int:
@@ -149,9 +154,7 @@ class ClassicRound:
 def simulate(config: dict, desc: dict, ticks: int, uni: Universe) -> dict:
     """One member's run: the per-tick columns, the announced and decided
     cuts, the final view and configuration id."""
-    for key in OUT_OF_SCOPE:
-        if desc.get(key):
-            raise OutOfScope(f"the shared reference does not model {key}")
+    refuse_unmodelled(desc, MODELLED, "shared")
     k, hi, lo = config["K"], config["H"], config["L"]
     fd_every = config["fd_interval_ticks"]
     threshold = config["fd_failure_threshold"]

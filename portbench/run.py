@@ -6,14 +6,15 @@
 A cell (``workloads/<cell>.json``) names a configuration
 (``configs/<name>.json``), a traffic mix (``traffic/<name>.json``) and the
 fleet size F. Set-up draws every member's faults from ``--seed``, lowers
-and stacks the F members into one fleet and runs one warm dispatch (the
-first run in a checkout also builds ``rx_deliver`` into ``build/``). The
-window then repeats one dispatch (every member for the scenario's ticks
-through ``fleet_simulate`` or ``receiver_fleet_simulate``, then the
-telemetry fold of every member) while time remains, and closes when the
-last dispatch started has been folded. Afterwards the last dispatch's
-outputs and every dispatch's folded summaries are compared with the
-plain reference (``reference/``), exactly.
+and stacks the F members into one fleet through the configuration's
+engine module (``engines/<engine>.py``) and runs one warm dispatch (the
+first run in a checkout also builds the program's CUDA kernels into
+``build/``). The window then repeats one dispatch (every member for the
+scenario's ticks, then the telemetry fold of every member) while time
+remains, and closes when the last dispatch started has been folded.
+Afterwards the last dispatch's outputs and every dispatch's folded
+summaries are compared with the plain reference of the same engine
+(``reference/<engine>.py``), exactly.
 
 ``--trace 0`` prints the cell's end-to-end metrics, ``--trace 1`` its
 per-layer metrics (``metrics/<name>.py``, as ``BENCHMARK.json`` lists
@@ -43,8 +44,7 @@ elif str(ROOT) not in sys.path:
 
 import torch  # noqa: E402
 
-from portbench import compare, profiling, system  # noqa: E402
-from portbench.reference import fold, receiver, shared  # noqa: E402
+from portbench import compare, profiling, reference, system  # noqa: E402
 from portbench.traffic import generate  # noqa: E402
 
 #: Top-level module names that no run may hold once its window closes.
@@ -80,10 +80,16 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def reference_of(config: dict):
+    """The reference module of the configuration's engine."""
+    return importlib.import_module(
+        f"portbench.reference.{config['engine']}")
+
+
 def reference_outputs(config: dict, descs: list, ticks: int, dev) -> list:
-    engine = shared if config["engine"] == "shared" else receiver
-    uni = shared.Universe(config["nodes"], config["K"], dev)
-    return [engine.simulate(config, d, ticks, uni) for d in descs]
+    model = reference_of(config)
+    uni = model.universe(config, dev)
+    return [model.simulate(config, d, ticks, uni) for d in descs]
 
 
 def run_cell(workload: dict, config: dict, traffic: dict, seed: int,
@@ -143,15 +149,16 @@ def run_cell(workload: dict, config: dict, traffic: dict, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     refused = ""
+    model = reference_of(config)
     try:
         want = reference_outputs(config, descs, ticks, dev)
-    except shared.OutOfScope as err:
+    except reference.OutOfScope as err:
         refused, want = str(err), None
     if want is None:
         mism, sum_mism = [], []
     else:
         mism = compare.outputs(got, want)
-        ref_sums = [fold.member_summary(config["engine"], w) for w in want]
+        ref_sums = [model.member_summary(w) for w in want]
         sum_mism = [(d, m, key) for d, sums in enumerate(summaries)
                     for m, key in compare.summaries(sums, ref_sums)]
     failed = ({(d, m) for d, m, _ in sum_mism}

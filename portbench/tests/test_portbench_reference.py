@@ -7,7 +7,7 @@ import torch
 
 from conftest import tiny
 from portbench import compare, system
-from portbench.reference import fold, ids, receiver, shared
+from portbench.reference import ids, receiver, shared
 from portbench.traffic import generate
 
 
@@ -24,8 +24,8 @@ def test_one_dispatch_agrees_with_reference(engine):
     model = receiver if engine == "receiver" else shared
     want = [model.simulate(config, d, ticks, uni) for d in descs]
     assert compare.outputs(got, want) == []
-    assert compare.summaries(sums, [fold.member_summary(
-        config["engine"], w) for w in want]) == []
+    assert compare.summaries(sums, [model.member_summary(w)
+                                    for w in want]) == []
     # the scenario did the work the cell is for
     for s in sums:
         assert s["decisions"] == 1
