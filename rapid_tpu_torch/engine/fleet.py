@@ -17,11 +17,14 @@ into a ``FleetMember`` on a device:
 - a churn schedule without redraws rides along (an inert one otherwise).
 
 Slot identities default to the differential universe
-(``identity.default_identities``); a boot per shape is cached
-(``clear_boot_caches``) and each member patches in its dormant-slot
-identifier fingerprints. ``stack_members`` pads window rows, fallback
-instances (negative ``inst_epoch``) and pids (all-False rows) to the
-fleet's maxima, or to a campaign's larger ones, and stacks every leaf.
+(``identity.default_identities``); a boot per shape and boot member mask
+is cached (``clear_boot_caches``) and each member patches in its
+dormant-slot identifier fingerprints. Every slot of the padded universe
+boots a member unless ``member`` masks the boot view, so that a churn
+schedule's joiners start dormant. ``stack_members`` pads window rows,
+fallback instances (negative ``inst_epoch``) and pids (all-False rows) to
+the fleet's maxima, or to a campaign's larger ones, and stacks every
+leaf.
 
 Per-receiver members (``lower_receiver_schedule``,
 ``stack_receiver_members``) carry the receiver state in the layout that
@@ -87,8 +90,9 @@ class ReceiverMember(NamedTuple):
 
 
 #: Booted default-universe states, keyed by
-#: ``(n, len(uids), id_fp_sum, settings, device)``; members of one shape
-#: differ only in their dormant-slot identifier fingerprints.
+#: ``(n, len(uids), id_fp_sum, settings, device, mask)`` (``mask`` the
+#: boot member mask's bytes, None for every slot); members of one shape
+#: and mask differ only in their dormant-slot identifier fingerprints.
 _BOOT_CACHE: Dict[Tuple, EngineState] = {}
 
 #: Per-receiver boots (dense under "xla", packed otherwise), keyed by
@@ -158,12 +162,16 @@ def lower_schedule(schedule: AdversarySchedule, settings: Settings, *,
                    id_fps: Optional[np.ndarray] = None,
                    uids: Optional[Sequence[int]] = None,
                    id_fp_sum: Optional[int] = None,
+                   member: Optional[Sequence[bool]] = None,
                    device="cuda") -> FleetMember:
     """Compile one ``AdversarySchedule`` into a ``FleetMember`` on
     ``device`` (module docstring). ``churn`` (host or device) must carry
     no redraw script; delay rules are refused (the shared wire has no
     per-edge arrival ticks). The universe is padded to
-    ``settings.capacity`` when that exceeds ``schedule.n``."""
+    ``settings.capacity`` when that exceeds ``schedule.n``. ``member``
+    (bool ``[C]``) is the boot view, as ``state.init_state`` takes it:
+    slots outside it boot dormant; None boots every slot of the padded
+    universe a member."""
     dev = resolve_device(device)
     with span("rapid.lower.validate"):
         validate_schedule(schedule)
@@ -183,34 +191,42 @@ def lower_schedule(schedule: AdversarySchedule, settings: Settings, *,
         id_fp_sum = 0
     c = max(settings.capacity, n)
     eff = settings if settings.capacity == c else settings.with_(capacity=c)
-    if id_fps is not None and len(id_fps) > len(uids):
-        # id_fps spanning the padded universe: extend the uids with the
-        # boot's own pad rule so both stay slot-aligned.
+    if member is not None:
+        member = np.asarray(member, bool)
+        if member.shape != (c,):
+            raise ValueError(f"member mask of shape {member.shape}, the "
+                             f"universe has {c} slots")
+    span_to = c if member is not None else (
+        0 if id_fps is None else len(id_fps))
+    if span_to > len(uids):
+        # id_fps or a boot view spanning the padded universe: extend the
+        # uids with the boot's own pad rule so all stay slot-aligned.
         uids = list(uids) + [hashing.hash64(i, seed=0x636170)
-                             for i in range(len(id_fps) - len(uids))]
+                             for i in range(span_to - len(uids))]
     with span("rapid.lower.boot"):
         if default_universe:
-            key = (n, len(uids), id_fp_sum, eff, dev)
+            mask = None if member is None else member.tobytes()
+            key = (n, len(uids), id_fp_sum, eff, dev, mask)
             state = _BOOT_CACHE.get(key)
             if state is None:
-                state = _BOOT_CACHE[key] = init_state(uids, id_fp_sum, eff,
-                                                      device=dev)
+                state = _BOOT_CACHE[key] = init_state(
+                    uids, id_fp_sum, eff, member=member, device=dev)
             if id_fps is not None:
                 state = _patch_id_fps(state, id_fps, c)
         else:
-            state = init_state(uids, id_fp_sum, eff, id_fps=id_fps,
-                               device=dev)
+            state = init_state(uids, id_fp_sum, eff, member=member,
+                               id_fps=id_fps, device=dev)
     crash = np.full(c, I32_MAX, np.int64)
     crash[:n] = schedule.crash_tick_array()
     with span("rapid.lower.faults"):
         faults = link_faults(crash.tolist(), schedule.windows, c, device=dev)
     with span("rapid.lower.proposes"):
         fallback = _compile_proposes(schedule, _uids_np_from_state(state), c)
-    return FleetMember(
-        state=state, faults=faults,
-        churn=_to_device(churn_mod.empty_schedule(c) if churn is None
-                         else churn, dev),
-        fallback=_to_device(fallback, dev))
+    with span("rapid.lower.churn"):
+        churn = _to_device(churn_mod.empty_schedule(c) if churn is None
+                           else churn, dev)
+    return FleetMember(state=state, faults=faults, churn=churn,
+                       fallback=_to_device(fallback, dev))
 
 
 def _pad_fallback(sched: paxos.FallbackSchedule, n_inst: int,

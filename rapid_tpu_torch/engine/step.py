@@ -236,14 +236,16 @@ def _view_change(state: EngineState, pmask, with_pos: bool, group=SOLO):
     ihi, ilo = group.sum64(*hashing.sum64_axis(state.idfp_hi * joined,
                                                state.idfp_lo * joined))
     id_hi, id_lo = hashing.add64(state.idsum_hi, state.idsum_lo, ihi, ilo)
-    subj, obs, gk, fd_active, fd_first = rebuild(
-        member, state.ring_order, state.ring_rank, group)
-    out = dict(member=member, memsum_hi=ms_hi, memsum_lo=ms_lo,
-               idsum_hi=id_hi, idsum_lo=id_lo, subj_idx=subj, obs_idx=obs,
-               gk_idx=gk, fd_active=fd_active, fd_first=fd_first)
-    if with_pos:
-        out["px_pos"] = paxos.ring0_positions(member, state.ring_order,
-                                              state.ring_rank, group)
+    with span("rapid.step.rebuild"):
+        subj, obs, gk, fd_active, fd_first = rebuild(
+            member, state.ring_order, state.ring_rank, group)
+        out = dict(member=member, memsum_hi=ms_hi, memsum_lo=ms_lo,
+                   idsum_hi=id_hi, idsum_lo=id_lo, subj_idx=subj,
+                   obs_idx=obs, gk_idx=gk, fd_active=fd_active,
+                   fd_first=fd_first)
+        if with_pos:
+            out["px_pos"] = paxos.ring0_positions(member, state.ring_order,
+                                                  state.ring_rank, group)
     return out
 
 
@@ -465,9 +467,10 @@ def _step(state: EngineState, faults: EngineFaults, settings: Settings,
     delivered_down = cut.deliver_reports(mid, src_alive_all, group)
     delivered_up = None
     if churn is not None and host.churn_may_deliver(t):
-        churn_down, delivered_up = cut.deliver_churn_reports(mid,
-                                                             src_alive_all)
-        delivered_down = delivered_down | churn_down
+        with span("rapid.step.churn_deliver"):
+            churn_down, delivered_up = cut.deliver_churn_reports(
+                mid, src_alive_all)
+            delivered_down = delivered_down | churn_down
     (reports, seen_down, announce_now, crossed, _explicit,
      implicit_added, announce) = cut.aggregate(
         mid, delivered_down, delivered_up, n_alive > 0, settings, group)
@@ -1049,9 +1052,10 @@ def _fleet_step(state: EngineState, faults: EngineFaults, settings: Settings,
         if t - 2 in host.inject_ticks or t <= host.start + 2:
             # Off its own injection ticks a member's churn batch is empty, so
             # the delivery adds nothing there.
-            churn_down, delivered_up = member_map(cut.deliver_churn_reports,
-                                                  mid, src_alive_all)
-            delivered_down = delivered_down | churn_down
+            with span("rapid.step.churn_deliver"):
+                churn_down, delivered_up = member_map(
+                    cut.deliver_churn_reports, mid, src_alive_all)
+                delivered_down = delivered_down | churn_down
         (reports, seen_down, announce_now, crossed, _explicit,
          implicit_added) = member_map(
             lambda s, d, u, a: cut.aggregate_device(s, d, u, a, settings,
