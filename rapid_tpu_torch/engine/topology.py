@@ -4,11 +4,11 @@ Each ring ``k`` orders the slot universe by ``hash64(uid, seed=k)`` with
 the uid as tiebreak. The order is static (identities are fixed at boot;
 an identifier redraw moves one slot with ``rank_and_insert``), so
 ``ring_permutations`` sorts once on the host and a view change is
-sort-free: gather the member mask into ring order, scan for each
-position's nearest member before and after it (``cummax``/``cummin``),
-and gather back. ``build_topology`` takes any number of leading
-(receiver) axes on ``member``: the per-receiver engine rebuilds every
-receiver's view in one batched call.
+sort-free: gather the member mask into ring order, scan every ring at
+once for each position's nearest member before it (``cummax``), and
+scatter back. ``build_topology`` takes any number of leading (receiver)
+axes on ``member``: the per-receiver engine rebuilds every receiver's
+view in one batched call.
 
 On a slot mesh the rebuild stays replicated, as the reference pins it:
 ``rebuild`` all-gathers the member mask and the ring tables, runs
@@ -74,30 +74,20 @@ def rank_and_insert(slot: int, uid_hi, uid_lo, ring_order, ring_rank):
     return torch.stack(orders, dim=1), torch.stack(ranks, dim=1)
 
 
-def _pred_succ_pos(member_s, n):
-    """Nearest-member ring positions from the mask in ring order
-    (``[..., C]``): ``pgpos[p]`` is the last member strictly before ``p``
-    (members) or at-or-before ``p`` (non-members), ``succpos[p]`` the first
-    member strictly after ``p``; both wrap, and an empty view gives 0."""
-    c = member_s.shape[-1]
-    pos = torch.arange(c, dtype=torch.int64, device=member_s.device)
-    lead = member_s.shape[:-1]
-    prev_incl = torch.cummax(
-        torch.where(member_s, pos, -1), dim=-1).values
-    prev_excl = torch.cat(
-        [torch.full(lead + (1,), -1, dtype=torch.int64,
-                    device=member_s.device), prev_incl[..., :-1]], dim=-1)
-    pgpos = torch.where(member_s, prev_excl, prev_incl)
-    lastf = torch.where(n > 0, prev_incl[..., -1], 0)
-    pgpos = torch.where(pgpos < 0, lastf[..., None], pgpos)
-    next_incl = torch.cummin(
-        torch.where(member_s, pos, c).flip(-1), dim=-1).values.flip(-1)
-    next_excl = torch.cat(
-        [next_incl[..., 1:], torch.full(lead + (1,), c, dtype=torch.int64,
-                                        device=member_s.device)], dim=-1)
-    firstf = torch.where(n > 0, next_incl[..., 0], 0)
-    succpos = torch.where(next_excl >= c, firstf[..., None], next_excl)
-    return pgpos, succpos
+def _pred_pos(member_s):
+    """Ring positions (int64, for the gathers) of each position's last
+    member strictly before it, from the mask in ring order
+    (``[..., K, C]``): the inclusive ``cummax`` of member positions
+    shifted one on. Positions before the ring's first member wrap to its
+    last, and an empty view gives 0. A non-member's at-or-before query
+    (its gatekeeper) is the same value, as the position itself is no
+    member."""
+    pos = torch.arange(member_s.shape[-1], dtype=torch.int32,
+                       device=member_s.device)
+    prev = torch.cummax(torch.where(member_s, pos, -1),
+                        dim=-1).values.roll(1, -1)
+    last = prev[..., :1].clamp(min=0)
+    return torch.where(prev < 0, last, prev).to(torch.int64)
 
 
 def build_topology(member, ring_order, ring_rank):
@@ -110,34 +100,42 @@ def build_topology(member, ring_order, ring_rank):
     - ``fd_active[n, j]``: True on the first ring slot of each unique
       subject; ``fd_first[n, j]`` the first ring slot sharing slot j's
       subject.
+
+    All K rings go through one ``[..., K, C]`` pass: one gather into ring
+    order, one scan (``_pred_pos``), and one scatter of the predecessors
+    back to slot order through ``ring_order``. ``subj_idx`` is then a
+    permutation of the slots (members shifted along each ring,
+    non-members fixed), and ``obs_idx`` is its inverse. ``ring_rank``,
+    the inverse of ``ring_order``, is not read. Each temporary is dropped
+    once used (``del``), which keeps the pass's peak under twice the bytes
+    of its outputs.
     """
     c, k = ring_order.shape
     member = member.to(torch.bool)
-    n = member.sum(dim=-1)
-    slots = torch.arange(c, dtype=torch.int64, device=member.device)
-    order_all = ring_order.to(torch.int64)
-    rank_all = ring_rank.to(torch.int64)
-    subj_cols, obs_cols, gk_cols = [], [], []
-    for ring in range(k):
-        order = order_all[:, ring]
-        rank = rank_all[:, ring]
-        pgpos, succpos = _pred_succ_pos(member[..., order], n)
-        pg = order[pgpos[..., rank]]
-        succ = order[succpos[..., rank]]
-        subj_cols.append(torch.where(member, pg, slots).to(torch.int32))
-        obs_cols.append(torch.where(member, succ, slots).to(torch.int32))
-        gk_cols.append(torch.where(member, slots, pg).to(torch.int32))
-    usable = member & (n >= 2)[..., None]
-    fd_first_cols, fd_active_cols = [], []
-    for j in range(k):
-        first = torch.full_like(subj_cols[j], j)
-        for i in range(j - 1, -1, -1):
-            first = torch.where(subj_cols[i] == subj_cols[j], i, first)
-        fd_first_cols.append(first)
-        fd_active_cols.append((first == j) & usable)
-    stack = lambda cols: torch.stack(cols, dim=-1)
-    return (stack(subj_cols), stack(obs_cols), stack(gk_cols),
-            stack(fd_active_cols), stack(fd_first_cols))
+    dev = member.device
+    shape = member.shape[:-1] + (k, c)
+    order = ring_order.mT.to(
+        torch.int64, memory_format=torch.contiguous_format).expand(shape)
+    pg = torch.gather(ring_order.mT.expand(shape), -1, _pred_pos(
+        torch.gather(member.unsqueeze(-2).expand(shape), -1, order)))
+    pg = pg.scatter(-1, order, pg)
+    del order
+    slots = torch.arange(c, dtype=torch.int32, device=dev).expand(shape)
+    member_k = member.unsqueeze(-2)
+    subj = torch.where(member_k, pg, slots)
+    gk = torch.where(member_k, slots, pg).mT.contiguous()
+    del pg
+    # The first ring i with ring j's subject, over [..., K(i), K(j), C]:
+    # ring j itself matches, so i <= j.
+    ring = torch.arange(k, dtype=torch.int8, device=dev)
+    fd_first = torch.where(subj.unsqueeze(-2) == subj.unsqueeze(-3),
+                           ring[:, None, None], k).amin(dim=-3).mT.to(
+        torch.int32, memory_format=torch.contiguous_format)
+    obs = slots.scatter(-1, subj.to(torch.int64), slots).mT.contiguous()
+    subj = subj.mT.contiguous()
+    usable = member & (member.sum(dim=-1) >= 2)[..., None]
+    fd_active = (fd_first == ring) & usable[..., None]
+    return subj, obs, gk, fd_active, fd_first
 
 
 def rebuild(member, ring_order, ring_rank, group=SOLO):

@@ -275,8 +275,9 @@ class _CountOps(TorchDispatchMode):
 #: Aten ops of ``_rapid_run`` on the tree before the variants, the
 #: invariant monitor and the flight recorder were ported (13,417), less
 #: the one op the fleets' out-of-place ``votes.segmented_vote_count``
-#: saves on the run's one vote tick.
-RAPID_OPS = 13416
+#: saves on the run's one vote tick, less the 556 the one-pass
+#: ``topology.build_topology`` saves on its one view change (607 → 51).
+RAPID_OPS = 12860
 
 
 def _rapid_run():
