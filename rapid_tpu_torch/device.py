@@ -43,6 +43,15 @@ def read_host(*scalars):
         return flat.tolist()
 
 
+def read_flags(mask):
+    """A bool numpy copy of a bool tensor (a fleet's ``[F]`` flags),
+    copied to the host in one transfer (and counted in ``host_reads``)."""
+    global host_reads
+    host_reads += 1
+    with span("rapid.read"):
+        return mask.cpu().numpy().copy()
+
+
 def read_arrays(*tensors):
     """Int64 numpy copies of integer or bool tensors of any shapes,
     copied to the host in one transfer (and counted in ``host_reads``)."""

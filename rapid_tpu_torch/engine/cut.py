@@ -24,6 +24,12 @@ from rapid_tpu_torch.device import read_host
 from rapid_tpu_torch.engine.sharding import SOLO
 
 
+def _at(x, idx):
+    """``x[idx]`` of a ``[..., C]`` tensor at ``[..., D, K]`` slot
+    indices, each leading index (a fleet's member) its own."""
+    return torch.gather(x, -1, idx.flatten(-2)).reshape(idx.shape)
+
+
 def deliver_reports(state, src_alive, group=SOLO):
     """bool [C, K]: monitor DOWN reports landing in the shared detector.
 
@@ -31,10 +37,11 @@ def deliver_reports(state, src_alive, group=SOLO):
     ring-j observer of ``dst`` (``obs_idx``) is the one reporter for
     ``(dst, j)``, and a batch whose sender crashed before delivery is
     dropped. ``src_alive`` covers the whole slot universe; on a slot mesh
-    the rows are the shard's and ``pending_deliver`` is all-gathered."""
+    the rows are the shard's and ``pending_deliver`` is all-gathered.
+    Leading axes of every input (a fleet's members) are kept."""
     obs = state.obs_idx.long()
-    pending = group.all_gather(state.pending_deliver)
-    return torch.gather(pending, 0, obs) & src_alive[obs]
+    pending = group.all_gather(state.pending_deliver, dim=-2)
+    return torch.gather(pending, -2, obs) & _at(src_alive, obs)
 
 
 def deliver_churn_reports(state, src_alive):
@@ -44,10 +51,11 @@ def deliver_churn_reports(state, src_alive):
     tick. A leaver's K observers (``obs_idx``) each report DOWN; a
     joiner's K gatekeepers (``gk_idx``) each report UP. Rings whose
     source crashed before delivery are dropped. ``src_alive`` covers the
-    whole slot universe (the rows may be a shard's)."""
-    member = state.member[:, None]
+    whole slot universe (the rows may be a shard's). Leading axes are
+    kept."""
+    member = state.member[..., None]
     src = torch.where(member, state.obs_idx, state.gk_idx).long()
-    ok = state.churn_deliver[:, None] & src_alive[src]
+    ok = state.churn_deliver[..., None] & _at(src_alive, src)
     return ok & member, ok & ~member
 
 
@@ -95,30 +103,34 @@ def aggregate(state, delivered_down, delivered_up, any_receiver, settings,
 
 def aggregate_device(state, delivered_down, delivered_up, any_receiver,
                      settings, group=SOLO):
-    """``aggregate``'s six device results, without the read; a fleet maps
-    it over its members and reads their ``announce_now`` at once. On a
+    """``aggregate``'s six device results, without the read. Leading axes
+    of every input (a fleet's members) are kept, so a fleet runs it on
+    all members at once and reads their ``announce_now`` together. On a
     slot mesh ``reports`` and ``proposal`` are the shard's rows and the
     rest is all-reduced."""
     lo, hi = settings.L, settings.H
-    gate = any_receiver & ~state.announced
-    member = state.member[:, None]
+    plane = (-2, -1)
+    gate = (any_receiver & ~state.announced)[..., None, None]
+    member = state.member[..., None]
     new = delivered_down & member & gate
-    new_down = new.any()
+    new_down = new.any(plane)
     if delivered_up is not None:
         new = new | (delivered_up & ~member & gate)
-    new_down, any_new = group.any(new_down, new.any())
+    new_down, any_new = group.any(new_down, new.any(plane))
     seen_down = state.seen_down | new_down
-    explicit_added = group.sum((new & ~state.reports).sum()).to(torch.int32)
+    explicit_added = group.sum((new & ~state.reports).sum(plane)).to(
+        torch.int32)
     reports = state.reports | new
 
     eff_obs = torch.where(member, state.obs_idx, state.gk_idx).long()
-    reports, added = _invalidate(reports, eff_obs, any_new & seen_down, lo,
+    reports, added = _invalidate(reports, eff_obs,
+                                 (any_new & seen_down)[..., None, None], lo,
                                  hi, group)
-    counts = reports.sum(dim=1)
+    counts = reports.sum(dim=-1)
     crossed = counts >= hi
-    implicit_added = group.sum(added.sum()).to(torch.int32)
-    in_flux, any_crossed = group.any(((counts >= lo) & (counts < hi)).any(),
-                                     crossed.any())
+    implicit_added = group.sum(added.sum(plane)).to(torch.int32)
+    in_flux, any_crossed = group.any(((counts >= lo) & (counts < hi)).any(-1),
+                                     crossed.any(-1))
     announce_now = any_new & ~in_flux & any_crossed & ~state.announced
     return (reports, seen_down, announce_now, crossed, explicit_added,
             implicit_added)

@@ -176,22 +176,9 @@ class FallbackTicks:
     them.
     """
 
-    def __init__(self, prop_tick, prop_pid, prop_delay, inst_epoch):
-        self.inst_epoch = np.asarray(inst_epoch)
-        voter = np.asarray(prop_pid) >= 0
-        tick = np.asarray(prop_tick)
-        rows = range(len(self.inst_epoch))
-        self.send = [set(tick[e][voter[e]].tolist()) for e in rows]
-        fire = _wrap32(tick.astype(np.int64) + np.asarray(prop_delay))
-        self.fire = [set(fire[e][voter[e]].tolist()) for e in rows]
-        # The reference adds 1 to int32 ticks: I32_MAX wraps to the least
-        # int32, which is at or before every tick.
-        arrive = _wrap32(tick.astype(np.int64) + 1)
-        self.arrivals = [np.unique(arrive[e][voter[e]]) for e in rows]
-
     @classmethod
     def from_rows(cls, inst_epoch, send, fire) -> "FallbackTicks":
-        """The same object from each row's distinct send and fire ticks
+        """The tick sets from each row's distinct send and fire ticks
         (int32 arrays in any order), as ``split_keys`` gives them from
         ``tick_keys``. Adding 1 is a bijection of 32-bit ticks, so the
         distinct arrival ticks are the distinct send ticks plus 1,
@@ -203,9 +190,6 @@ class FallbackTicks:
         self.arrivals = [np.sort(_wrap32(s.astype(np.int64) + 1))
                          for s in send]
         return self
-
-    def row(self, epoch: int) -> Tuple[int, bool]:
-        return instance_row(self.inst_epoch, epoch)
 
     def arrived(self, e: int, t: int) -> int:
         """How many distinct vote-arrival ticks of row ``e`` are at or

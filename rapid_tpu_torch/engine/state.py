@@ -12,6 +12,7 @@ Those fields are exactly the ones whose names end in ``_hi`` or ``_lo``.
 """
 from __future__ import annotations
 
+import operator
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -111,7 +112,13 @@ def member_map(fn, *args):
     values pass through unbatched, so ``fn`` sees one member's pytrees as
     the single-cluster code does. ``fn`` returns tensors or pytrees of
     tensors, which come back with the member axis first.
+
+    A ``vmap`` over one member is the call on that member, so a member
+    axis of 1 runs ``fn`` on every tensor's ``[0]`` and puts the axis
+    back on its outputs, without ``vmap``'s cost per op.
     """
+    if _lead_size(args) == 1:
+        return _each(_ONE_BACK, fn(*_each(_ONE_OUT, args)))
     leaves, spec = _pytree.tree_flatten(args)
     at = [i for i, leaf in enumerate(leaves) if torch.is_tensor(leaf)]
 
@@ -122,6 +129,43 @@ def member_map(fn, *args):
         return fn(*_pytree.tree_unflatten(full, spec))
 
     return torch.func.vmap(one)(*[leaves[i] for i in at])
+
+
+#: A fleet of one's member out of a tensor, and the member axis back on.
+_ONE_OUT, _ONE_BACK = operator.itemgetter(0), operator.itemgetter(None)
+
+
+def _each(fn, tree):
+    """``tree`` with ``fn`` applied to each of its tensors (inside
+    NamedTuples, tuples, lists, dicts, ``EngineFaults``), the rest kept:
+    ``member_map``'s walk of a fleet of one, cheaper than a pytree's."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, (tuple, list)):
+        items = [fn(x) if isinstance(x, torch.Tensor) else _each(fn, x)
+                 for x in tree]
+        return tree._make(items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    if isinstance(tree, dict):
+        return {k: _each(fn, v) for k, v in tree.items()}
+    if isinstance(tree, EngineFaults):
+        leaves, config = _faults_flatten(tree)
+        return _faults_unflatten([_each(fn, x) for x in leaves], config)
+    return tree
+
+
+def _lead_size(tree) -> Optional[int]:
+    """The leading size of the first tensor in ``tree`` (as ``_each``
+    walks it), None when it holds no tensor."""
+    if isinstance(tree, torch.Tensor):
+        return tree.shape[0]
+    if isinstance(tree, EngineFaults):
+        tree = _faults_flatten(tree)[0]
+    elif isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return None
+    return next((n for n in map(_lead_size, tree) if n is not None), None)
 
 
 class EngineState(NamedTuple):

@@ -354,6 +354,21 @@ def test_scheduled_redraw_run_equals_reference():
                               np.asarray(state.ring_order))
 
 
+def test_simulate_reads_once_per_redraw_tick():
+    """Each of the schedule's redraw ticks reads once whether a dormant
+    slot redraws and which: dormant slot 12 at tick 3, and member slot 5
+    at tick 5, which does not redraw; the other ticks read nothing more,
+    and the run equals the reference's."""
+    state, sched = _redraw_scenario()
+    sched.redraw_tick[5] = 5
+    faults = ref_crash_faults([I32_MAX] * 13)
+    want = ref_step.simulate(state, faults, 8, SETTINGS, churn=sched)
+    (got, got_logs), reads = _port_run(state, faults, 8, sched)
+    _assert_same(got, want[0])
+    _assert_same(got_logs, want[1])
+    assert reads == 2 + 8 + 2
+
+
 def test_simulate_refuses_a_schedule_on_another_device():
     plan, state, faults, _ = _boot("n64_leave_burst")
     sched = from_reference(plan.schedule, device="cpu")

@@ -6,8 +6,7 @@ distinct ``paxos.tick_keys`` (send and fire ticks) of the fallback
 schedules. Its ``inject_ticks``, each member's ``FallbackTicks``
 (``send``, ``fire`` and the sorted ``arrivals``) and the unions
 ``fire_any``, ``send_any`` and ``arrive_any`` must equal what the whole
-schedules give through sets and ``FallbackTicks``' array constructor,
-which ``step._Host`` keeps. At
+schedules give through numpy sets (``_host_ticks``, here). At
 N=4,096 and F=4 the start read of one ``fleet_simulate`` moves the
 distinct ticks and the ``[F]`` vectors (``step.fleet_schedule_values``),
 not ``F x C`` values.
@@ -97,11 +96,28 @@ def _host(case):
                             epoch=torch.arange(F, dtype=torch.int32),
                             member=torch.ones((F, C), dtype=torch.bool))
     churn = SimpleNamespace(join_tick=i32(got["join"]),
-                            leave_tick=i32(got["leave"]))
+                            leave_tick=i32(got["leave"]), redraw_tick=None)
     fallback = SimpleNamespace(
         prop_tick=i32(got["prop_tick"]), prop_pid=i32(got["prop_pid"]),
         prop_delay=i32(got["prop_delay"]), inst_epoch=i32(inst_epoch))
     return step._FleetHost(state, churn, fallback), got, inst_epoch
+
+
+def _host_ticks(prop_tick, prop_pid, prop_delay, inst_epoch):
+    """One member's tick sets from its whole ``[I, C]`` schedule: each
+    row's voters' send ticks, fire ticks (``prop_tick + prop_delay``) and
+    sorted distinct arrival ticks (``prop_tick + 1``), in int32 as the
+    device wraps them (``I32_MAX + 1`` is the least int32)."""
+    voter = np.asarray(prop_pid) >= 0
+    tick = np.asarray(prop_tick).astype(np.int64)
+    fire = paxos._wrap32(tick + np.asarray(prop_delay))
+    arrive = paxos._wrap32(tick + 1)
+    rows = range(len(inst_epoch))
+    return SimpleNamespace(
+        inst_epoch=np.asarray(inst_epoch),
+        send=[set(tick[e][voter[e]].tolist()) for e in rows],
+        fire=[set(fire[e][voter[e]].tolist()) for e in rows],
+        arrivals=[np.unique(arrive[e][voter[e]]) for e in rows])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -110,7 +126,7 @@ def test_device_tables_equal_host_derivation(case):
     assert host.tick == 4 and host.epoch.tolist() == list(range(F))
     assert host.inject_ticks == set(got["join"].ravel().tolist()) | set(
         got["leave"].ravel().tolist())
-    want = [paxos.FallbackTicks(*rows) for rows in zip(
+    want = [_host_ticks(*rows) for rows in zip(
         got["prop_tick"], got["prop_pid"], got["prop_delay"], inst_epoch)]
     for m, (fb, ref) in enumerate(zip(host.fb.per, want)):
         assert np.array_equal(fb.inst_epoch, ref.inst_epoch), m

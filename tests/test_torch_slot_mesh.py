@@ -327,12 +327,13 @@ def test_non_dividing_capacity_replicates_and_equals_the_reference(
 def test_shard_local_carries_are_partitioned(ref_mesh8, monkeypatch):
     """The counterpart of the reference's ``_assert_partitioned``: every
     leaf the reference's ``spec_for`` puts on the slot axis holds ``C /
-    D`` rows in each shard's tick, every other leaf its whole shape, and
-    ``cut.aggregate`` runs on ``[C / D, K]``."""
+    D`` rows in each shard's tick (one cluster runs as a fleet of one,
+    so every leaf has a member axis of 1 in front), every other leaf its
+    whole shape, and ``cut.aggregate_device`` runs on ``[1, C / D, K]``."""
     sc, (want_final, _) = _reference("contested")
     c, d = 16, 8
     seen_states, seen_reports = [], []
-    real_step, real_agg = step._step, cut.aggregate_device
+    real_step, real_agg = step._fleet_step, cut.aggregate_device
 
     def spy_step(state, *args, **kw):
         seen_states.append((threading.get_ident(), state))
@@ -342,7 +343,7 @@ def test_shard_local_carries_are_partitioned(ref_mesh8, monkeypatch):
         seen_reports.append(tuple(state.reports.shape))
         return real_agg(state, *args, **kw)
 
-    monkeypatch.setattr(step, "_step", spy_step)
+    monkeypatch.setattr(step, "_fleet_step", spy_step)
     monkeypatch.setattr(cut, "aggregate_device", spy_agg)
     final, _ = _run_on(sharding.slot_mesh(d, device="cpu"), sc)
     _assert_same(final, want_final, "final")
@@ -352,11 +353,12 @@ def test_shard_local_carries_are_partitioned(ref_mesh8, monkeypatch):
         for name, leaf, ref_leaf in zip(state._fields, state, want_final):
             shape = np.asarray(ref_leaf).shape
             spec = tuple(ref_sharding.spec_for(shape, c, ref_mesh8))
-            want = list(shape)
+            want = [1] + list(shape)
             if sharding.AXIS in spec:
-                want[spec.index(sharding.AXIS)] = c // d
+                want[1 + spec.index(sharding.AXIS)] = c // d
             assert list(leaf.shape) == want, name
-    assert seen_reports and set(seen_reports) == {(c // d, Settings().K)}
+    assert seen_reports and set(seen_reports) == {(1, c // d,
+                                                   Settings().K)}
 
 
 def test_reference_state_on_its_mesh_carries_across(ref_mesh8):

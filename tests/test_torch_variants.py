@@ -276,8 +276,15 @@ class _CountOps(TorchDispatchMode):
 #: invariant monitor and the flight recorder were ported (13,417), less
 #: the one op the fleets' out-of-place ``votes.segmented_vote_count``
 #: saves on the run's one vote tick, less the 556 the one-pass
-#: ``topology.build_topology`` saves on its one view change (607 → 51).
-RAPID_OPS = 12860
+#: ``topology.build_topology`` saves on its one view change (607 → 51):
+#: 12,860 while one cluster had a tick of its own. Run as a fleet of one
+#: through the one tick it dispatches 13,889: 1,422 more views
+#: (``member_map``'s ``[0]`` and ``[None]``, the cut phase's
+#: ``[..., None]`` and flattened gathers over the member axis, the reads'
+#: ``detach``) and 393 fewer ops that launch a kernel on the card (the
+#: reads' int64 casts and stacks, a quiet tick's zeros); reductions over
+#: ``dim=-1`` replace whole ones one for one.
+RAPID_OPS = 13889
 
 
 def _rapid_run():
